@@ -7,10 +7,11 @@ T_final / out_observe / radii / visibility, the budget counters, and with
 depth_normal planes.
 
 Backends (`RasterConfig.backend`):
-  * "blend" (default): the hand-written CUDA forward blend on CUDA tensors
-    (raster/cuda_blend.py), its plain PyTorch version on CPU tensors;
-  * "plain": the plain PyTorch blend on any device (tests, and holding the
-    kernel against it);
+  * "blend" (default): the hand-written CUDA forward and backward blend on
+    CUDA tensors (raster/cuda_blend.py), their plain PyTorch versions on CPU
+    tensors, behind the autograd Function of raster/blend_autograd.py;
+  * "plain": the plain PyTorch blend on any device, differentiated by
+    autograd (tests, and holding the kernels against it);
   * "oracle": the dense reference rasterizer.
 `render` runs on the device its inputs lie on.
 """
@@ -24,7 +25,7 @@ import torch
 from hidegs_tpu_torch.core import sh as shm
 from hidegs_tpu_torch.core.camera_math import CameraParams
 from hidegs_tpu_torch.core.geometry import depth_to_normal_cam, plane_depth_from_blend
-from hidegs_tpu_torch.raster import blend_plain, cuda_blend
+from hidegs_tpu_torch.raster import blend_autograd, blend_plain
 from hidegs_tpu_torch.raster.binning import TILE, bin_gaussians, tile_grid
 from hidegs_tpu_torch.raster.oracle import render_oracle
 from hidegs_tpu_torch.raster.preprocess import compact_visible, preprocess_gaussians
@@ -135,7 +136,7 @@ def render(
         pre, tiles_y, tiles_x, config.max_instances, config.tile,
         depth_bits=config.depth_sort_bits,
     )
-    blend = cuda_blend.blend_tiles if config.backend == "blend" else blend_plain.blend_tiles
+    blend = blend_autograd.blend_tiles if config.backend == "blend" else blend_plain.blend_tiles
     planes = blend(pre, tb, tiles_y, tiles_x, config.tile, config.max_blocks)
     blocks_needed = blend_plain.needed_blocks(tb.tile_count)
     block_overflow = torch.zeros((), dtype=torch.int32, device=dev)

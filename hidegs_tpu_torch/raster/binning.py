@@ -157,7 +157,7 @@ def bin_gaussians(
     tid = torch.where(valid, tid, num_tiles)
     gid = torch.where(valid, g, N)
     owner = torch.where(slots < total, g, N).to(torch.int32)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
     depth = torch.where(valid, pre.depth[gl], inf)
 
     if depth_bits:

@@ -9,18 +9,24 @@ instance list,
     out[tile] = Σ_{i in tile} w_i · channels_i
 
 It is the CPU path of the "blend" backend, the "plain" backend, and the
-version the CUDA kernel (raster/cuda_blend.py) is held against. Its memory is
+version the CUDA kernels (raster/cuda_blend.py) are held against. Its memory is
 O(instances · tile pixels), so it walks the stream in groups of whole tiles
 of at most GROUP_INSTANCES instances. The per-tile log-transmittance sums
 run in float64 (one cumsum over the group minus each tile's head), so they
 carry no cancellation error from the earlier tiles of the group.
 
-Also here: the 16-channel per-tile plane layout shared with the kernel and
-the 128-instance block budget (`max_blocks`) of the JAX Pallas path.
+`blend_tiles_bwd` is the backward of the same closed form (the
+counterpart of hidegs_tpu/raster/pallas_vjp.py:_passB_kernel): per sorted
+instance, the gradient of the tile planes with respect to its packed row.
+`fold_rows` sums those rows per gaussian.
+
+Also here: the packed per-gaussian row and the 16-channel per-tile plane
+layout shared with the kernels, and the 128-instance block budget
+(`max_blocks`) of the JAX Pallas path.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -33,6 +39,11 @@ ALPHA_MAX = 0.99
 # Per-tile output planes (T, P, OUT_CH): [0:3] rgb [3] invdepth [4:7] normal
 # [7] distance [8] acc_alpha [9] T_final [10:16] pad.
 OUT_CH = 16
+# Packed per-gaussian row (N, ATTR), the kernels' input and the layout of the
+# gradient rows: [0:2] mean2d [2:5] conic [5] opacity [6:9] rgb [9] invdepth
+# [10:13] normal [13] distance [14:16] pad.
+ATTR = 16
+GRAD_COLS = 14  # columns of a gradient row that carry values
 # Instances per budget block: `max_blocks` counts 128-instance blocks, each
 # tile's span padded to a multiple of CHUNK, as in the JAX Pallas path.
 CHUNK = 128
@@ -88,8 +99,9 @@ def tiles_to_planes(tile_out: torch.Tensor, tiles_y: int, tiles_x: int, tile: in
 def _tile_groups(binning: TileBinning, count: torch.Tensor):
     """Consecutive tile ranges [t0, t1) with at most GROUP_INSTANCES
     instances each (a larger tile forms a group of its own). Yields (t0, t1,
-    gid, tid, head): the group's gaussian and absolute tile ids, and the
-    group-local index of each instance's tile head."""
+    gid, tid, head, s0): the group's gaussian and absolute tile ids, the
+    group-local index of each instance's tile head, and the sorted position
+    of the group's first instance."""
     counts = count.tolist()
     starts = binning.tile_start.tolist()
     t, T = 0, len(counts)
@@ -101,17 +113,33 @@ def _tile_groups(binning: TileBinning, count: torch.Tensor):
         if n > 0:
             s0 = starts[t]
             tid = binning.tile_id[s0:s0 + n].long()
-            yield t, t1, binning.gauss_id[s0:s0 + n].long(), tid, binning.tile_start[tid].long() - s0
+            yield t, t1, binning.gauss_id[s0:s0 + n].long(), tid, binning.tile_start[tid].long() - s0, s0
         t = t1
 
 
-def _visited_count(binning: TileBinning, max_blocks: int):
+def visited_and_count(binning: TileBinning, max_blocks: int):
+    """(T,) visited mask and (T,) int32 span lengths with the unvisited
+    tiles' set to 0."""
     visited = visited_tiles(binning.tile_count, binning.gauss_id.shape[0], max_blocks)
     return visited, torch.where(visited, binning.tile_count, torch.zeros_like(binning.tile_count))
 
 
-def _group_alpha(pre, gid, tid, head, tiles_x: int, tile: int):
-    """(n, P) α of each instance at each pixel of its tile, its keep mask,
+class GroupAlpha(NamedTuple):
+    """Per-(instance, pixel) quantities of one tile group, each (n, P)."""
+
+    dx: torch.Tensor
+    dy: torch.Tensor
+    power: torch.Tensor
+    alpha_raw: torch.Tensor  # op·exp(min(power, 0)), before the 0.99 clamp
+    alpha: torch.Tensor  # clamped, zero where not kept
+    keep: torch.Tensor
+    lt64: torch.Tensor  # log(1-α) in float64
+    T_excl: torch.Tensor
+    T_incl: torch.Tensor
+
+
+def _group_alpha(pre, gid, tid, head, tiles_x: int, tile: int) -> GroupAlpha:
+    """α of each instance at each pixel of its tile, its keep mask,
     log(1-α) in float64, and the transmittance before and after it."""
     P = tile * tile
     dev = gid.device
@@ -132,7 +160,8 @@ def _group_alpha(pre, gid, tid, head, tiles_x: int, tile: int):
         -0.5 * (conic[:, 0:1] * dx * dx + conic[:, 2:3] * dy * dy)
         - conic[:, 1:2] * dx * dy
     )
-    alpha = torch.clamp(opacity[:, None] * torch.exp(torch.clamp(power, max=0.0)), max=ALPHA_MAX)
+    alpha_raw = opacity[:, None] * torch.exp(torch.clamp(power, max=0.0))
+    alpha = torch.clamp(alpha_raw, max=ALPHA_MAX)
     keep = (power <= 0.0) & (alpha >= ALPHA_MIN)
     alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
 
@@ -143,7 +172,7 @@ def _group_alpha(pre, gid, tid, head, tiles_x: int, tile: int):
     base = cs_excl[head]
     T_excl = torch.exp((cs_excl - base).to(torch.float32))
     T_incl = torch.exp((cs - base).to(torch.float32))
-    return alpha, keep, lt64, T_excl, T_incl
+    return GroupAlpha(dx, dy, power, alpha_raw, alpha, keep, lt64, T_excl, T_incl)
 
 
 def _blend_group(pre, gid, tid, head, tiles_x: int, tile: int, n_tiles: int, t0: int):
@@ -151,8 +180,9 @@ def _blend_group(pre, gid, tid, head, tiles_x: int, tile: int, n_tiles: int, t0:
     (n,) int32 observe counts)."""
     dev = gid.device
     P = tile * tile
-    alpha, _, lt64, T_excl, T_incl = _group_alpha(pre, gid, tid, head, tiles_x, tile)
-    w = T_excl * alpha * (T_incl >= T_EPS)
+    ga = _group_alpha(pre, gid, tid, head, tiles_x, tile)
+    alpha, lt64, T_excl = ga.alpha, ga.lt64, ga.T_excl
+    w = T_excl * alpha * (ga.T_incl >= T_EPS)
 
     local = tid - t0
     chans = [
@@ -175,6 +205,32 @@ def _blend_group(pre, gid, tid, head, tiles_x: int, tile: int, n_tiles: int, t0:
     return out, observe
 
 
+def blend_tile_out(
+    pre,
+    binning: TileBinning,
+    tiles_y: int,
+    tiles_x: int,
+    tile: int = TILE,
+    max_blocks: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (T, P, OUT_CH) tile planes, with empty and unvisited tiles at
+    the background defaults, and the (N,) int32 per-gaussian observe
+    counts. `pre` is a PreprocessedGaussians or the `unpack_attrs` view of
+    a packed matrix."""
+    N = pre.mean2d.shape[0]
+    T = tiles_y * tiles_x
+    P = tile * tile
+    dev = pre.mean2d.device
+    visited, count = visited_and_count(binning, max_blocks)
+    tile_out = torch.zeros((T, P, OUT_CH), dtype=torch.float32, device=dev)
+    observe = torch.zeros((N,), dtype=torch.int32, device=dev)
+    for t0, t1, gid, tid, head, _ in _tile_groups(binning, count):
+        out, obs = _blend_group(pre, gid, tid, head, tiles_x, tile, t1 - t0, t0)
+        tile_out[t0:t1] = out
+        observe.index_add_(0, gid, obs)
+    return finalize_tile_planes(tile_out, count, visited), observe
+
+
 def blend_tiles(
     pre: PreprocessedGaussians,
     binning: TileBinning,
@@ -189,20 +245,134 @@ def blend_tiles(
     `max_blocks` > 0 leaves tiles past the 128-instance block budget at the
     background defaults.
     """
-    N = pre.mean2d.shape[0]
-    T = tiles_y * tiles_x
-    P = tile * tile
-    dev = pre.mean2d.device
-    visited, count = _visited_count(binning, max_blocks)
-    tile_out = torch.zeros((T, P, OUT_CH), dtype=torch.float32, device=dev)
-    observe = torch.zeros((N,), dtype=torch.int32, device=dev)
-    for t0, t1, gid, tid, head in _tile_groups(binning, count):
-        out, obs = _blend_group(pre, gid, tid, head, tiles_x, tile, t1 - t0, t0)
-        tile_out[t0:t1] = out
-        observe.index_add_(0, gid, obs)
-    planes = tiles_to_planes(finalize_tile_planes(tile_out, count, visited), tiles_y, tiles_x, tile)
+    tile_out, observe = blend_tile_out(pre, binning, tiles_y, tiles_x, tile, max_blocks)
+    planes = tiles_to_planes(tile_out, tiles_y, tiles_x, tile)
     planes["out_observe"] = observe
     return planes
+
+
+class PackedGaussians(NamedTuple):
+    """Column views of a packed (N, ATTR) matrix, named as the fields of
+    PreprocessedGaussians that the blend reads."""
+
+    mean2d: torch.Tensor
+    conic: torch.Tensor
+    opacity: torch.Tensor
+    rgb: torch.Tensor
+    inv_depth: torch.Tensor
+    normal: torch.Tensor
+    distance: torch.Tensor
+
+
+def pack_gaussian_attrs(pre: PreprocessedGaussians) -> torch.Tensor:
+    """(N, ATTR) float32 rows in the kernels' layout (see ATTR)."""
+    N = pre.mean2d.shape[0]
+    pad = torch.zeros((N, ATTR - GRAD_COLS), dtype=torch.float32, device=pre.mean2d.device)
+    return torch.cat(
+        [pre.mean2d, pre.conic, pre.opacity[:, None], pre.rgb, pre.inv_depth[:, None],
+         pre.normal, pre.distance[:, None], pad],
+        dim=1,
+    ).to(torch.float32).contiguous()
+
+
+def unpack_attrs(attrs: torch.Tensor) -> PackedGaussians:
+    return PackedGaussians(attrs[:, 0:2], attrs[:, 2:5], attrs[:, 5], attrs[:, 6:9],
+                           attrs[:, 9], attrs[:, 10:13], attrs[:, 13])
+
+
+def augment_cotangents(tile_out: torch.Tensor, g_tiles: torch.Tensor) -> torch.Tensor:
+    """(T, P, OUT_CH) cotangents of the tile planes → the backward's input:
+    ch10 = G_total = Σ_ch out·g over every channel but T_final (ch9), ch11 =
+    T_final·g_T (hidegs_tpu/raster/pallas_vjp.py:430-439)."""
+    col = torch.arange(OUT_CH, device=g_tiles.device)
+    g_ch = torch.where(col == 9, torch.zeros_like(g_tiles), g_tiles)
+    G_total = torch.sum(tile_out * g_ch, dim=-1, keepdim=True)
+    S_base = tile_out[..., 9:10] * g_tiles[..., 9:10]
+    return torch.cat([g_tiles[..., :10], G_total, S_base, g_tiles[..., 12:]], dim=-1).contiguous()
+
+
+def blend_tiles_bwd(
+    pre,
+    binning: TileBinning,
+    g_aug: torch.Tensor,
+    tiles_y: int,
+    tiles_x: int,
+    tile: int = TILE,
+    max_blocks: int = 0,
+) -> torch.Tensor:
+    """Gradient rows of the blend, one per sorted instance: (I, ATTR) in the
+    packed layout, zero for instances outside the visited spans.
+
+    The closed form of hidegs_tpu/raster/pallas_vjp.py:9-20 and :102-171,
+    front to back, with `g_aug` from `augment_cotangents`:
+
+        chg    = Σ_ch g_ch·channels_ch        (rgb, invdepth, normal, distance, 1)
+        S      = G_total − Σ_{j ≤ i} w_j·chg_j + T_final·g_T
+        dα     = T_excl·[T_incl ≥ 1e-4]·chg − S/(1−α)
+        dpower = dα·α where kept and α_raw < 0.99
+
+    then d_mean2d, d_conic and d_opacity from dpower, and the channel
+    gradients Σ_p g_ch·w. A pixel stops contributing once T_excl < 1e-4, as
+    in the forward kernel. The `[T_incl ≥ 1e-4]` factor is the derivative of
+    w; the Pallas kernel leaves it out (ROADMAP C3). Prefix sums run in
+    float64 per tile group, as the forward's transmittance does."""
+    I = binning.gauss_id.shape[0]
+    dev = g_aug.device
+    rows = torch.zeros((I, ATTR), dtype=torch.float32, device=dev)
+    _, count = visited_and_count(binning, max_blocks)
+    for _, _, gid, tid, head, s0 in _tile_groups(binning, count):
+        ga = _group_alpha(pre, gid, tid, head, tiles_x, tile)
+        mask = (ga.T_incl >= T_EPS).to(torch.float32)
+        w = ga.T_excl * ga.alpha * mask
+        g = [g_aug[:, :, c][tid] for c in range(12)]
+        chans = [
+            pre.rgb[gid, 0], pre.rgb[gid, 1], pre.rgb[gid, 2], pre.inv_depth[gid],
+            pre.normal[gid, 0], pre.normal[gid, 1], pre.normal[gid, 2], pre.distance[gid],
+        ]
+        chg = g[0] * chans[0][:, None]
+        for c in range(1, 8):
+            chg = chg + g[c] * chans[c][:, None]
+        chg = chg + g[8]
+        contrib = (w * chg).to(torch.float64)
+        cs = torch.cumsum(contrib, 0)
+        prefix = (cs - (cs - contrib)[head]).to(torch.float32)
+        S = (g[10] - prefix) + g[11]
+        d_alpha = ga.T_excl * mask * chg - S / (1.0 - ga.alpha)
+        live = ga.keep & (ga.alpha_raw < ALPHA_MAX) & (ga.T_excl >= T_EPS)
+        zero = torch.zeros_like(d_alpha)
+        d_power = torch.where(live, d_alpha * ga.alpha, zero)
+        d_op = torch.where(live, d_alpha * torch.exp(torch.clamp(ga.power, max=0.0)), zero)
+        conic = pre.conic[gid]
+        ca, cb, cc = conic[:, 0:1], conic[:, 1:2], conic[:, 2:3]
+        dx, dy = ga.dx, ga.dy
+        cols = [
+            d_power * (ca * dx + cb * dy),
+            d_power * (cc * dy + cb * dx),
+            -0.5 * dx * dx * d_power,
+            -(dx * dy) * d_power,
+            -0.5 * dy * dy * d_power,
+            d_op,
+        ] + [g[c] * w for c in range(8)]
+        rows[s0:s0 + gid.shape[0], :GRAD_COLS] = torch.stack([x.sum(dim=1) for x in cols], dim=1)
+    return rows
+
+
+def expansion_rows(rows: torch.Tensor, slot_s: torch.Tensor) -> torch.Tensor:
+    """Sorted-instance rows → expansion order, where each gaussian's
+    instances are contiguous. `slot_s` is a permutation, so every
+    destination is written once."""
+    out = torch.empty_like(rows)
+    out[slot_s.long()] = rows
+    return out
+
+
+def fold_rows(rows_exp: torch.Tensor, g_start: torch.Tensor) -> torch.Tensor:
+    """(I, ATTR) expansion-order rows → (N, ATTR) per-gaussian sums: row g
+    sums the span [g_start[g], g_start[g+1]) in slot order (the rows past
+    g_start[N] drop). The plain version of the fold kernel, in the rows'
+    dtype."""
+    bounds = torch.cat([g_start.long(), torch.full((1,), rows_exp.shape[0], device=g_start.device)])
+    return torch.segment_reduce(rows_exp, "sum", lengths=torch.diff(bounds))[:-1]
 
 
 def pair_counts(
@@ -219,10 +389,10 @@ def pair_counts(
     dev = pre.mean2d.device
     live = torch.zeros((), dtype=torch.int64, device=dev)
     kept = torch.zeros((), dtype=torch.int64, device=dev)
-    _, count = _visited_count(binning, max_blocks)
-    for _, _, gid, tid, head in _tile_groups(binning, count):
-        _, keep, _, T_excl, _ = _group_alpha(pre, gid, tid, head, tiles_x, tile)
-        reached = torch.any(T_excl >= T_EPS, dim=1)
+    _, count = visited_and_count(binning, max_blocks)
+    for _, _, gid, tid, head, _ in _tile_groups(binning, count):
+        ga = _group_alpha(pre, gid, tid, head, tiles_x, tile)
+        reached = torch.any(ga.T_excl >= T_EPS, dim=1)
         live += reached.sum() * (tile * tile)
-        kept += (keep & reached[:, None]).sum()
+        kept += (ga.keep & reached[:, None]).sum()
     return int(live), int(kept)

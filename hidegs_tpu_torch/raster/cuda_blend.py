@@ -1,15 +1,20 @@
-"""The forward tile blend as a hand-written CUDA kernel, and its wrapper.
+"""The tile blend's hand-written CUDA kernels, their build and launchers.
 
-The kernel (csrc/blend_fwd.cu) replaces the JAX package's Pallas kernel
-hidegs_tpu/raster/pallas_blend.py:_forward_kernel. It is compiled by `nvcc`
-for sm_90a into build/kernels/ at first use, loaded with ctypes, and
-launched on PyTorch's current stream.
+  * csrc/blend_fwd.cu, `hidegs_blend_fwd`: the forward blend; replaces the
+    JAX package's Pallas kernel hidegs_tpu/raster/pallas_blend.py:_forward_kernel.
+  * csrc/blend_bwd.cu, `hidegs_blend_bwd`: the backward blend, one gradient
+    row per sorted instance; replaces hidegs_tpu/raster/pallas_vjp.py:_passB_kernel.
+  * csrc/blend_bwd.cu, `hidegs_fold_rows`: the per-gaussian sum of those
+    rows, in a fixed order (no float atomics).
 
-`blend_tiles` is what the "blend" backend calls. On a CPU tensor it runs the
-plain PyTorch version (`blend_tiles_plain`, raster/blend_plain.py); on a
-CUDA tensor it launches the kernel, or raises. It never falls back. The
-backward kernel is not ported yet (ROADMAP B2), so tensors that require
-grad are refused.
+Each source is compiled by `nvcc` for sm_90a into build/kernels/ at first
+use (all sources at once, one process each), loaded with ctypes, and
+launched on PyTorch's current stream. Every launcher checks its inputs,
+raises on a failed launch, and counts its launches.
+
+`blend_tile_out` and `grad_attrs` are the CUDA halves of the autograd
+Function in raster/blend_autograd.py; their plain PyTorch versions are in
+raster/blend_plain.py.
 """
 from __future__ import annotations
 
@@ -19,26 +24,27 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
-from hidegs_tpu_torch.raster.binning import TILE, TileBinning
-from hidegs_tpu_torch.raster.blend_plain import OUT_CH, tiles_to_planes, visited_tiles
-from hidegs_tpu_torch.raster.blend_plain import blend_tiles as blend_tiles_plain
-from hidegs_tpu_torch.raster.preprocess import PreprocessedGaussians
+from hidegs_tpu_torch.raster.binning import TileBinning
+from hidegs_tpu_torch.raster import blend_plain
+from hidegs_tpu_torch.raster.blend_plain import ATTR, OUT_CH, expansion_rows
 
-# Launches of the kernel in this process; one per call of `launch_blend_fwd`.
-LAUNCHES = 0
+# Launches in this process, one per call of the launcher named beside it.
+LAUNCHES = 0  # launch_blend_fwd
+BWD_LAUNCHES = 0  # launch_blend_bwd
+FOLD_LAUNCHES = 0  # launch_fold_rows
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "blend_fwd.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu", "blend_bwd": CSRC / "blend_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# -fmad=false: see the FMA note in the source.
+# -fmad=false: see the FMA note in the sources.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-ATTR = 16  # floats per packed gaussian row (see `pack_gaussian_attrs`)
 TILES = (16, 32)
 
 
@@ -52,43 +58,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile csrc/blend_fwd.cu into build/kernels/ unless a library built
-    from the same source and flags is there; returns its path. The compiler's
-    register/shared-memory report lands next to it as a .log file."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libblend_fwd_{digest}.so"
-    if lib.exists():
-        return lib
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build() -> Dict[str, Path]:
+    """Compile every source in SOURCES whose library (same source, same
+    flags) is not in build/kernels/ yet, all nvcc processes at once; returns
+    the library paths by name. Each compiler's register/shared-memory report
+    lands next to its library as a .log file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    jobs = []
+    for name, src in SOURCES.items():
+        lib = _lib_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((proc, cmd, tmp, lib))
+    failed = []
+    for proc, cmd, tmp, lib in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+            continue
+        lib.with_suffix(".log").write_text(out + err)
+        os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _lib_path(name) for name in SOURCES}
 
 
 @functools.cache
-def _kernel():
-    fn = ctypes.CDLL(str(build())).hidegs_blend_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+def _lib(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build()[name]))
+
+
+@functools.cache
+def _fn(name: str, symbol: str, n_ptr_head: int, n_int: int, n_ptr_tail: int):
+    fn = getattr(_lib(name), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr_head + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p] * n_ptr_tail)
     fn.restype = ctypes.c_int
     return fn
-
-
-def pack_gaussian_attrs(pre: PreprocessedGaussians) -> torch.Tensor:
-    """(N, 16) float32 rows in the kernel's layout: mean2d, conic, opacity,
-    rgb, invdepth, normal, distance, 2 pad."""
-    N = pre.mean2d.shape[0]
-    pad = torch.zeros((N, 2), dtype=torch.float32, device=pre.mean2d.device)
-    return torch.cat(
-        [pre.mean2d, pre.conic, pre.opacity[:, None], pre.rgb, pre.inv_depth[:, None],
-         pre.normal, pre.distance[:, None], pad],
-        dim=1,
-    ).to(torch.float32).contiguous()
 
 
 def _check(name, x, dtype, shape, device):
@@ -102,6 +116,26 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_spans(attrs, gauss_id, tile_start, tile_count, tiles_x, tile):
+    dev = attrs.device
+    if dev.type != "cuda":
+        raise ValueError(f"the blend kernels need CUDA tensors, got {dev}")
+    if tile not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, got {tile}")
+    T = tile_start.shape[0]
+    _check("attrs", attrs, torch.float32, (attrs.shape[0], ATTR), dev)
+    _check("gauss_id", gauss_id, torch.int32, (gauss_id.shape[0],), dev)
+    _check("tile_start", tile_start, torch.int32, (T,), dev)
+    _check("tile_count", tile_count, torch.int32, (T,), dev)
+    if T % tiles_x:
+        raise ValueError(f"{T} tiles is not a multiple of tiles_x={tiles_x}")
+    return dev, T
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def launch_blend_fwd(
     attrs: torch.Tensor,
     gauss_id: torch.Tensor,
@@ -112,72 +146,131 @@ def launch_blend_fwd(
     out: torch.Tensor,
     observe: torch.Tensor,
 ) -> None:
-    """Launch the kernel once on the current stream. Writes `out` (T, P, 16)
-    and the per-instance counts into `observe` (I,), which must be zeroed."""
+    """Launch the forward kernel once on the current stream. Writes `out`
+    (T, P, 16) and the per-instance counts into `observe` (I,), which must
+    be zeroed."""
     global LAUNCHES
-    dev = attrs.device
-    if dev.type != "cuda":
-        raise ValueError(f"the blend kernel needs CUDA tensors, got {dev}")
-    if tile not in TILES:
-        raise ValueError(f"tile must be one of {TILES}, got {tile}")
-    T = tile_start.shape[0]
-    _check("attrs", attrs, torch.float32, (attrs.shape[0], ATTR), dev)
-    _check("gauss_id", gauss_id, torch.int32, (gauss_id.shape[0],), dev)
-    _check("tile_start", tile_start, torch.int32, (T,), dev)
-    _check("tile_count", tile_count, torch.int32, (T,), dev)
+    dev, T = _check_spans(attrs, gauss_id, tile_start, tile_count, tiles_x, tile)
     _check("out", out, torch.float32, (T, tile * tile, OUT_CH), dev)
     _check("observe", observe, torch.int32, gauss_id.shape, dev)
-    if T % tiles_x:
-        raise ValueError(f"{T} tiles is not a multiple of tiles_x={tiles_x}")
-    fn = _kernel()
+    fn = _fn("blend_fwd", "hidegs_blend_fwd", 4, 3, 3)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(attrs.data_ptr(), gauss_id.data_ptr(), tile_start.data_ptr(),
                 tile_count.data_ptr(), T, tiles_x, tile, out.data_ptr(),
-                observe.data_ptr(), stream)
+                observe.data_ptr(), _stream(dev))
     LAUNCHES += 1
     if rc != 0:
-        raise RuntimeError(f"blend kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"blend_fwd kernel launch failed: cudaError {rc}")
 
 
-def _refuse_grad(pre: PreprocessedGaussians) -> None:
-    if any(x.requires_grad for x in pre.tensors()):
-        raise NotImplementedError(
-            "the blend kernel has no backward yet (ROADMAP item B2); render "
-            "without gradients, or pass RasterConfig(backend='plain') for "
-            "plain PyTorch autograd"
-        )
+def launch_blend_bwd(
+    attrs: torch.Tensor,
+    gauss_id: torch.Tensor,
+    tile_start: torch.Tensor,
+    tile_count: torch.Tensor,
+    tiles_x: int,
+    tile: int,
+    g_aug: torch.Tensor,
+    rows: torch.Tensor,
+) -> None:
+    """Launch the backward kernel once on the current stream. `g_aug` (T, P,
+    16) holds the augmented cotangents (blend_plain.augment_cotangents);
+    writes one gradient row per sorted instance into `rows` (I, 16), which
+    must be zeroed."""
+    global BWD_LAUNCHES
+    dev, T = _check_spans(attrs, gauss_id, tile_start, tile_count, tiles_x, tile)
+    _check("g_aug", g_aug, torch.float32, (T, tile * tile, OUT_CH), dev)
+    _check("rows", rows, torch.float32, (gauss_id.shape[0], ATTR), dev)
+    fn = _fn("blend_bwd", "hidegs_blend_bwd", 4, 3, 3)
+    with torch.cuda.device(dev):
+        rc = fn(attrs.data_ptr(), gauss_id.data_ptr(), tile_start.data_ptr(),
+                tile_count.data_ptr(), T, tiles_x, tile, g_aug.data_ptr(),
+                rows.data_ptr(), _stream(dev))
+    BWD_LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {rc}")
 
 
-def blend_tiles(
-    pre: PreprocessedGaussians,
+def launch_fold_rows(rows_exp: torch.Tensor, g_start: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch the fold kernel once on the current stream: out[g] = Σ of
+    rows_exp over [g_start[g], g_start[g+1]), in slot order."""
+    global FOLD_LAUNCHES
+    dev = rows_exp.device
+    if dev.type != "cuda":
+        raise ValueError(f"the fold kernel needs CUDA tensors, got {dev}")
+    N = out.shape[0]
+    _check("rows_exp", rows_exp, torch.float32, (rows_exp.shape[0], ATTR), dev)
+    _check("g_start", g_start, torch.int32, (N + 1,), dev)
+    _check("out", out, torch.float32, (N, ATTR), dev)
+    fn = _fn("blend_bwd", "hidegs_fold_rows", 2, 1, 2)
+    with torch.cuda.device(dev):
+        rc = fn(rows_exp.data_ptr(), g_start.data_ptr(), N, out.data_ptr(), _stream(dev))
+    FOLD_LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(f"fold_rows kernel launch failed: cudaError {rc}")
+
+
+def visited_count(binning: TileBinning, max_blocks: int) -> torch.Tensor:
+    """(T,) int32 span lengths with tiles past the block budget set to 0,
+    the kernels' `tile_count`."""
+    return blend_plain.visited_and_count(binning, max_blocks)[1].contiguous()
+
+
+def blend_tile_out(
+    attrs: torch.Tensor,
     binning: TileBinning,
+    count: torch.Tensor,
     tiles_y: int,
     tiles_x: int,
-    tile: int = TILE,
-    max_blocks: int = 0,
-) -> Dict[str, torch.Tensor]:
-    """Same inputs and output dict as `blend_tiles_plain`: the kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
-    _refuse_grad(pre)
-    dev = pre.mean2d.device
-    if dev.type == "cpu":
-        return blend_tiles_plain(pre, binning, tiles_y, tiles_x, tile, max_blocks)
-    N = pre.mean2d.shape[0]
-    T = tiles_y * tiles_x
+    tile: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on packed rows: (T, P, 16) tile planes and (N,)
+    int32 per-gaussian observe counts. `count` is `visited_count`."""
+    dev = attrs.device
+    N = attrs.shape[0]
     I = binning.gauss_id.shape[0]
-    visited = visited_tiles(binning.tile_count, I, max_blocks)
-    count = torch.where(visited, binning.tile_count, torch.zeros_like(binning.tile_count))
-    out = torch.empty((T, tile * tile, OUT_CH), dtype=torch.float32, device=dev)
+    out = torch.empty((tiles_y * tiles_x, tile * tile, OUT_CH), dtype=torch.float32, device=dev)
     obs = torch.zeros((I,), dtype=torch.int32, device=dev)
-    launch_blend_fwd(
-        pack_gaussian_attrs(pre), binning.gauss_id.contiguous(),
-        binning.tile_start.contiguous(), count.to(torch.int32).contiguous(),
-        tiles_x, tile, out, obs,
-    )
-    # instances of invalid slots carry gauss_id N and a zero count: row N drops
+    launch_blend_fwd(attrs, binning.gauss_id.contiguous(), binning.tile_start.contiguous(),
+                     count, tiles_x, tile, out, obs)
+    # instances of invalid slots carry gauss_id N and a zero count: row N
+    # drops. Integer adds commute, so this index_add_ is deterministic.
     observe = torch.zeros((N + 1,), dtype=torch.int32, device=dev)
     observe.index_add_(0, binning.gauss_id.long(), obs)
-    planes = tiles_to_planes(out, tiles_y, tiles_x, tile)
-    planes["out_observe"] = observe[:N]
-    return planes
+    return out, observe[:N]
+
+
+def instance_rows(
+    attrs: torch.Tensor,
+    binning: TileBinning,
+    count: torch.Tensor,
+    g_aug: torch.Tensor,
+    tiles_x: int,
+    tile: int,
+) -> torch.Tensor:
+    """The backward kernel: (I, 16) gradient rows, one per sorted instance."""
+    rows = torch.zeros((binning.gauss_id.shape[0], ATTR), dtype=torch.float32, device=attrs.device)
+    launch_blend_bwd(attrs, binning.gauss_id.contiguous(), binning.tile_start.contiguous(),
+                     count, tiles_x, tile, g_aug, rows)
+    return rows
+
+
+def fold(rows: torch.Tensor, binning: TileBinning, num_gaussians: int) -> torch.Tensor:
+    """Sorted-instance rows → (N, 16) per-gaussian sums with the fold kernel."""
+    out = torch.empty((num_gaussians, ATTR), dtype=torch.float32, device=rows.device)
+    launch_fold_rows(expansion_rows(rows, binning.slot_s), binning.g_start.contiguous(), out)
+    return out
+
+
+def grad_attrs(
+    attrs: torch.Tensor,
+    binning: TileBinning,
+    count: torch.Tensor,
+    g_aug: torch.Tensor,
+    tiles_x: int,
+    tile: int,
+) -> torch.Tensor:
+    """Gradient of the blend with respect to the packed rows, (N, 16): the
+    backward kernel, then the fold kernel. Bitwise reproducible."""
+    rows = instance_rows(attrs, binning, count, g_aug, tiles_x, tile)
+    return fold(rows, binning, attrs.shape[0])

@@ -28,7 +28,7 @@ from hidegs_tpu.raster.blend_jnp import blend_tiles as jblend
 from hidegs_tpu.raster.pallas_vjp import needed_blocks as jneeded_blocks
 from hidegs_tpu_torch.convert import camera_from_jax
 from hidegs_tpu_torch.raster import binning as tbin
-from hidegs_tpu_torch.raster import blend_plain, cuda_blend
+from hidegs_tpu_torch.raster import blend_autograd, blend_plain, cuda_blend
 from hidegs_tpu_torch.raster import preprocess as tpp
 from hidegs_tpu_torch.raster.api import RasterConfig, render
 
@@ -175,10 +175,10 @@ def test_plain_blend_matches_jnp(scene, tile, monkeypatch):
 def test_blend_wrapper_takes_plain_on_cpu(scene):
     jpre, jtb, ty, tx = _binned(scene, 16)
     pre, tb = pre_to_torch(jpre), binning_to_torch(jtb)
-    before = cuda_blend.LAUNCHES
-    a = cuda_blend.blend_tiles(pre, tb, ty, tx, 16)
-    b = cuda_blend.blend_tiles_plain(pre, tb, ty, tx, 16)
-    assert cuda_blend.LAUNCHES == before
+    before = (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+    a = blend_autograd.blend_tiles(pre, tb, ty, tx, 16)
+    b = blend_plain.blend_tiles(pre, tb, ty, tx, 16)
+    assert (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES) == before
     for k in PLANES + ["out_observe"]:
         assert torch.equal(a[k], b[k]), k
 
