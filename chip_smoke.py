@@ -11,9 +11,11 @@ those paths against its plain PyTorch version. Phases:
 
   1. environment: card name and power limit, versions, the kernel builds
      (one nvcc per source, started together);
-  2. small: toy scenes, tile 16 and 32, render_geo on and off, forward
-     kernel ("blend") against plain: planes at atol 3e-4 / rtol 1e-3,
-     out_observe exactly equal;
+  2. small: toy scenes, tile 16 and 32, render_geo on and off, and the
+     mask boundary scene (make_blend_boundary_scene: level sets that end on
+     the kernels' 8x4 mask blocks) with and without a too-small max_blocks,
+     forward kernel ("blend") against plain: planes at atol 3e-4 / rtol
+     1e-3, out_observe exactly equal;
   3. small backward: the same scenes, tile 16 and 32, with and without a
      too-small max_blocks: backward + fold kernels against blend_tiles_bwd
      + the plain fold (`hold_grads`), and the fold kernel against the plain
@@ -25,7 +27,12 @@ those paths against its plain PyTorch version. Phases:
      are read around this run alone. Every view is held against the plain
      blend (run in tile groups); two renders of each must be bitwise equal;
   5. render times with CUDA events (median of 10 after 2 warm-ups): the full
-     render, the kernel alone, the plain version; the kernel's bound;
+     render, the kernel alone, the plain version; the kernel's bound (and
+     PR 2's yardstick beside it, see blend_bound); the visited tiles' span
+     lengths; from the plain mask, the share of (instance, 8x4 block) pairs
+     the warp-block mask keeps and the pixel pairs the kernel evaluates at
+     most (blend_plain.block_masks, block_pair_counts); and the ptxas
+     registers and spills from the loaded library's build log;
   6. render breakdown: preprocess, binning and blend timed alone, and one
      render under torch.profiler for the device busy share and top kernels;
   7. training at full width: the four rendered views are the targets; the
@@ -46,8 +53,9 @@ those paths against its plain PyTorch version. Phases:
      versions, on the cotangents one train step gives its blend;
  10. train times: the step, split into train_step's own stages
      (step_forward / step_backward / step_update), the backward and fold
-     kernels alone, their plain versions and bounds, and one step under
-     torch.profiler.
+     kernels alone, their plain versions and bounds, the backward's mask
+     share, evaluated pairs, registers and spills (as in phase 5), and one
+     step under torch.profiler.
 
 Prints a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Any failed check raises and exits non-zero. Without a CUDA device it exits
@@ -56,6 +64,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -74,21 +83,28 @@ RENDER_KEYS = ["render", "invdepth", "alpha", "T_final", "rendered_normal", "ren
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 SFU_OPS_S = 16 * 132 * 1.98e9
-# float32 operations the blend needs per (pixel, instance) pair it reaches
-# (dx, dy, the quadratic form, clamps, the α product and tests) and per pair
-# whose α ≥ 1/255 (the log-transmittance update, the T test, w and nine
-# multiply-adds, the observe tests), counted from csrc/blend_fwd.cu; each
-# live pair needs one exp, each kept pair a log1p and an exp more.
+# float32 operations of the forward blend per (pixel, instance) pair whose α
+# it tests (dx, dy, the quadratic form, clamps, the α product and tests) and
+# per pair whose α ≥ 1/255 it uses (the log-transmittance update, the T
+# test, w and nine multiply-adds, the observe tests), counted from
+# csrc/blend_fwd.cu; each tested pair needs one exp, each used pair a log1p
+# and an exp more.
 OPS_PER_LIVE_PAIR = 16
 OPS_PER_KEPT_PAIR = 23
+SFU_PER_KEPT_PAIR = 2
 # The same for the backward blend, counted from csrc/blend_bwd.cu: per
-# reached pair the forward's α test (15 ops, one exp); per kept pair the
+# tested pair the forward's α test (15 ops, one exp); per used pair the
 # transmittance update, w, chg (17), the prefix and S, dα with its division,
 # and the 14 gradient terms with their sums (75 ops), and a log1p, an exp
 # and a reciprocal on the special-function units.
 BWD_OPS_PER_LIVE_PAIR = 15
 BWD_OPS_PER_KEPT_PAIR = 75
 BWD_SFU_PER_KEPT_PAIR = 3
+# One box test of an instance against an 8x4 pixel block (blend_common.cuh:
+# block_reachable, with the per-instance terms hoisted): 84 float32
+# operations; per instance a log and two reciprocals.
+OPS_PER_BOX_TEST = 84
+SFU_PER_BOXED_INSTANCE = 3
 # The backward and fold kernels against their plain versions on the same
 # inputs (`hold_grads`): each column of the per-gaussian gradients within
 # GRAD_NORM_TOL of its max |grad|, and each element within GRAD_RTOL of
@@ -204,8 +220,100 @@ def phase_environment():
     return smi
 
 
+def ptxas_usage(lib):
+    """{kernel<tile>: (registers, spill store bytes, spill load bytes)} of
+    library `lib`, from the compiler's report in its build log (written
+    when the library was built, in this process or an earlier one)."""
+    usage, kernel, spill = {}, None, (0, 0)
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", line)
+        if m:
+            kernel = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            usage[kernel] = (int(m.group(1)), *spill)
+    return usage
+
+
+def usage_report(usage):
+    return ", ".join(f"{k} {r} registers, {st}/{ld} bytes spilled (stores/loads)"
+                     for k, (r, st, ld) in usage.items())
+
+
+def mask_report(pre, tb, tx, tile, count, live):
+    """The warp-block mask on this binning, from its plain version (the
+    kernels do not count): the share of (instance, 8x4 block) pairs it
+    keeps, and the pixel pairs the kernels evaluate at most (warps that
+    are done skip the rest)."""
+    from hidegs_tpu_torch.raster import blend_plain
+
+    masks = blend_plain.block_masks(pre, tb, tx, tile, count)
+    n_blocks = tile * tile // (blend_plain.BLOCK_W * blend_plain.BLOCK_H)
+    kept = sum(int(((masks >> b) & 1).sum()) for b in range(n_blocks))
+    share = kept / max(int(count.sum()) * n_blocks, 1)
+    evaluated = blend_plain.block_pair_counts(pre, tb, tx, tile, count)
+    return (f"plain mask's estimate: the warp-block mask keeps {share:.4f} of the (instance, 8x4 block) "
+            f"pairs, and the kernel evaluates at most {evaluated} pixel pairs, {evaluated / max(live, 1):.4f} "
+            f"of the {live} whole-tile pairs")
+
+
+def blend_bound(bytes_moved, counts, tile, ops_live, ops_kept, sfu_kept):
+    """bound_ms of a blend kernel: the larger of the bytes it must move over
+    the memory rate and the operations this run's data needs over the peak
+    rates. `counts` is blend_plain.pair_counts (live, kept, open). Needed:
+    for each open pair (α ≥ 1/255 at a pixel still at T ≥ 1e-4) the α test
+    (`ops_live`, one exp) and the use of α (`ops_kept`, `sfu_kept`), and
+    one box test per (reached instance, 8x4 block), which is all a blend
+    needs to find the pairs it may skip. Also returns PR 2's yardstick,
+    which counts the α test on every pixel of a reached instance's tile
+    and the use of α on every kept pair, open or not."""
+    from hidegs_tpu_torch.raster import blend_plain
+
+    live, kept, open_ = counts
+    P = tile * tile
+    reached = live // P
+    boxes = reached * (P // (blend_plain.BLOCK_W * blend_plain.BLOCK_H))
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = (open_ * (ops_live + ops_kept) + boxes * OPS_PER_BOX_TEST) / FP32_FLOP_S * 1e3
+    t_sfu = (open_ * (1 + sfu_kept) + reached * SFU_PER_BOXED_INSTANCE) / SFU_OPS_S * 1e3
+    bound = max(t_bytes, t_ops, t_sfu)
+    yardstick = max(t_bytes, (live * ops_live + kept * ops_kept) / FP32_FLOP_S * 1e3,
+                    (live + sfu_kept * kept) / SFU_OPS_S * 1e3)
+    return dict(bound_ms=bound, bound_by="bytes" if t_bytes >= max(t_ops, t_sfu) else "operations",
+                yardstick_ms=yardstick,
+                text=f"bound {bound:.4f} ms = max(bytes {t_bytes:.4f}, fp32 ops {t_ops:.4f}, sfu {t_sfu:.4f}) "
+                     f"for {open_} open pairs and {boxes} box tests; PR 2 yardstick {yardstick:.4f} ms "
+                     f"(every reached pixel's α test, every kept pair)")
+
+
+def span_report(count):
+    """The span lengths (post-cull instances per tile) of the visited tiles."""
+    T = count.numel()
+    spans = torch.sort(count[count > 0].double(), descending=True).values
+    q = torch.quantile(spans, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64, device=spans.device))
+    top = -(-spans.numel() // 100)
+    return (f"{T} tiles, {T - spans.numel()} empty; non-empty spans p50 {float(q[0]):.0f}, p90 {float(q[1]):.0f}, "
+            f"p99 {float(q[2]):.0f}, max {int(spans[0])} instances; the longest 1% of them hold "
+            f"{float(spans[:top].sum() / spans.sum()):.4f} of the instances")
+
+
+def boundary_scene(dev, tile):
+    """make_blend_boundary_scene on a 96x64 canvas, binned at `tile`."""
+    from hidegs_tpu_torch.data.synthetic import make_blend_boundary_scene
+    from hidegs_tpu_torch.raster import binning
+
+    pre = make_blend_boundary_scene(height=64, width=96, seed=7, device=dev)
+    ty, tx = binning.tile_grid(64, 96, tile)
+    return pre, binning.bin_gaussians(pre, ty, tx, 1 << 16, tile), ty, tx
+
+
 def phase_small(dev):
     from hidegs_tpu_torch.data.synthetic import make_toy_gaussians, ring_camera
+    from hidegs_tpu_torch.raster import blend_autograd, blend_plain
     from hidegs_tpu_torch.raster.api import RasterConfig, render
 
     scene = make_toy_gaussians(400, seed=11, device=dev)
@@ -224,6 +332,20 @@ def phase_small(dev):
             check(torch.equal(k["out_observe"], p["out_observe"]),
                   f"small tile={tile} geo={geo}: out_observe differs")
             print(f"[small] tile={tile} render_geo={geo}: max abs err {err:.3e}, out_observe equal")
+    for tile in (16, 32):
+        pre, tb, ty, tx = boundary_scene(dev, tile)
+        for max_blocks in (0, 3):
+            k = blend_autograd.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
+            p = blend_plain.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
+            what = f"small mask boundary scene tile={tile} max_blocks={max_blocks}"
+            err = 0.0
+            for key in PLANE_KEYS:
+                check(bool(torch.isfinite(k[key]).all()), f"{what}: {key} not finite")
+                assert_close(k[key], p[key], f"{what} {key}")
+                err = max(err, max_abs_err(k[key], p[key]))
+            check(torch.equal(k["out_observe"], p["out_observe"]), f"{what}: out_observe differs")
+            print(f"[small] mask boundary scene ({pre.mean2d.shape[0]} gaussians, {tb.gauss_id.shape[0]} "
+                  f"instance slots) tile={tile} max_blocks={max_blocks}: max abs err {err:.3e}, out_observe equal")
 
 
 def full_width_setup(dev):
@@ -355,19 +477,17 @@ def phase_times(scene, cam, cfg, pre, tb):
     unique_rows = int(torch.unique(valid_ids).numel())
     T = ty * tx
     bytes_moved = post_cull * 4 + 2 * T * 4 + unique_rows * 64 + T * P * 64 + post_cull * 4
-    live, kept = blend_plain.pair_counts(pre, tb, tx, tile, cfg.max_blocks)
-    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    t_ops = (live * OPS_PER_LIVE_PAIR + kept * OPS_PER_KEPT_PAIR) / FP32_FLOP_S * 1e3
-    t_sfu = (live + 2 * kept) / SFU_OPS_S * 1e3
-    bound_ms = max(t_bytes, t_ops, t_sfu)
-    bound_by = "bytes" if t_bytes >= max(t_ops, t_sfu) else "operations"
+    counts = blend_plain.pair_counts(pre, tb, tx, tile, cfg.max_blocks)
+    bound = blend_bound(bytes_moved, counts, tile, OPS_PER_LIVE_PAIR, OPS_PER_KEPT_PAIR, SFU_PER_KEPT_PAIR)
     print(f"[times] full render {render_ms:.3f} ms; blend kernel {kernel_ms:.3f} ms; "
           f"plain blend {plain_ms:.3f} ms")
-    print(f"[times] post-cull instances {post_cull}, gaussian rows {unique_rows}, "
-          f"pairs {post_cull * P} (live {live}, kept {kept})")
-    print(f"[times] bound {bound_ms:.4f} ms = max(bytes {t_bytes:.4f}, fp32 ops {t_ops:.4f}, "
-          f"sfu {t_sfu:.4f}); kernel at {bound_ms / kernel_ms:.1%} of it")
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+    print(f"[times] post-cull instances {post_cull}, gaussian rows {unique_rows}, pairs {post_cull * P} "
+          f"(live {counts[0]}, kept {counts[1]}, open {counts[2]}); spans: {span_report(count)}")
+    print(f"[times] {bound['text']}; kernel at {bound['bound_ms'] / kernel_ms:.1%} of the bound, "
+          f"{bound['yardstick_ms'] / kernel_ms:.1%} of the yardstick")
+    print(f"[times] forward: {mask_report(pre, tb, tx, tile, count, counts[0])}; ptxas (build log): "
+          f"{usage_report(ptxas_usage(cuda_blend.build()['blend_fwd']))}")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
                 render_ms=render_ms)
 
 
@@ -393,33 +513,47 @@ def phase_breakdown(scene, cam, cfg, pre, tb):
 
     profile_device(lambda: render(*scene, cam, render_geo=True, active_sh_degree=3, config=cfg), "breakdown")
 
-def hold_grads(got, want, what):
-    """Per-gaussian gradient rows of the kernels against the plain versions
-    (see GRAD_NORM_TOL). A column with no gradient in the plain version
-    must be exactly zero. Returns the max abs error, the max normalised
-    error, and the multiple of the median the per-element test needed."""
+
+def grad_gate_stats(got, want):
+    """Per column of the gradient rows, against the plain versions' `want`:
+    the elements outside the per-element gate (`n_bad`), the multiple of
+    the median the worst element needed, the max error normalised by the
+    column's max, and the median non-zero |want|. A column where `want` is
+    all zero has no median, and n_bad counts its non-zero elements."""
     from hidegs_tpu_torch.raster import blend_plain
 
-    check(bool(torch.isfinite(got).all()), f"{what}: non-finite gradients")
-    check(float(want.abs().max()) > 0, f"{what}: all-zero gradients")
-    worst, needed = 0.0, 0.0
+    cols = []
     for c in range(blend_plain.GRAD_COLS):
         w, g = want[:, c].double(), got[:, c].double()
         mag = w.abs()
         scale = float(mag.max())
         if scale == 0.0:
-            check(not bool(g.any()), f"{what}: column {c} has no gradient in the plain version but not here")
+            cols.append(dict(n_bad=int(g.ne(0).sum()), needed=0.0, norm=0.0, med=None))
             continue
         err = (g - w).abs()
-        norm = float(err.max()) / scale
         med = float(mag[mag > 0].median())
-        needed = max(needed, float(((err - GRAD_RTOL * mag) / med).max()))
-        n_bad = int((err > GRAD_RTOL * mag + GRAD_MEDIAN_ATOL * med).sum())
-        check(norm <= GRAD_NORM_TOL, f"{what}: column {c} normalised err {norm:.3e} > {GRAD_NORM_TOL}")
-        check(n_bad == 0, f"{what}: column {c}: {n_bad} elements outside rtol {GRAD_RTOL} + "
-                          f"{GRAD_MEDIAN_ATOL} x the median non-zero |grad| {med:.3e}")
-        worst = max(worst, norm)
-    return max_abs_err(got, want), worst, needed
+        cols.append(dict(n_bad=int((err > GRAD_RTOL * mag + GRAD_MEDIAN_ATOL * med).sum()),
+                         needed=float(((err - GRAD_RTOL * mag) / med).max()), norm=float(err.max()) / scale,
+                         med=med))
+    return cols
+
+
+def hold_grads(got, want, what):
+    """Per-gaussian gradient rows of the kernels against the plain versions
+    (see GRAD_NORM_TOL). A column with no gradient in the plain version
+    must be exactly zero. Returns the max abs error, the max normalised
+    error, and the multiple of the median the per-element test needed."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite gradients")
+    check(float(want.abs().max()) > 0, f"{what}: all-zero gradients")
+    cols = grad_gate_stats(got, want)
+    for c, s in enumerate(cols):
+        if s["med"] is None:
+            check(s["n_bad"] == 0, f"{what}: column {c} has no gradient in the plain version but not here")
+            continue
+        check(s["norm"] <= GRAD_NORM_TOL, f"{what}: column {c} normalised err {s['norm']:.3e} > {GRAD_NORM_TOL}")
+        check(s["n_bad"] == 0, f"{what}: column {c}: {s['n_bad']} elements outside rtol {GRAD_RTOL} + "
+                               f"{GRAD_MEDIAN_ATOL} x the median non-zero |grad| {s['med']:.3e}")
+    return max_abs_err(got, want), max(s["norm"] for s in cols), max(0.0, *(s["needed"] for s in cols))
 
 
 def hold_fold(rows_exp, g_start, got, what):
@@ -502,17 +636,19 @@ def phase_small_backward(dev):
     for tile in (16, 32):
         ty, tx = binning.tile_grid(cam.height, cam.width, tile)
         pre = preprocess_gaussians(*scene, cam, render_geo=True, screen_bounds=(tx * tile, ty * tile))
-        tb = binning.bin_gaussians(pre, ty, tx, 1 << 14, tile)
-        need = int(blend_plain.needed_blocks(tb.tile_count))
-        attrs = blend_plain.pack_gaussian_attrs(pre)
-        for max_blocks in (0, max(need // 2, 1)):
-            count = cuda_blend.visited_count(tb, max_blocks)
-            tile_out, _ = cuda_blend.blend_tile_out(attrs, tb, count, ty, tx, tile)
-            g = torch.randn(tile_out.shape, generator=gen, device=dev)
-            g[..., 10:] = 0.0
-            h = hold_backward(attrs, tb, count, tile_out, g, ty, tx, tile, max_blocks,
-                              f"small backward tile={tile} max_blocks={max_blocks}")
-            print(f"[small-bwd] tile={tile} max_blocks={max_blocks} (needs {need}): {hold_report(h)}")
+        toy = (pre, binning.bin_gaussians(pre, ty, tx, 1 << 14, tile), ty, tx)
+        for label, (pre, tb, ty, tx) in (("toy scene", toy), ("mask boundary scene", boundary_scene(dev, tile))):
+            need = int(blend_plain.needed_blocks(tb.tile_count))
+            attrs = blend_plain.pack_gaussian_attrs(pre)
+            for max_blocks in (0, max(need // 2, 1)):
+                count = cuda_blend.visited_count(tb, max_blocks)
+                tile_out, _ = cuda_blend.blend_tile_out(attrs, tb, count, ty, tx, tile)
+                g = torch.randn(tile_out.shape, generator=gen, device=dev)
+                g[..., 10:] = 0.0
+                h = hold_backward(attrs, tb, count, tile_out, g, ty, tx, tile, max_blocks,
+                                  f"small backward, {label}, tile={tile} max_blocks={max_blocks}")
+                print(f"[small-bwd] {label} tile={tile} max_blocks={max_blocks} (needs {need}): "
+                      f"{hold_report(h)}")
     ts, batches, cfg = toy_train_problem(dev)
     pcfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, backend="plain"))
     k, p = ts, ts
@@ -822,25 +958,24 @@ def phase_train_times(train, held):
 
     post_cull = int(count.sum())
     unique_rows = int(torch.unique(tb.gauss_id[:post_cull]).numel())
-    live, kept = blend_plain.pair_counts(view, tb, tx, tile, tcfg.raster.max_blocks)
+    counts = blend_plain.pair_counts(view, tb, tx, tile, tcfg.raster.max_blocks)
     bwd_bytes = post_cull * 4 + 2 * T * 4 + unique_rows * 64 + T * P * 48 + I * 64
-    t_bytes = bwd_bytes / HBM_BYTES_S * 1e3
-    t_ops = (live * BWD_OPS_PER_LIVE_PAIR + kept * BWD_OPS_PER_KEPT_PAIR) / FP32_FLOP_S * 1e3
-    t_sfu = (live + BWD_SFU_PER_KEPT_PAIR * kept) / SFU_OPS_S * 1e3
-    bwd_bound = max(t_bytes, t_ops, t_sfu)
-    bwd_by = "bytes" if t_bytes >= max(t_ops, t_sfu) else "operations"
+    bound = blend_bound(bwd_bytes, counts, tile, BWD_OPS_PER_LIVE_PAIR, BWD_OPS_PER_KEPT_PAIR,
+                        BWD_SFU_PER_KEPT_PAIR)
     total = int(tb.num_instances.clamp(max=I))
     fold_bound = (total * 64 + (N + 1) * 4 + N * 64) / HBM_BYTES_S * 1e3
-    print(f"[train-times] backward kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms; bound "
-          f"{bwd_bound:.4f} ms = max(bytes {t_bytes:.4f}, fp32 ops {t_ops:.4f}, sfu {t_sfu:.4f}); kernel at "
-          f"{bwd_bound / bwd_ms:.1%} of it (post-cull instances {post_cull}, pairs live {live} kept {kept})")
+    print(f"[train-times] backward kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms; {bound['text']}; "
+          f"kernel at {bound['bound_ms'] / bwd_ms:.1%} of the bound, {bound['yardstick_ms'] / bwd_ms:.1%} of the "
+          f"yardstick (post-cull instances {post_cull}, pairs live {counts[0]} kept {counts[1]} open {counts[2]})")
     print(f"[train-times] fold kernel {fold_ms:.3f} ms, plain (segment_reduce, float32) {fold_plain_ms:.3f} ms "
           f"(bitwise equal to the kernel: {same}), index_add_ {fold_library_ms:.3f} ms; bound "
           f"{fold_bound:.4f} ms (bytes: {total} expansion rows in, {N} rows out); kernel at "
           f"{fold_bound / fold_ms:.1%} of it")
+    print(f"[train-times] backward: {mask_report(view, tb, tx, tile, count, counts[0])}; ptxas (build log): "
+          f"{usage_report(ptxas_usage(cuda_blend.build()['blend_bwd']))}")
     profile_device(lambda: tl.train_step(ts, batch, tcfg), "train-breakdown")
     return dict(step_ms=step_ms, split=split,
-                bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bound, bound_by=bwd_by),
+                bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"]),
                 fold=dict(ms=fold_ms, plain_ms=fold_plain_ms, bound_ms=fold_bound, bound_by="bytes",
                           library_ms=fold_library_ms))
 

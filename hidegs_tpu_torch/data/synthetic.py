@@ -5,7 +5,8 @@ Port of the render-path part of hidegs_tpu/data/synthetic.py.
 builders and reproduce the JAX package's arrays bit for bit.
 `make_toy_gaussians` draws from a `torch.Generator`, whose numbers differ
 from `jax.random`: tests that need the JAX toy scene build it with JAX and
-convert it (convert.py).
+convert it (convert.py). `make_blend_boundary_scene` builds screen-space
+gaussians that stress the blend kernels' warp-block mask.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from hidegs_tpu_torch.core.camera_math import CameraParams, make_camera
 from hidegs_tpu_torch.core.sh import NUM_SH_COEFFS, rgb_to_sh_dc
 from hidegs_tpu_torch.device import DeviceLike, resolve_device
+from hidegs_tpu_torch.raster.preprocess import PreprocessedGaussians
 
 
 class ToyScene(NamedTuple):
@@ -181,3 +183,135 @@ def nadir_grid_camera(
     R = np.stack([right, down, fwd], axis=0)
     t = -R @ pos
     return make_camera(R, t, fx=focal, fy=focal, height=height, width=width, device=device)
+
+
+BOUNDARY_FAMILIES = ("random", "corner", "edge", "thin", "opacity")
+
+
+def make_blend_boundary_scene(
+    families=BOUNDARY_FAMILIES,
+    height: int = 64,
+    width: int = 96,
+    seed: int = 0,
+    device: DeviceLike = "cuda",
+) -> PreprocessedGaussians:
+    """Screen-space gaussians (already preprocessed) whose α ≥ 1/255 level
+    set ends on the boundary of an 8x4 pixel block, the unit of the blend
+    kernels' warp-block mask. Blocks tile the canvas from (0, 0) at tile 16
+    and 32 alike. With q_budget = ln(255·op), the families are:
+
+      random   seeded means, scales, angles and opacities;
+      corner   the level set q = t touches a block's corner pixel centre
+               from outside, t = q_budget·(1 ± 1e-6) or (q_budget + 1e-3)·
+               (1 ± 1e-6) (the mask's own margin);
+      edge     the same at a pixel centre on a block's edge;
+      thin     corner and edge cases with thin covariances (σ 20-200 by
+               0.2-0.6 px) and near-singular conics (b² = ac·(1 - δ)²);
+      opacity  corner cases with op at 1/255·(1 ± 1e-5), 1/255·(1 + 1e-3)
+               and 0.99-1.0 (α clamps at 0.99).
+
+    All numbers come from numpy with `seed`, in float64, rounded once to
+    float32."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    rows = []  # (mean_x, mean_y, a, b, c, op)
+
+    def rotated_conic(s1, s2, ang):
+        rot = np.array([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]])
+        conic = np.linalg.inv(rot @ np.diag([s1 * s1, s2 * s2]) @ rot.T)
+        return conic[0, 0], conic[0, 1], conic[1, 1]
+
+    def random_conic():
+        s1, s2 = np.exp(rng.uniform(np.log(0.4), np.log(16.0), 2))
+        return rotated_conic(s1, s2, rng.uniform(0, np.pi))
+
+    def thin_conic():
+        if rng.random() < 0.5:
+            ang = rng.choice([0.0, 1e-3, np.pi / 4, rng.uniform(0, np.pi)])
+            return rotated_conic(rng.uniform(20, 200), rng.uniform(0.2, 0.6), ang)
+        a = np.exp(rng.uniform(np.log(0.05), np.log(5.0)))
+        c = a * np.exp(rng.uniform(-2.0, 2.0))
+        delta = rng.choice([1e-3, 1e-5])
+        return a, rng.choice([-1.0, 1.0]) * np.sqrt(a * c) * (1.0 - delta), c
+
+    def target(op):
+        q_budget = np.log(255.0 * op)
+        base = q_budget + rng.choice([0.0, 1e-3])
+        return base * (1.0 + rng.choice([-1e-6, 1e-6]))
+
+    def random_block():
+        bx, by = rng.integers(0, width // 8), rng.integers(0, height // 4)
+        return 8 * bx + 0.5, 4 * by + 0.5  # top-left pixel centre
+
+    def place(conic, op, where):
+        """A mean whose level set q = target(op) touches the chosen point
+        of a random block from outside, where the box minimum lies: the
+        gradient of q there is an outward normal of the block."""
+        a, b, c = conic
+        A = np.array([[a, b], [b, c]])
+        x0, y0 = random_block()
+        if where == "corner":
+            sx, sy = rng.choice([-1.0, 1.0], 2)
+            p = np.array([x0 + (7.0 if sx > 0 else 0.0), y0 + (3.0 if sy > 0 else 0.0)])
+            grad = np.array([sx * rng.uniform(0.2, 1.0), sy * rng.uniform(0.2, 1.0)])
+        else:
+            side = rng.integers(0, 4)
+            if side < 2:  # left / right edge, at a pixel row inside the block
+                p = np.array([x0 + 7.0 * side, y0 + rng.integers(1, 3)])
+                grad = np.array([1.0 if side else -1.0, 0.0])
+            else:  # top / bottom edge, at a pixel column inside the block
+                p = np.array([x0 + rng.integers(1, 7), y0 + 3.0 * (side - 2)])
+                grad = np.array([0.0, 1.0 if side == 3 else -1.0])
+        # d = p - mean with A d = -g·grad (q rises into the block), scaled
+        # so that q(p) = ½ dᵀ A d = t
+        d = -np.linalg.solve(A, grad)
+        d *= np.sqrt(2.0 * max(target(op), 0.0) / float(d @ A @ d))
+        rows.append((*(p - d), a, b, c, op))
+
+    for family in families:
+        if family == "random":
+            for _ in range(150):
+                a, b, c = random_conic()
+                rows.append((rng.uniform(-8, width + 8), rng.uniform(-8, height + 8), a, b, c,
+                             rng.uniform(0.01, 1.0)))
+        elif family in ("corner", "edge"):
+            for _ in range(96):
+                if rng.random() < 0.5:
+                    conic = random_conic()
+                else:  # isotropic
+                    a = np.exp(rng.uniform(np.log(0.05), np.log(2.0)))
+                    conic = (a, 0.0, a)
+                place(conic, rng.uniform(0.05, 1.0), family)
+        elif family == "thin":
+            for _ in range(96):
+                place(thin_conic(), rng.uniform(0.05, 1.0), rng.choice(["corner", "edge"]))
+        elif family == "opacity":
+            ops = [(1 - 1e-5) / 255, (1 + 1e-5) / 255, (1 + 1e-3) / 255, 0.99, 0.995, 1.0]
+            for op in ops * 8:
+                place(random_conic(), op, rng.choice(["corner", "edge"]))
+        else:
+            raise ValueError(f"unknown family {family!r}; expected one of {BOUNDARY_FAMILIES}")
+
+    g = np.asarray(rows, dtype=np.float64)
+    n = g.shape[0]
+    det = g[:, 2] * g[:, 4] - g[:, 3] ** 2
+    sigma_max = np.sqrt(np.maximum(g[:, 2], g[:, 4]) / np.maximum(det, 1e-12))
+    depth = rng.uniform(1.0, 10.0, n)
+    normal = rng.normal(size=(n, 3))
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+
+    def tensor(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+
+    return PreprocessedGaussians(
+        mean2d=tensor(g[:, 0:2]),
+        conic=tensor(g[:, 2:5]),
+        depth=tensor(depth),
+        inv_depth=tensor(1.0 / depth),
+        opacity=tensor(g[:, 5]),
+        rgb=tensor(rng.uniform(0.05, 0.95, (n, 3))),
+        normal=tensor(normal),
+        distance=tensor(rng.uniform(0.5, 5.0, n)),
+        radius=tensor(np.minimum(np.ceil(3.0 * sigma_max), 4096), torch.int32),
+        visible=torch.ones((n,), dtype=torch.bool, device=dev),
+    )

@@ -381,18 +381,107 @@ def pair_counts(
     tiles_x: int,
     tile: int = TILE,
     max_blocks: int = 0,
-) -> Tuple[int, int]:
-    """The (pixel, instance) pairs a blend of this binning needs, for a
+) -> Tuple[int, int, int]:
+    """The (pixel, instance) pairs of a blend of this binning, for a
     kernel's lower bound: `live` pairs (instances reached before their
-    tile went opaque, times the tile's pixels) and, of those, `kept` pairs
-    with α ≥ 1/255."""
+    tile went opaque, times the tile's pixels); of those, `kept` pairs
+    with α ≥ 1/255; and of those, the `open` pairs whose pixel still had
+    T ≥ 1e-4 before the instance, the pairs whose α a blend must use."""
     dev = pre.mean2d.device
     live = torch.zeros((), dtype=torch.int64, device=dev)
     kept = torch.zeros((), dtype=torch.int64, device=dev)
+    open_ = torch.zeros((), dtype=torch.int64, device=dev)
     _, count = visited_and_count(binning, max_blocks)
     for _, _, gid, tid, head, _ in _tile_groups(binning, count):
         ga = _group_alpha(pre, gid, tid, head, tiles_x, tile)
         reached = torch.any(ga.T_excl >= T_EPS, dim=1)
         live += reached.sum() * (tile * tile)
         kept += (ga.keep & reached[:, None]).sum()
-    return int(live), int(kept)
+        open_ += (ga.keep & (ga.T_excl >= T_EPS)).sum()
+    return int(live), int(kept), int(open_)
+
+
+# The kernels' warp-block mask (csrc/blend_common.cuh). A tile's pixels fall
+# into 8x4 blocks, one pixel per lane of a warp; bit b of an instance's mask
+# says whether its α ≥ 1/255 level set can reach block b. The test is the
+# binning's exact cull (binning._tile_min_quadratic) on the box of the
+# block's pixel centres, q_min ≤ ln(op·255) + MASK_MARGIN, widened by
+# MASK_REL_MARGIN x the size of the quadratic's terms over the box: the box
+# minimum rounds in another order than the kernels' `power`, and with a
+# thin, near-singular conic those terms are large and cancel.
+BLOCK_W, BLOCK_H = 8, 4
+MASK_MARGIN = 1e-3
+MASK_REL_MARGIN = 1e-6
+
+
+def block_origins(tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tile-local pixel offsets (x0, y0) of each 8x4 block, in bit order. At
+    tile 16 warp w owns block w; at tile 32 warp w owns blocks 4w..4w+3, a
+    16x8 region."""
+    b = torch.arange(tile * tile // (BLOCK_W * BLOCK_H))
+    if tile == 16:
+        return (b % 2) * 8, torch.div(b, 2, rounding_mode="floor") * 4
+    w, k = torch.div(b, 4, rounding_mode="floor"), b % 4
+    return ((w % 2) * 16 + (k % 2) * 8,
+            torch.div(w, 2, rounding_mode="floor") * 8 + torch.div(k, 2, rounding_mode="floor") * 4)
+
+
+def block_keep(pre, gid, tid, tiles_x: int, tile: int) -> torch.Tensor:
+    """(n, blocks) bool: the mask predicate for instances (gid, tid), op for
+    op as the kernels compute it in float32."""
+    dev = gid.device
+    x0, y0 = (o.to(dev) for o in block_origins(tile))
+    ox = ((tid % tiles_x) * tile)[:, None]
+    oy = (torch.div(tid, tiles_x, rounding_mode="floor") * tile)[:, None]
+    px_lo = ((x0[None, :] + ox).to(torch.float32) + 0.5)
+    py_lo = ((y0[None, :] + oy).to(torch.float32) + 0.5)
+    u, v = pre.mean2d[gid, 0:1], pre.mean2d[gid, 1:2]
+    ca, cb, cc = pre.conic[gid, 0:1], pre.conic[gid, 1:2], pre.conic[gid, 2:3]
+    lo_x, hi_x = px_lo - u, (px_lo + (BLOCK_W - 1)) - u
+    lo_y, hi_y = py_lo - v, (py_lo + (BLOCK_H - 1)) - v
+
+    def edge_x(ex):  # dx = ex, dy free in [lo_y, hi_y]
+        dy = torch.minimum(torch.maximum(-cb * ex / torch.clamp(cc, min=1e-12), lo_y), hi_y)
+        return 0.5 * (ca * ex * ex + cc * dy * dy) + cb * ex * dy
+
+    def edge_y(ey):  # dy = ey, dx free in [lo_x, hi_x]
+        dx = torch.minimum(torch.maximum(-cb * ey / torch.clamp(ca, min=1e-12), lo_x), hi_x)
+        return 0.5 * (ca * dx * dx + cc * ey * ey) + cb * dx * ey
+
+    q_min = torch.minimum(torch.minimum(edge_x(lo_x), edge_x(hi_x)), torch.minimum(edge_y(lo_y), edge_y(hi_y)))
+    inside = (lo_x <= 0) & (hi_x >= 0) & (lo_y <= 0) & (hi_y >= 0)
+    q_min = torch.where(inside, torch.zeros_like(q_min), q_min)
+    mx = torch.maximum(lo_x.abs(), hi_x.abs())
+    my = torch.maximum(lo_y.abs(), hi_y.abs())
+    size = 0.5 * (ca.abs() * mx * mx + cc.abs() * my * my) + cb.abs() * mx * my
+    budget = (torch.log(torch.clamp(pre.opacity[gid], min=1e-12) * 255.0)[:, None] + MASK_MARGIN
+              + MASK_REL_MARGIN * size)
+    return ~(q_min > budget)  # NaN keeps the block
+
+
+def block_masks(pre, binning: TileBinning, tiles_x: int, tile: int, count: torch.Tensor) -> torch.Tensor:
+    """(I,) int64 per sorted instance: bit b set iff the instance's α ≥
+    1/255 level set can reach 8x4 block b of its tile (`block_origins`);
+    0 outside the visited spans. `count` is `cuda_blend.visited_count`.
+    For tests and counting: the kernels compute the same masks themselves."""
+    masks = torch.zeros((binning.gauss_id.shape[0],), dtype=torch.int64, device=binning.gauss_id.device)
+    for _, _, gid, tid, _, s0 in _tile_groups(binning, count):
+        keep = block_keep(pre, gid, tid, tiles_x, tile).to(torch.int64)
+        bits = torch.ones((keep.shape[1],), dtype=torch.int64, device=keep.device) << torch.arange(
+            keep.shape[1], device=keep.device)
+        masks[s0:s0 + gid.shape[0]] = (keep * bits).sum(dim=1)
+    return masks
+
+
+def block_pair_counts(pre, binning: TileBinning, tiles_x: int, tile: int, count: torch.Tensor) -> int:
+    """The (pixel, instance) pairs the kernels evaluate: for every instance
+    reached before its tile went opaque (as in `pair_counts`), the pixels of
+    the blocks its mask keeps. Warps whose pixels are all done skip further
+    instances, so the kernels evaluate at most this many."""
+    total = 0
+    for _, _, gid, tid, head, _ in _tile_groups(binning, count):
+        ga = _group_alpha(pre, gid, tid, head, tiles_x, tile)
+        reached = torch.any(ga.T_excl >= T_EPS, dim=1)
+        keep = block_keep(pre, gid, tid, tiles_x, tile)
+        total += int((keep & reached[:, None]).sum()) * BLOCK_W * BLOCK_H
+    return total

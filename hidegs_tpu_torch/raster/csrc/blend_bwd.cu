@@ -7,14 +7,22 @@
 // carries and writes an (ATTR, block) tile tagged with float32 gaussian ids;
 // here one CTA owns one tile and walks its whole span, as blend_fwd.cu does.
 //
-//   * 256 threads own the tile's pixels: one each at tile 16, four each at
-//     tile 32. Per pixel, in registers: the cotangents g[0:9], G_total and
-//     T_final·g_T (channels 10 and 11 of the augmented cotangent planes),
-//     the log-transmittance carry (float64, rounded to float32 before each
-//     exp, exactly as blend_fwd.cu does it), T and the float32 running
-//     prefix Σ w·chg.
-//   * Batches of 64 instances are gathered through gauss_id into shared
-//     memory. Per pixel and instance, front to back:
+//   * 256 threads own the tile's pixels in the forward kernel's compact warp
+//     footprints (blend_common.cuh). Per pixel, in registers: the
+//     log-transmittance carry (float64, rounded to float32 before each exp,
+//     exactly as blend_fwd.cu does it), T and the running prefix Σ w·chg
+//     (float64, as the plain version's cumsum; see the note on rounding
+//     below); in shared memory, read back by the pixel's own thread: the
+//     cotangents g[0:9], G_total and T_final·g_T (channels 10 and 11 of the
+//     augmented cotangent planes). Holding those 44 values per thread in
+//     registers took 149 registers and one CTA per SM; in shared memory the
+//     kernel fits three CTAs per SM in 80 registers, spilling a few bytes at
+//     tile 32 (at two CTAs it needs 113 registers, spills nothing and ran
+//     12% slower on the H100).
+//   * Batches of 48 instances are gathered through gauss_id into shared
+//     memory, with each instance's warp-block mask beside its row, as in
+//     the forward: a warp evaluates only the blocks an instance can reach.
+//     Per pixel and instance, front to back:
 //       α, keep, T_excl, T_incl as in the forward kernel
 //       w      = T_excl·α·m,  m = [T_incl ≥ 1e-4]
 //       chg    = Σ_c g_c·channel_c  (rgb, invdepth, normal, distance, 1)
@@ -23,13 +31,18 @@
 //       dpower = dα·α and dop = dα·exp(power), where α_raw < 0.99
 //     and from these the 14 gradient values of the instance's packed row:
 //     d_mean2d (2), d_conic (3), d_opacity, and Σ g_c·w for the 8 channels.
-//     A pixel whose T fell below 1e-4 is done, as in the forward; the CTA
-//     stops once every pixel is done.
+//     A pixel whose T fell below 1e-4 is done; a warp whose pixels are all
+//     done skips the rest of the span; the CTA stops once every pixel is
+//     done.
 //   * Reduction over the tile's pixels, in a fixed order: each thread sums
-//     its own pixels, a warp sums its lanes with a shuffle butterfly, and
-//     the per-warp partials (shared memory) are summed in warp order. One
-//     row per sorted instance is written; no atomics. Instances after the
-//     CTA stops keep the zero rows the wrapper allocated.
+//     its own pixels, a warp where some lane touched the instance sums its
+//     lanes with one reduce-scatter butterfly over 16 slots (the 14 values
+//     and two zero pads: 8+4+2+1+1 = 16 shuffles, after which lanes 2s and
+//     2s+1 hold the warp's sum of slot s), and the per-warp partials
+//     (shared memory; zero from a warp that skipped the instance) are summed
+//     in warp order. One row per sorted instance is written; no atomics.
+//     Instances after the CTA stops keep the zero rows the wrapper
+//     allocated.
 //
 // fold_rows_kernel sums the rows, permuted into expansion order (where each
 // gaussian's instances are contiguous), over each gaussian's span
@@ -40,40 +53,69 @@
 // CPU), so the two agree to the bit there.
 //
 // What bounds the backward: the per-(pixel, instance) arithmetic, as in the
-// forward. Each reached pair costs the forward's ~16 ops and one exp; each
+// forward. Each evaluated pair costs the forward's ~16 ops and one exp; each
 // kept pair adds a log1p, an exp, one more exp for dop and ~60 ops (chg,
-// the prefix, dα and the 14 gradient terms). The warp reductions (14 values
-// x 5 shuffles per instance and warp) run only for warps where some lane
-// kept the instance. Bytes (a 64-byte row per instance in and out, 64 bytes
-// of cotangents per pixel) are small beside that. The design keeps it
-// simple: load balance across tiles and the serial walk of long spans are
-// left as they are in the forward.
+// the prefix, dα and the 14 gradient terms). The mask leaves about a quarter
+// of the whole-tile pairs to evaluate, and the reduction costs 16 shuffles
+// per instance and touched warp. Bytes (a 64-byte row per instance in and
+// out, 64 bytes of cotangents per pixel) are small beside that.
 //
 // Built with -fmad=false and without --use_fast_math, like blend_fwd.cu, so
-// α, T and the cutoffs are bitwise the forward kernel's.
+// α, T and the cutoffs are bitwise the forward kernel's. Rounding of the
+// gradient terms: dα = T_excl·m·chg − S/(1−α) cancels, often by orders of
+// magnitude, so chg, the prefix and dα round as the plain version's do
+// (chg left to right with every product rounded, each w·chg rounded to
+// float32 and summed in float64). With a float32 prefix or an fmaf in chg or
+// dα, a few full-width gradients on the H100 missed the plain version's by
+// up to 4.5e-2 x their column's median |grad|; rounded as here, by at most
+// 1.1e-4 x. The 14 sums only accumulate, so they use explicit fmaf.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = 64;  // instances staged per shared-memory batch
+using namespace hidegs;
+
+constexpr int kBatch = 48;  // instances staged per shared-memory batch
 constexpr int kRow = 16;    // floats per packed row
 constexpr int kGrad = 14;   // gradient values per row (the rest is padding)
-constexpr float kTEps = 1e-4f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr unsigned kFull = 0xffffffffu;
 
-// Packed gaussian row, 16 floats = 4 float4:
-//   [0] mean_x mean_y conic_a conic_b   [1] conic_c opacity r g
-//   [2] b invdepth normal_x normal_y    [3] normal_z distance pad pad
+// Reduce-scatter of v[16] over the warp: returns the warp's sum of slot
+// lane / 2. Each step keeps the half of the slots that the lane's bit
+// selects and adds the partner's copy of it; the order is fixed, so the
+// result is bitwise reproducible. v is clobbered.
+__device__ __forceinline__ float warp_reduce_scatter16(float (&v)[kRow], int lane) {
+#pragma unroll
+  for (int half = 8, off = 16; half >= 1; half >>= 1, off >>= 1) {
+    const bool upper = lane & off;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, off);
+    }
+  }
+  return v[0] + __shfl_xor_sync(kFull, v[0], 1);
+}
+
 // Augmented cotangent row per pixel, 16 floats = 4 float4:
 //   g[0:10] (rgb, invdepth, normal, distance, acc_alpha, T_final),
 //   [10] G_total, [11] T_final·g_T, [12:16] unused.
+// Of those the kernel keeps kCot values per pixel in shared memory,
+// [c][k][thread]: g[0:9], G_total and T_final·g_T.
+constexpr int kCot = 11;
+
+// Dynamic shared memory of blend_bwd_kernel<TILE>, in this order: the
+// staged rows (float4 [kBatch][4]), the cotangents (float [kCot][P]), the
+// per-warp partials (float [kBatch][kWarps][kGrad]) and the masks.
 template <int TILE>
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float4) * kBatch * 4 + sizeof(float) * kCot * TileLayout<TILE>::P +
+         sizeof(float) * kBatch * kWarps * kGrad + sizeof(unsigned) * kBatch;
+}
+
+template <int TILE>
+__global__ void __launch_bounds__(kThreads, 3)
 blend_bwd_kernel(const float4* __restrict__ gattr,
                  const int* __restrict__ gauss_id,
                  const int* __restrict__ tile_start,
@@ -81,13 +123,16 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
                  int tiles_x,
                  const float4* __restrict__ g_aug,
                  float* __restrict__ rows) {
-  constexpr int P = TILE * TILE;
-  constexpr int PPT = P / kThreads;  // pixels per thread
-  static_assert(PPT * kThreads == P, "tile must be 16 or 32");
+  using L = TileLayout<TILE>;
+  constexpr int PPT = L::PPT;
+  constexpr int P = L::P;
   static_assert(kBatch <= kThreads, "one staged row per thread");
 
-  __shared__ float4 s_attr[kBatch][4];
-  __shared__ float s_part[kBatch][kWarps][kGrad];
+  extern __shared__ float4 s_dyn[];
+  float4 (*s_attr)[4] = reinterpret_cast<float4 (*)[4]>(s_dyn);
+  float* s_cot = reinterpret_cast<float*>(s_dyn + kBatch * 4);
+  float (*s_part)[kWarps][kGrad] = reinterpret_cast<float (*)[kWarps][kGrad]>(s_cot + kCot * P);
+  unsigned* s_mask = reinterpret_cast<unsigned*>(s_part + kBatch);
 
   const int t = blockIdx.x;
   const int start = tile_start[t];
@@ -97,25 +142,29 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
   const int warp = tid >> 5;
   const int ox = (t % tiles_x) * TILE;
   const int oy = (t / tiles_x) * TILE;
+  const int slot = lane >> 1;  // the slot this lane holds after the reduction
+  const bool writes_slot = !(lane & 1) && slot < kGrad;
 
-  float px[PPT], py[PPT], T[PPT], prefix[PPT], g[PPT][9], g_tot[PPT], s_base[PPT];
-  double S[PPT];
+  // this lane's pixel in the warp's first block, as in blend_fwd.cu
+  const int x0 = L::block_x0(warp * PPT) + (lane & (kBlockW - 1));
+  const int y0 = L::block_y0(warp * PPT) + lane / kBlockW;
+  const float px0 = pixel_centre(x0, ox);
+  const float py0 = pixel_centre(y0, oy);
+  float T[PPT];
+  double S[PPT], prefix[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int p = tid + k * kThreads;
-    px[k] = (float)(p % TILE) + 0.5f + (float)ox;
-    py[k] = (float)(p / TILE) + 0.5f + (float)oy;
     S[k] = 0.0;
     T[k] = 1.0f;
-    prefix[k] = 0.0f;
-    const float4* gr = g_aug + 4 * ((size_t)t * P + p);
+    prefix[k] = 0.0;
+    const float4* gr = g_aug + 4 * ((size_t)t * P + (y0 + L::k_dy(k)) * TILE + x0 + L::k_dx(k));
     const float4 q0 = gr[0], q1 = gr[1], q2 = gr[2];
-    g[k][0] = q0.x; g[k][1] = q0.y; g[k][2] = q0.z; g[k][3] = q0.w;
-    g[k][4] = q1.x; g[k][5] = q1.y; g[k][6] = q1.z; g[k][7] = q1.w;
-    g[k][8] = q2.x;
-    g_tot[k] = q2.z;
-    s_base[k] = q2.w;
+    float* cot = s_cot + k * kThreads + tid;  // read back by this thread only
+    cot[0 * P] = q0.x; cot[1 * P] = q0.y; cot[2 * P] = q0.z; cot[3 * P] = q0.w;
+    cot[4 * P] = q1.x; cot[5 * P] = q1.y; cot[6 * P] = q1.z; cot[7 * P] = q1.w;
+    cot[8 * P] = q2.x; cot[9 * P] = q2.z; cot[10 * P] = q2.w;
   }
+  bool warp_live = true;  // warp-uniform: some pixel of the warp has T ≥ 1e-4
 
   for (int b0 = 0; b0 < count; b0 += kBatch) {
     const int n = min(kBatch, count - b0);
@@ -126,73 +175,70 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
       for (int q = 0; q < 4; ++q) s_attr[tid][q] = row[q];
     }
     __syncthreads();
+    stage_masks<TILE>(s_attr, s_mask, n, ox, oy);
+    __syncthreads();
 
     for (int j = 0; j < n; ++j) {
-      const float4 a0 = s_attr[j][0];
-      const float4 a1 = s_attr[j][1];
-      const float4 a2 = s_attr[j][2];
-      const float4 a3 = s_attr[j][3];
-      float acc[kGrad];
+      const unsigned bits = warp_live ? L::warp_bits(s_mask[j], warp) : 0u;
+      float part = 0.0f;
+      if (bits) {
+        const float4 a0 = s_attr[j][0];
+        const float4 a1 = s_attr[j][1];
+        const float4 a2 = s_attr[j][2];
+        const float4 a3 = s_attr[j][3];
+        float acc[kRow];
 #pragma unroll
-      for (int c = 0; c < kGrad; ++c) acc[c] = 0.0f;
-      bool touched = false;
+        for (int c = 0; c < kRow; ++c) acc[c] = 0.0f;
+        bool touched = false;
 #pragma unroll
-      for (int k = 0; k < PPT; ++k) {
-        if (T[k] < kTEps) continue;
-        const float dx = px[k] - a0.x;
-        const float dy = py[k] - a0.y;
-        const float power =
-            -0.5f * (a0.z * dx * dx + a1.x * dy * dy) - a0.w * dx * dy;
-        if (power > 0.0f) continue;
-        const float e = expf(power);
-        const float alpha_raw = a1.y * e;
-        const float alpha = fminf(kAlphaMax, alpha_raw);
-        if (alpha < kAlphaMin) continue;
-        const double s_new = S[k] + (double)log1pf(-alpha);
-        const float t_new = expf((float)s_new);
-        const float t_excl = T[k];
-        const float m = (t_new >= kTEps) ? 1.0f : 0.0f;
-        const float w = t_excl * alpha * m;
-        const float chg = g[k][0] * a1.z + g[k][1] * a1.w + g[k][2] * a2.x +
-                          g[k][3] * a2.y + g[k][4] * a2.z + g[k][5] * a2.w +
-                          g[k][6] * a3.x + g[k][7] * a3.y + g[k][8];
-        prefix[k] += w * chg;
-        const float s_rest = (g_tot[k] - prefix[k]) + s_base[k];
-        const float d_alpha = t_excl * m * chg - s_rest / (1.0f - alpha);
-        if (alpha_raw < kAlphaMax) {
-          const float d_power = d_alpha * alpha;
-          acc[0] += d_power * (a0.z * dx + a0.w * dy);
-          acc[1] += d_power * (a1.x * dy + a0.w * dx);
-          acc[2] += -0.5f * dx * dx * d_power;
-          acc[3] += -(dx * dy) * d_power;
-          acc[4] += -0.5f * dy * dy * d_power;
-          acc[5] += d_alpha * e;
+        for (int k = 0; k < PPT; ++k) {
+          if (!(bits & (1u << k)) || T[k] < kTEps) continue;
+          float dx, dy;
+          const float power = pixel_power(a0, a1, px0 + (float)L::k_dx(k), py0 + (float)L::k_dy(k), dx, dy);
+          if (power > 0.0f) continue;
+          const float e = expf(power);
+          const float alpha_raw = a1.y * e;
+          const float alpha = fminf(kAlphaMax, alpha_raw);
+          if (alpha < kAlphaMin) continue;
+          const float* cot = s_cot + k * kThreads + tid;
+          const double s_new = S[k] + (double)log1pf(-alpha);
+          const float t_new = expf((float)s_new);
+          const float t_excl = T[k];
+          const float m = (t_new >= kTEps) ? 1.0f : 0.0f;
+          const float w = t_excl * alpha * m;
+          const float chg = cot[0 * P] * a1.z + cot[1 * P] * a1.w + cot[2 * P] * a2.x +
+                            cot[3 * P] * a2.y + cot[4 * P] * a2.z + cot[5 * P] * a2.w +
+                            cot[6 * P] * a3.x + cot[7 * P] * a3.y + cot[8 * P];
+          prefix[k] += (double)(w * chg);
+          const float s_rest = (cot[9 * P] - (float)prefix[k]) + cot[10 * P];
+          const float d_alpha = t_excl * m * chg - s_rest / (1.0f - alpha);
+          if (alpha_raw < kAlphaMax) {
+            const float d_power = d_alpha * alpha;
+            acc[0] = fmaf(d_power, fmaf(a0.z, dx, a0.w * dy), acc[0]);
+            acc[1] = fmaf(d_power, fmaf(a1.x, dy, a0.w * dx), acc[1]);
+            acc[2] = fmaf(-0.5f * dx * dx, d_power, acc[2]);
+            acc[3] = fmaf(-(dx * dy), d_power, acc[3]);
+            acc[4] = fmaf(-0.5f * dy * dy, d_power, acc[4]);
+            acc[5] = fmaf(d_alpha, e, acc[5]);
+          }
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[6 + c] = fmaf(cot[c * P], w, acc[6 + c]);
+          S[k] = s_new;
+          T[k] = t_new;
+          touched = true;
         }
+        if (__any_sync(kFull, touched)) {
+          part = warp_reduce_scatter16(acc, lane);
+          bool live = false;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[6 + c] += g[k][c] * w;
-        S[k] = s_new;
-        T[k] = t_new;
-        touched = true;
-      }
-      if (__any_sync(kFull, touched)) {
-#pragma unroll
-        for (int c = 0; c < kGrad; ++c) {
-          float v = acc[c];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-          acc[c] = v;
+          for (int k = 0; k < PPT; ++k) live |= (T[k] >= kTEps);
+          warp_live = __any_sync(kFull, live);
         }
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < kGrad; ++c) s_part[j][warp][c] = acc[c];
-      }
+      if (writes_slot) s_part[j][warp][slot] = part;
     }
 
-    int live = 0;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) live |= (T[k] >= kTEps);
-    const int n_live = __syncthreads_count(live);  // also orders s_part
+    const int n_live = __syncthreads_count(warp_live && lane == 0);  // also orders s_part
     for (int e = tid; e < n * kRow; e += kThreads) {
       const int j = e / kRow;
       const int c = e % kRow;
@@ -205,6 +251,17 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
     }
     if (n_live == 0) break;
   }
+}
+
+template <int TILE>
+int launch_bwd(const float4* a, const int* gid, const int* ts, const int* tc, int num_tiles,
+               int tiles_x, const float4* g, float* r, cudaStream_t s) {
+  constexpr size_t bytes = bwd_smem_bytes<TILE>();
+  cudaError_t err = cudaFuncSetAttribute(blend_bwd_kernel<TILE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  blend_bwd_kernel<TILE><<<num_tiles, kThreads, bytes, s>>>(a, gid, ts, tc, tiles_x, g, r);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void fold_rows_kernel(const float* __restrict__ rows_exp,
@@ -244,14 +301,9 @@ extern "C" int hidegs_blend_bwd(const void* gattr, const void* gauss_id,
   const int* tc = static_cast<const int*>(tile_count);
   const float4* g = static_cast<const float4*>(g_aug);
   float* r = static_cast<float*>(rows);
-  if (tile == 16) {
-    blend_bwd_kernel<16><<<num_tiles, kThreads, 0, s>>>(a, gid, ts, tc, tiles_x, g, r);
-  } else if (tile == 32) {
-    blend_bwd_kernel<32><<<num_tiles, kThreads, 0, s>>>(a, gid, ts, tc, tiles_x, g, r);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (tile == 16) return launch_bwd<16>(a, gid, ts, tc, num_tiles, tiles_x, g, r, s);
+  if (tile == 32) return launch_bwd<32>(a, gid, ts, tc, num_tiles, tiles_x, g, r, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // hidegs_fold_rows — rows_exp: (I, 16) float32 rows in expansion order;

@@ -7,39 +7,48 @@
 // so each CTA owns one tile and walks that tile's whole span of the
 // (tile, depth)-sorted instance stream itself.
 //
-//   * 256 threads own the tile's pixels: one each at tile 16, four each at
-//     tile 32. Transmittance (as a running sum of log(1-α)) and the nine
-//     accumulators live in registers. The sum is carried in float64 and
-//     rounded to float32 before each exp, as the plain version does with
-//     its float64 cumsum: a float32 carry rounds differently and flipped
-//     the T_incl ≥ 1e-4 cutoff on a pixel at full width.
+//   * 256 threads own the tile's pixels in compact warp footprints (see
+//     blend_common.cuh): one 8x4 block per warp at tile 16, four (a 16x8
+//     region) at tile 32, one pixel per lane per block. Transmittance (as a
+//     running sum of log(1-α)) and the nine accumulators live in registers.
+//     The sum is carried in float64 and rounded to float32 before each exp,
+//     as the plain version does with its float64 cumsum: a float32 carry
+//     rounds differently and flipped the T_incl ≥ 1e-4 cutoff on a pixel at
+//     full width.
 //   * Batches of 256 instances are gathered through gauss_id into shared
-//     memory (one 64-byte packed row each) and read back as broadcasts.
-//   * Per pixel, front to back:
+//     memory (one 64-byte packed row each). The CTA then computes each
+//     staged instance's warp-block mask (blend_common.cuh: the blocks its
+//     α ≥ 1/255 level set can reach) and stores it beside the row. Per
+//     instance a warp reads its bits of the mask as a broadcast and skips
+//     the blocks whose bit is clear; the branch is warp-uniform. The mask
+//     is conservative, so a skipped pair is one the pixel would have
+//     rejected, and the result is bitwise what evaluating every pair gives.
+//   * Per pixel of an evaluated block, front to back:
 //       power = -0.5 (a dx² + c dy²) - b dx dy
 //       α = min(0.99, op·exp(power)), kept iff power ≤ 0 and α ≥ 1/255
 //       S += log1p(-α) (float64);  T = exp(float(S))
 //       w = T_excl·α if T_incl ≥ 1e-4 else 0;  acc += w·(rgb, invd, n, dist, 1)
-//     A pixel whose T fell below 1e-4 is done (its later w are all 0); the
-//     CTA stops once every pixel is done (__syncthreads_count), the
-//     counterpart of the TPU kernel's opaque-block skip.
+//     A pixel whose T fell below 1e-4 is done (its later w are all 0). A
+//     warp whose pixels are all done skips the rest of the span but still
+//     takes part in the CTA's barriers; the CTA stops once every pixel is
+//     done (__syncthreads_count), the counterpart of the TPU kernel's
+//     opaque-block skip.
 //   * observe: per instance, the number of pixels with w > 0 and
-//     T_excl > 0.5, summed with __ballot_sync/__popc per warp and integer
-//     shared-memory atomics across warps; one int32 per sorted instance.
-//     The wrapper folds those to gaussians with an integer index_add_, so
-//     the result is deterministic. No float atomics anywhere.
+//     T_excl > 0.5, summed with __ballot_sync/__popc per evaluated block
+//     and integer shared-memory atomics across warps; one int32 per sorted
+//     instance. The wrapper folds those to gaussians with an integer
+//     index_add_, so the result is deterministic. No float atomics anywhere.
 //   * Output: (T, P, 16) float32 tile planes, [0:3] rgb [3] invdepth
 //     [4:7] normal [7] distance [8] acc_alpha [9] T_final [10:16] zero.
 //     Tiles with no instances (the wrapper zeroes the count of tiles past
 //     the block budget) get the background defaults: 0 with T_final = 1.
 //
-// What bounds it: the per-(pixel, instance) arithmetic. Every pair costs
-// ~16 float ops and one exp; each kept pair adds a log1p, an exp and 18
-// ops of accumulation. The bytes (one 64-byte row per instance, 64 bytes
-// out per pixel) are small beside that. The design keeps all pixel state
-// in registers, reads attributes as shared-memory broadcasts, skips done
-// pixels and stops opaque tiles. Load balance across tiles and the serial
-// walk over a long span are what it does not address yet.
+// What bounds it: the per-(pixel, instance) arithmetic. Every evaluated pair
+// costs ~16 float ops and one exp; each kept pair adds a log1p, an exp and
+// 18 ops of accumulation. The bytes (one 64-byte row per instance, 64 bytes
+// out per pixel) are small beside that. At full width 84% of the (pixel,
+// instance) pairs of a tile's span end in a rejection, and the mask leaves
+// about a quarter of them to evaluate, for ~32 mask tests per instance.
 //
 // Math stays float32 with the accurate expf/log1pf (no --use_fast_math),
 // apart from the float64 transmittance carry above.
@@ -48,21 +57,16 @@
 // version and can flip the power ≤ 0, α ≥ 1/255 and T_excl > 0.5 tests on
 // boundary pixels, and with them out_observe.
 
-#include <cuda_runtime.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBatch = 256;  // instances staged per shared-memory batch
-constexpr float kTEps = 1e-4f;
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
+using namespace hidegs;
 
-// Packed gaussian row, 16 floats = 4 float4:
-//   [0] mean_x mean_y conic_a conic_b   [1] conic_c opacity r g
-//   [2] b invdepth normal_x normal_y    [3] normal_z distance pad pad
+constexpr int kBatch = 256;  // instances staged per shared-memory batch
+
 template <int TILE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 blend_fwd_kernel(const float4* __restrict__ gattr,
                  const int* __restrict__ gauss_id,
                  const int* __restrict__ tile_start,
@@ -70,12 +74,12 @@ blend_fwd_kernel(const float4* __restrict__ gattr,
                  int tiles_x,
                  float4* __restrict__ out,
                  int* __restrict__ observe) {
-  constexpr int P = TILE * TILE;
-  constexpr int PPT = P / kThreads;  // pixels per thread
-  static_assert(PPT * kThreads == P, "tile must be 16 or 32");
+  using L = TileLayout<TILE>;
+  constexpr int PPT = L::PPT;
   static_assert(kBatch == kThreads, "one staged row per thread");
 
   __shared__ float4 s_attr[kBatch][4];
+  __shared__ unsigned s_mask[kBatch];
   __shared__ int s_obs[kBatch];
 
   const int t = blockIdx.x;
@@ -83,22 +87,27 @@ blend_fwd_kernel(const float4* __restrict__ gattr,
   const int count = tile_count[t];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int ox = (t % tiles_x) * TILE;
   const int oy = (t / tiles_x) * TILE;
 
-  float px[PPT], py[PPT], T[PPT];
+  // this lane's pixel in the warp's first block; block k is offset by
+  // (k_dx, k_dy), and the centres stay exact in float32
+  const int x0 = L::block_x0(warp * PPT) + (lane & (kBlockW - 1));
+  const int y0 = L::block_y0(warp * PPT) + lane / kBlockW;
+  const float px0 = pixel_centre(x0, ox);
+  const float py0 = pixel_centre(y0, oy);
+  float T[PPT];
   double S[PPT];
   float acc[PPT][9];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int p = tid + k * kThreads;
-    px[k] = (float)(p % TILE) + 0.5f + (float)ox;
-    py[k] = (float)(p / TILE) + 0.5f + (float)oy;
     S[k] = 0.0;
     T[k] = 1.0f;
 #pragma unroll
     for (int c = 0; c < 9; ++c) acc[k][c] = 0.0f;
   }
+  bool warp_live = true;  // warp-uniform: some pixel of the warp has T ≥ 1e-4
 
   for (int b0 = 0; b0 < count; b0 += kBatch) {
     const int n = min(kBatch, count - b0);
@@ -110,21 +119,25 @@ blend_fwd_kernel(const float4* __restrict__ gattr,
     }
     s_obs[tid] = 0;
     __syncthreads();
+    stage_masks<TILE>(s_attr, s_mask, n, ox, oy);
+    __syncthreads();
 
-    for (int j = 0; j < n; ++j) {
+    for (int j = 0; warp_live && j < n; ++j) {
+      const unsigned bits = L::warp_bits(s_mask[j], warp);
+      if (bits == 0) continue;
       const float4 a0 = s_attr[j][0];
       const float4 a1 = s_attr[j][1];
       const float4 a2 = s_attr[j][2];
       const float4 a3 = s_attr[j][3];
       int cnt = 0;
+      bool changed = false;
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
+        if (!(bits & (1u << k))) continue;
         bool fresh = false;
         if (T[k] >= kTEps) {
-          const float dx = px[k] - a0.x;
-          const float dy = py[k] - a0.y;
-          const float power =
-              -0.5f * (a0.z * dx * dx + a1.x * dy * dy) - a0.w * dx * dy;
+          float dx, dy;
+          const float power = pixel_power(a0, a1, px0 + (float)L::k_dx(k), py0 + (float)L::k_dy(k), dx, dy);
           if (power <= 0.0f) {
             const float alpha = fminf(kAlphaMax, a1.y * expf(power));
             if (alpha >= kAlphaMin) {
@@ -145,26 +158,29 @@ blend_fwd_kernel(const float4* __restrict__ gattr,
               }
               S[k] = s_new;
               T[k] = t_new;
+              changed = true;
             }
           }
         }
-        cnt += __popc(__ballot_sync(0xffffffffu, fresh));
+        cnt += __popc(__ballot_sync(kFull, fresh));
       }
       if (lane == 0 && cnt) atomicAdd(&s_obs[j], cnt);
+      if (__any_sync(kFull, changed)) {
+        bool live = false;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) live |= (T[k] >= kTEps);
+        warp_live = __any_sync(kFull, live);
+      }
     }
 
-    int live = 0;
-#pragma unroll
-    for (int k = 0; k < PPT; ++k) live |= (T[k] >= kTEps);
-    const int n_live = __syncthreads_count(live);  // also orders s_obs
+    const int n_live = __syncthreads_count(warp_live && lane == 0);  // also orders s_obs
     if (tid < n) observe[start + b0 + tid] = s_obs[tid];
     if (n_live == 0) break;
   }
 
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int p = tid + k * kThreads;
-    float4* o = out + 4 * ((size_t)t * P + p);
+    float4* o = out + 4 * ((size_t)t * L::P + (y0 + L::k_dy(k)) * TILE + x0 + L::k_dx(k));
     o[0] = make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
     o[1] = make_float4(acc[k][4], acc[k][5], acc[k][6], acc[k][7]);
     o[2] = make_float4(acc[k][8], T[k], 0.0f, 0.0f);

@@ -6,6 +6,9 @@
     row per sorted instance; replaces hidegs_tpu/raster/pallas_vjp.py:_passB_kernel.
   * csrc/blend_bwd.cu, `hidegs_fold_rows`: the per-gaussian sum of those
     rows, in a fixed order (no float atomics).
+  * csrc/blend_common.cuh, included by both sources: the packed-row layout,
+    the map from threads to pixels and the warp-block mask
+    (blend_plain.block_masks is its plain version).
 
 Each source is compiled by `nvcc` for sm_90a into build/kernels/ at first
 use (all sources at once, one process each), loaded with ctypes, and
@@ -58,20 +61,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+def _lib_path(src: Path) -> Path:
+    """The library of source `src`, named by a hash of the source, every
+    header beside it (which the sources include) and the flags, so that a
+    changed header never loads a stale library."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Dict[str, Path]:
-    """Compile every source in SOURCES whose library (same source, same
+def build(sources: Dict[str, Path] = SOURCES) -> Dict[str, Path]:
+    """Compile every source whose library (same source, same headers, same
     flags) is not in build/kernels/ yet, all nvcc processes at once; returns
     the library paths by name. Each compiler's register/shared-memory report
     lands next to its library as a .log file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
-    for name, src in SOURCES.items():
-        lib = _lib_path(name)
+    for src in sources.values():
+        lib = _lib_path(src)
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -88,21 +97,23 @@ def build() -> Dict[str, Path]:
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: _lib_path(name) for name in SOURCES}
+    return {name: _lib_path(src) for name, src in sources.items()}
 
 
 @functools.cache
-def _lib(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build()[name]))
-
-
-@functools.cache
-def _fn(name: str, symbol: str, n_ptr_head: int, n_int: int, n_ptr_tail: int):
-    fn = getattr(_lib(name), symbol)
+def bind(lib: Path, symbol: str, n_ptr_head: int, n_int: int, n_ptr_tail: int):
+    """C entry point `symbol` of library `lib`: n_ptr_head pointers, n_int
+    ints, n_ptr_tail pointers (the stream last); returns a cudaError code."""
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptr_head + [ctypes.c_int] * n_int
                    + [ctypes.c_void_p] * n_ptr_tail)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _fn(name: str, symbol: str, n_ptr_head: int, n_int: int, n_ptr_tail: int):
+    return bind(build()[name], symbol, n_ptr_head, n_int, n_ptr_tail)
 
 
 def _check(name, x, dtype, shape, device):

@@ -17,7 +17,7 @@ within the rounding bound of a float32 sum, k·2^-24·Σ|row| for k rows.
 import pytest
 import torch
 
-from hidegs_tpu_torch.data.synthetic import make_toy_gaussians, ring_camera
+from hidegs_tpu_torch.data.synthetic import make_blend_boundary_scene, make_toy_gaussians, ring_camera
 from hidegs_tpu_torch.raster import binning as tbin
 from hidegs_tpu_torch.raster import blend_autograd, blend_plain, cuda_blend
 from hidegs_tpu_torch.raster import preprocess as tpp
@@ -99,6 +99,43 @@ def test_backward_kernel_matches_plain(cuda, tile, max_blocks):
     # bitwise reproducible
     again = cuda_blend.grad_attrs(attrs, tb, count, g_aug, tx, tile)
     assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("max_blocks", [0, 3])
+def test_kernels_on_the_mask_boundary_scene(cuda, tile, max_blocks):
+    """Level sets that end on the kernels' 8x4 mask blocks (corners, edges,
+    thin and near-singular conics, op at 1/255 and near 1): the forward
+    against the plain blend with out_observe equal, the backward and fold
+    against the plain versions, and two launches of each bitwise equal."""
+    h, w = 64, 96
+    pre = make_blend_boundary_scene(height=h, width=w, seed=7, device=cuda)
+    ty, tx = tbin.tile_grid(h, w, tile)
+    tb = tbin.bin_gaussians(pre, ty, tx, 1 << 16, tile)
+    k = blend_autograd.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
+    again = blend_autograd.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
+    p = blend_plain.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
+    for key in PLANES:
+        torch.testing.assert_close(k[key], p[key], **BLEND_TOL)
+    for key in k:
+        assert torch.equal(k[key], again[key]), key
+    assert torch.equal(k["out_observe"], p["out_observe"])
+
+    attrs = blend_plain.pack_gaussian_attrs(pre)
+    count = cuda_blend.visited_count(tb, max_blocks)
+    tile_out, _ = cuda_blend.blend_tile_out(attrs, tb, count, ty, tx, tile)
+    gen = torch.Generator(device=cuda).manual_seed(tile + max_blocks)
+    g = torch.randn(tile_out.shape, generator=gen, device=cuda)
+    g_aug = blend_plain.augment_cotangents(tile_out, g)
+    rows = cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile)
+    got = cuda_blend.fold(rows, tb, attrs.shape[0])
+    plain_rows = blend_plain.blend_tiles_bwd(blend_plain.unpack_attrs(attrs), tb, g_aug, ty, tx, tile, max_blocks)
+    want = blend_plain.fold_rows(blend_plain.expansion_rows(plain_rows, tb.slot_s), tb.g_start)
+    _assert_grads_close(got, want, f"boundary scene, tile {tile} max_blocks {max_blocks}")
+    _assert_fold_within_rounding(blend_plain.expansion_rows(rows, tb.slot_s), tb.g_start, got)
+    assert torch.equal(cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile), rows)
+    assert torch.equal(cuda_blend.grad_attrs(attrs, tb, count, g_aug, tx, tile), got)
 
 
 @pytest.mark.cuda

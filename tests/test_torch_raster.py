@@ -205,14 +205,15 @@ def test_plain_blend_matches_pallas_interpret(scene):
 def test_pair_counts_match_sequential_walk(scene):
     """The kernel bound's pair counts against a per-tile front-to-back walk
     in numpy: an instance is reached while some pixel of its tile still has
-    T ≥ 1e-4, and a reached pair is kept where α ≥ 1/255."""
+    T ≥ 1e-4, a reached pair is kept where α ≥ 1/255, and a kept pair is
+    open where its own pixel still has T ≥ 1e-4."""
     tile = 16
     jpre, jtb, ty, tx = _binned(scene, tile)
-    live, kept = blend_plain.pair_counts(pre_to_torch(jpre), binning_to_torch(jtb), tx, tile)
+    live, kept, open_ = blend_plain.pair_counts(pre_to_torch(jpre), binning_to_torch(jtb), tx, tile)
     m, c, op = (np.asarray(x, np.float64) for x in (jpre.mean2d, jpre.conic, jpre.opacity))
     starts, counts, gid = (np.asarray(x) for x in (jtb.tile_start, jtb.tile_count, jtb.gauss_id))
     lin = np.arange(tile * tile)
-    want_live = want_kept = 0
+    want_live = want_kept = want_open = 0
     for tid in range(ty * tx):
         px = (tid % tx) * tile + lin % tile + 0.5
         py = (tid // tx) * tile + lin // tile + 0.5
@@ -226,9 +227,10 @@ def test_pair_counts_match_sequential_walk(scene):
             keep = (power <= 0) & (a >= 1 / 255)
             want_live += tile * tile
             want_kept += int(keep.sum())
+            want_open += int((keep & (T >= 1e-4)).sum())
             T = T * np.where(keep, 1 - a, 1.0)
-    assert (live, kept) == (want_live, want_kept)
-    assert 0 < kept < live
+    assert (live, kept, open_) == (want_live, want_kept, want_open)
+    assert 0 < open_ <= kept < live
 
 
 def test_needed_blocks_and_visited(scene):
