@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full width — rendering
-(`hidegs_tpu_torch.raster.api.render`, the hand-written CUDA forward blend)
-and training (`hidegs_tpu_torch.train.loop.train_step`, which adds the CUDA
-backward blend and the gradient fold kernel) — and holds every kernel of
-those paths against its plain PyTorch version. Phases:
+Drives the port's three paths at full width — rendering
+(`hidegs_tpu_torch.raster.api.render`, the hand-written CUDA forward blend),
+serving a trained scene (`python -m hidegs_tpu_torch.evaluate` and
+`render_cli`, which reach the forward blend once per view) and training
+(`hidegs_tpu_torch.train.loop.train_step`, which adds the CUDA backward
+blend and the gradient fold kernel) — and holds every kernel of those paths
+against its plain PyTorch version. Phases:
 
   1. environment: card name and power limit, versions, the kernel builds
-     (one nvcc per source, started together);
+     (one nvcc per source, started together, with the scalar fold of
+     tools/csrc/fold_rows_scalar.cu that phase 11 times beside the fold);
   2. small: toy scenes, tile 16 and 32, render_geo on and off, and the
      mask boundary scene (make_blend_boundary_scene: level sets that end on
      the kernels' 8x4 mask blocks) with and without a too-small max_blocks,
@@ -18,9 +21,10 @@ those paths against its plain PyTorch version. Phases:
      1e-3, out_observe exactly equal;
   3. small backward: the same scenes, tile 16 and 32, with and without a
      too-small max_blocks: backward + fold kernels against blend_tiles_bwd
-     + the plain fold (`hold_grads`), and the fold kernel against the plain
-     fold in float64 (`hold_fold`); then 3 train steps with the "blend"
-     backend against 3 with the "plain" one;
+     + the plain fold (`hold_grads`), the fold kernel against the plain
+     fold in float64 (`hold_fold`) and bitwise against the plain fold in
+     float32; then 3 train steps with the "blend" backend against 3 with
+     the "plain" one;
   4. full width: 1,010,240 gaussians (make_uav_gaussians, 1M ground + 64
      structures), four 1920x1088 views from a 2x2 nadir grid, tile 32, SH 3,
      render_geo, budgets from a probe pass with 1.12x slack. Launch counts
@@ -35,7 +39,21 @@ those paths against its plain PyTorch version. Phases:
      registers and spills from the loaded library's build log;
   6. render breakdown: preprocess, binning and blend timed alone, and one
      render under torch.profiler for the device busy share and top kernels;
-  7. training at full width: the four rendered views are the targets; the
+  7. serve at full width: the port's write_synthetic_colmap_scene writes
+     the four views as a COLMAP scene (the ground truth is the 8-bit image
+     of the model), the model is written as point_cloud/iteration_30000/
+     point_cloud.ply with a cfg_args.json (raster_backend "pallas", tile
+     16, render_cli's tile, and render_cli's budget), then `evaluate.main`
+     (--eval: view 0 is the test set) and `render_cli.main` serve it;
+     launch counts are read around those two calls alone. Checks: PSNR >=
+     50 dB and SSIM >= 0.99 per view, finite LPIPS, both sets and
+     lpips_kind in results.json, render_cli's PNGs equal to evaluate's,
+     render_cli's view 0 (tile 16) held against the plain blend as in
+     phase 4, one forward launch per served view, no budget overflow,
+     every tensor of the path on the card. Prints the seconds of each step
+     and the ms per evaluated view split into render, LPIPS, image I/O and
+     the rest, and whether Pillow imports;
+  8. training at full width: the four rendered views are the targets; the
      trainable state is the scene through the inverse activations, seeded
      noise on sh_dc, opacity logits and xyz, capacity 1.25x. 30 train steps
      cycling the views, default TrainConfig but freq_warmup=0,
@@ -44,18 +62,20 @@ those paths against its plain PyTorch version. Phases:
      finite losses, step_ok, no overflow, mean PSNR up over the steps
      before the round and over those after it, one launch of each kernel
      per step, two runs of one step bitwise equal;
-  8. the densify round: the alive count changes, every value stays finite,
+  9. the densify round: the alive count changes, every value stays finite,
      the rows it did not split, clone or prune keep their parameters to the
      bit, and the images change only where the rows it changed are drawn;
      prints what it split (screen radii, scales, structure or ground rows)
      and the PSNR it cost in each view;
-  9. full-width hold: view 0's backward + fold kernels against the plain
+ 10. full-width hold: view 0's backward + fold kernels against the plain
      versions, on the cotangents one train step gives its blend;
- 10. train times: the step, split into train_step's own stages
+ 11. train times: the step, split into train_step's own stages
      (step_forward / step_backward / step_update), the backward and fold
      kernels alone, their plain versions and bounds, the backward's mask
-     share, evaluated pairs, registers and spills (as in phase 5), and one
-     step under torch.profiler.
+     share, evaluated pairs, registers and spills (as in phase 5), the fold
+     against the scalar fold path it replaced (the sorted rows scattered by
+     blend_plain.expansion_rows, then the scalar fold) in turns and
+     bitwise, and one step under torch.profiler.
 
 Prints a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 Any failed check raises and exits non-zero. Without a CUDA device it exits
@@ -63,12 +83,16 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -123,6 +147,11 @@ DENSIFY_AT = 10  # the training run's one densify round follows this step
 N_GROUND, N_STRUCTS, FULL_H, FULL_W = 1_000_000, 64, 1088, 1920
 
 WARMUP, ITERS = 2, 10
+ROOT = Path(__file__).resolve().parent
+# the fold design the package's fold kernel replaced, built and timed beside it
+SCALAR_FOLD_SRC = ROOT / "tools" / "csrc" / "fold_rows_scalar.cu"
+SERVE_ITER = 30_000
+SERVE_MIN_PSNR, SERVE_MIN_SSIM = 50.0, 0.99
 
 
 def check(cond, msg):
@@ -153,6 +182,24 @@ def time_ms(fn, warmup=WARMUP, iters=ITERS):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_per_launch_ms(fn, launches=20, warmup=WARMUP, iters=ITERS):
+    """Median over `iters` runs of `launches` back-to-back calls of `fn`
+    between two CUDA events, per call: the device time of a short kernel,
+    without the gap the host's enqueue leaves before a single launch."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -209,7 +256,7 @@ def phase_environment():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = cuda_blend.build()
+    libs = cuda_blend.build({**cuda_blend.SOURCES, "fold_rows_scalar": SCALAR_FOLD_SRC})
     print(f"[env] built {', '.join(lib.name for lib in libs.values())} in {time.perf_counter() - t0:.2f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -514,6 +561,247 @@ def phase_breakdown(scene, cam, cfg, pre, tb):
     profile_device(lambda: render(*scene, cam, render_geo=True, active_sh_degree=3, config=cfg), "breakdown")
 
 
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def patched(obj, name, wrapper):
+    """obj.name replaced by wrapper(original) inside the block."""
+    original = getattr(obj, name)
+    setattr(obj, name, wrapper(original))
+    try:
+        yield
+    finally:
+        setattr(obj, name, original)
+
+
+def tensors_of(x):
+    """The tensors in x (a tensor, a tuple or list of them, a dict's values,
+    or a CameraParams' fields)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in tensors_of(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in tensors_of(v)]
+    if hasattr(x, "R") and hasattr(x, "cx"):  # CameraParams
+        return [x.R, x.t, x.fx, x.fy, x.cx, x.cy]
+    return []
+
+
+def serve_budget(scene, cams, tile):
+    """render_cli's --max_instances for `cams` at `tile` (render_cli bins at
+    the RasterConfig default tile): a probe pass with 1.12x slack, as
+    full_width_setup sizes the render cell."""
+    from hidegs_tpu_torch.raster import binning
+    from hidegs_tpu_torch.raster.api import round_budget
+    from hidegs_tpu_torch.raster.preprocess import preprocess_gaussians
+
+    want = 0
+    for cam in cams:
+        ty, tx = binning.tile_grid(cam.height, cam.width, tile)
+        pre = preprocess_gaussians(*scene, cam, screen_bounds=(tx * tile, ty * tile))
+        tb = binning.bin_gaussians(pre, ty, tx, 1 << 22, tile)
+        check(int(tb.overflow) == 0, "serve probe budget overflowed")
+        want = max(want, int(tb.num_instances))
+    return round_budget(int(want * 1.12))
+
+
+def phase_serve(scene, cams, cfg):
+    """The serving path at full width: a COLMAP scene and a model directory
+    on disk, then the port's evaluate and render_cli entry points, as a
+    user calls them. Counts are read around those two calls alone."""
+    from hidegs_tpu_torch import config, evaluate, render_cli
+    from hidegs_tpu_torch.data import cameras as cam_io
+    from hidegs_tpu_torch.data import scene as scene_io
+    from hidegs_tpu_torch.data.synthetic import write_synthetic_colmap_scene
+    from hidegs_tpu_torch.raster import blend_autograd, blend_plain
+    from hidegs_tpu_torch.raster.api import RasterConfig
+    from hidegs_tpu_torch.raster.binning import TILE
+    from hidegs_tpu_torch.train import lpips
+    from hidegs_tpu_torch.utils import png
+    from hidegs_tpu_torch.utils.ply import gaussian_properties, write_ply
+
+    dev = scene.means3d.device
+    work = ROOT / "build" / "serve_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    src, model, out = work / "scene", work / "model", work / "render_cli"
+    try:
+        import PIL  # noqa: F401
+
+        pil = f"yes (Pillow {PIL.__version__})"
+    except ImportError:
+        pil = "no"
+    print(f"[serve] import PIL on this machine: {pil}")
+
+    t0 = time.perf_counter()
+    write_synthetic_colmap_scene(str(src), scene, cams, render_config=RasterConfig(
+        tile=cfg.tile, max_instances=cfg.max_instances))
+    t_scene = time.perf_counter() - t0
+    # render_cli bins at the RasterConfig default tile (16), as the JAX one
+    # does; the snapshot asks evaluate for the same tile and budget, so both
+    # entry points render every view alike and their PNGs must be equal
+    cli_budget = serve_budget(scene, cams, TILE)
+    t0 = time.perf_counter()
+    op = scene.opacities.double()
+    ckpt = model / "point_cloud" / f"iteration_{SERVE_ITER}"
+    os.makedirs(ckpt)
+    write_ply(str(ckpt / "point_cloud.ply"), gaussian_properties(
+        scene.means3d.cpu().numpy(), scene.shs[:, 0].cpu().numpy(), scene.shs[:, 1:].cpu().numpy(),
+        torch.log(op / (1.0 - op)).float().cpu().numpy(), torch.log(scene.scales).cpu().numpy(),
+        scene.quats.cpu().numpy()))
+    config.save_cfg_args(str(model), config.ModelConfig(source_path=str(src), eval=True),
+                         config.PipelineConfig(raster_backend="pallas", tile=TILE, max_instances=cli_budget),
+                         config.OptimizationConfig())
+    t_model = time.perf_counter() - t0
+    print(f"[serve] wrote the COLMAP scene ({len(cams)} views {FULL_W}x{FULL_H}, rendered at tile {cfg.tile}, "
+          f"+ PNGs + sparse points) in {t_scene:.2f} s and the model (ply of {scene.means3d.shape[0]} gaussians, "
+          f"cfg_args.json: raster_backend pallas, tile {TILE}, max_instances {cli_budget}; render_cli gets the "
+          f"same budget) in {t_model:.2f} s")
+
+    timers = {k: [] for k in ("load_scene", "read_ply", "render", "lpips", "decode", "png_write")}
+    renders = []
+    blend_in = {}  # the blend's inputs and planes in render_cli's first view, held below
+
+    def keep_first_blend(blend_tiles):
+        def call(*args, **kwargs):
+            res = blend_tiles(*args, **kwargs)
+            if len(renders) == n_eval and not blend_in:
+                blend_in.update(args=args, planes=res)
+            return res
+        return call
+
+    def timed(key, check_devices=False):
+        def wrap(fn):
+            def call(*args, **kwargs):
+                if check_devices:
+                    for t in tensors_of(args) + tensors_of(kwargs):
+                        check(t.device == dev, f"serve: a {key} input lies on {t.device}")
+                sync(dev)
+                t0 = time.perf_counter()
+                res = fn(*args, **kwargs)
+                sync(dev)
+                timers[key].append(time.perf_counter() - t0)
+                if check_devices:
+                    for t in tensors_of(res):
+                        check(t.device == dev, f"serve: a {key} output lies on {t.device}")
+                if key == "render":
+                    renders.append(dict(image=res["render"], **{
+                        k: int(res[k]) for k in ("overflow", "block_overflow", "visible_overflow")}))
+                return res
+            return call
+        return wrap
+
+    def timed_lpips(default_fn):
+        def make(*args, **kwargs):
+            fn, kind = default_fn(*args, **kwargs)
+            return timed("lpips", check_devices=True)(fn), kind
+        return make
+
+    eval_args = ["--model_path", str(model), "--source_path", str(src), "--eval", "--resolution", "1",
+                 "--device", str(dev)]
+    cli_args = ["--model_path", str(model), "--source_path", str(src), "--resolution", "1", "--backend", "pallas",
+                "--max_instances", str(cli_budget), "--output_path", str(out), "--device", str(dev)]
+    n_eval = len(cams)  # evaluate's renders come first; render_cli's first blend is held below
+    with contextlib.ExitStack() as stack:
+        for obj, name, wrapper in (
+            (scene_io, "load_scene", timed("load_scene")),
+            (evaluate, "load_gaussian_state_from_ply", timed("read_ply", check_devices=True)),
+            (render_cli, "load_gaussian_state_from_ply", timed("read_ply", check_devices=True)),
+            (evaluate, "render", timed("render", check_devices=True)),
+            (render_cli, "render", timed("render", check_devices=True)),
+            (lpips, "default_lpips_fn", timed_lpips),
+            (cam_io, "load_camera", timed("decode")),
+            (evaluate, "save_png", timed("png_write")),
+            (render_cli, "save_png", timed("png_write")),
+            (blend_autograd, "blend_tiles", keep_first_blend),
+        ):
+            stack.enter_context(patched(obj, name, wrapper))
+        reset_counts()
+        t0 = time.perf_counter()
+        report = evaluate.main(eval_args)
+        sync(dev)
+        t_eval = time.perf_counter() - t0
+        check(len(renders) == n_eval, f"serve: evaluate rendered {len(renders)} views, expected {n_eval}")
+        t0 = time.perf_counter()
+        render_cli.main(cli_args)
+        sync(dev)
+        t_cli = time.perf_counter() - t0
+        launches = read_counts()
+    n_served = len(renders)
+    print(f"[serve] launches on the serve path: {launches} for {n_served} served views")
+    check(launches == {"blend_fwd": n_served, "blend_bwd": 0, "fold_rows": 0} and n_served == 2 * len(cams),
+          f"serve path launches {launches}, expected one forward blend per served view ({2 * len(cams)})")
+    for i, r in enumerate(renders):
+        over = {k: v for k, v in r.items() if k != "image"}
+        check(all(v == 0 for v in over.values()), f"serve: view {i} overflows its budget: {over}")
+
+    saved = json.loads((model / f"eval_{SERVE_ITER}" / "results.json").read_text())
+    check(set(saved) == {"lpips_kind", "train", "test"}, f"serve: results.json keys {sorted(saved)}")
+    check(len(saved["test"]["per_view"]) == 1 and len(saved["train"]["per_view"]) == len(cams) - 1,
+          "serve: --eval should give one test view and the rest train views")
+    for split in ("test", "train"):
+        for v in saved[split]["per_view"]:
+            check(v["psnr"] >= SERVE_MIN_PSNR and v["ssim"] >= SERVE_MIN_SSIM and np.isfinite(v["lpips"]),
+                  f"serve: {split} view {v['name']}: PSNR {v['psnr']:.3f} dB, SSIM {v['ssim']:.5f}, "
+                  f"LPIPS {v['lpips']}")
+            print(f"[serve] {split} {v['name']}: PSNR {v['psnr']:.4f} dB, SSIM {v['ssim']:.6f}, LPIPS "
+                  f"{v['lpips']:.6g} ({saved['lpips_kind']})")
+    check(report == saved, "serve: evaluate.main's report differs from results.json")
+
+    # render_cli renders every view in COLMAP order, evaluate its train set
+    # first (--eval made view 0 the test set), both at tile 16 on the same
+    # budget: each of render_cli's PNGs must equal evaluate's of that view
+    ev = model / f"eval_{SERVE_ITER}"
+    eval_pngs = [ev / "test" / "renders" / "00000.png"] + [
+        ev / "train" / "renders" / f"{i:05d}.png" for i in range(len(cams) - 1)]
+    for i, want in enumerate(eval_pngs):
+        got = png.read_image(str(out / f"{i:05d}.png"))
+        check(got.shape == (FULL_H, FULL_W, 3) and np.array_equal(got, png.read_image(str(want))),
+              f"serve: render_cli's view {i} differs from evaluate's {want.parent.parent.name}/{want.name}")
+    print(f"[serve] render_cli's {len(eval_pngs)} PNGs equal evaluate's, to the bit")
+
+    # render_cli's view 0 (tile 16, the budget above): the kernel's planes
+    # against the plain blend on the same inputs, as phase 4 holds tile 32;
+    # the served image is the held kernel output
+    pre, tb, ty, tx, tile, max_blocks = blend_in["args"]
+    k = blend_in["planes"]
+    p = blend_plain.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
+    err = 0.0
+    for key in PLANE_KEYS:
+        assert_close(k[key], p[key], f"serve: render_cli view 0 {key}")
+        err = max(err, max_abs_err(k[key], p[key]))
+    N = pre.mean2d.shape[0]
+    n_diff = int((k["out_observe"] != p["out_observe"]).sum())
+    check(n_diff <= N // 1000, f"serve: render_cli view 0: out_observe differs on {n_diff} of {N} gaussians (> 0.1%)")
+    check(tile == TILE and torch.equal(renders[n_eval]["image"], k["render"][:, :FULL_H, :FULL_W]),
+          "serve: render_cli's view 0 is not the held kernel output")
+    print(f"[serve] render_cli view 0 (tile {tile}, {int(tb.num_instances)} instances) kernel vs plain: max abs err "
+          f"{err:.3e} (atol 3e-4 / rtol 1e-3 holds), out_observe differs on {n_diff} of {N} gaussians")
+    blend_in.clear()
+    del pre, tb, k, p
+    # evaluate's calls come first in each timer's list, render_cli's after them
+    setup_s = timers["load_scene"][0] + timers["read_ply"][0]
+    per_view = 1e3 * (t_eval - setup_s) / n_eval
+    render_ms = 1e3 * float(np.mean(timers["render"][:n_eval]))
+    lpips_ms = 1e3 * float(np.mean(timers["lpips"]))
+    decode_ms = 1e3 * float(np.mean(timers["decode"][:n_eval]))
+    write_ms = 2e3 * float(np.mean(timers["png_write"][:2 * n_eval]))  # a render and a ground truth
+    print(f"[serve] evaluate: {t_eval:.2f} s for {n_eval} views: load the scene {timers['load_scene'][0]:.3f} s, "
+          f"read the PLY {timers['read_ply'][0]:.3f} s, then per view {per_view:.1f} ms = render {render_ms:.2f} "
+          f"+ LPIPS {lpips_ms:.2f} + image I/O {decode_ms + write_ms:.2f} (decode the ground truth "
+          f"{decode_ms:.2f}, write 2 PNGs {write_ms:.2f}) + the rest (PSNR, SSIM, host) "
+          f"{per_view - render_ms - lpips_ms - decode_ms - write_ms:.2f} (host clock, the card synchronised "
+          f"around each timed call)")
+    print(f"[serve] render_cli: {t_cli:.2f} s for {n_served - n_eval} views: render "
+          f"{1e3 * np.mean(timers['render'][n_eval:]):.2f} ms and PNG write "
+          f"{1e3 * np.mean(timers['png_write'][2 * n_eval:]):.2f} ms per view")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches)
+
+
 def grad_gate_stats(got, want):
     """Per column of the gradient rows, against the plain versions' `want`:
     the elements outside the per-element gate (`n_bad`), the multiple of
@@ -586,8 +874,10 @@ def hold_backward(attrs, tb, count, tile_out, g_tiles, ty, tx, tile, max_blocks,
     rows = blend_plain.blend_tiles_bwd(blend_plain.unpack_attrs(attrs), tb, g_aug, ty, tx, tile, max_blocks)
     want = blend_plain.fold_rows(blend_plain.expansion_rows(rows, tb.slot_s), tb.g_start)
     abs_err, norm_err, needed = hold_grads(got, want, what)
-    k_rows_exp = blend_plain.expansion_rows(cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile), tb.slot_s)
+    k_rows_exp = cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile)  # expansion order
     fold_err, fold_used = hold_fold(k_rows_exp, tb.g_start, got, f"{what}, fold")
+    check(torch.equal(got, blend_plain.fold_rows(k_rows_exp, tb.g_start)),
+          f"{what}: the fold kernel is not bitwise the plain fold")
     again = cuda_blend.grad_attrs(attrs, tb, count, g_aug, tx, tile)
     check(torch.equal(again, got), f"{what}: two backward runs differ")
     return dict(err=abs_err, norm_err=norm_err, needed=needed, fold_err=fold_err, fold_used=fold_used,
@@ -597,7 +887,8 @@ def hold_backward(attrs, tb, count, tile_out, g_tiles, ty, tx, tile, max_blocks,
 def hold_report(h):
     return (f"max abs err {h['err']:.3e}, max normalised err {h['norm_err']:.3e} (tol {GRAD_NORM_TOL}), "
             f"per element needed {h['needed']:.3e} x median (tol {GRAD_MEDIAN_ATOL}); fold vs float64: "
-            f"max abs err {h['fold_err']:.3e}, {h['fold_used']:.3f} of its bound; two runs bitwise equal")
+            f"max abs err {h['fold_err']:.3e}, {h['fold_used']:.3f} of its bound, bitwise the float32 plain "
+            f"fold; two runs bitwise equal")
 
 
 def toy_train_problem(dev, n=300, hw=80):
@@ -906,6 +1197,72 @@ def phase_hold_train(train):
     return dict(tb=b["tb"], ty=ty, tx=tx, **h)
 
 
+def scalar_fold_fn():
+    """The scalar fold of tools/csrc/fold_rows_scalar.cu (built in phase 1)."""
+    from hidegs_tpu_torch.raster import cuda_blend
+
+    lib = cuda_blend.build({"fold_rows_scalar": SCALAR_FOLD_SRC})["fold_rows_scalar"]
+    return cuda_blend.bind(lib, "hidegs_fold_rows_scalar", 2, 1, 2)
+
+
+def fold_ab(rows_exp, tb, N):
+    """The fold kernel on the backward's expansion-order rows against the
+    path it replaced on the same rows: the sorted-instance rows scattered
+    into a new (I, 16) buffer by blend_plain.expansion_rows, then the scalar
+    fold. Both must equal the plain fold bitwise. Times in turns (fold,
+    scalar path, scalar path, fold) with time_ms, one launch at a time, as
+    every kernel of the `kernels` line is timed; then each again over runs
+    of 20 back-to-back launches (time_per_launch_ms), which leaves out the
+    gap the host's enqueue opens before a single short launch. The fold's
+    bound counts the bytes it must move: the expansion rows that hold
+    instances read once, g_start read once, the output rows written once."""
+    from hidegs_tpu_torch.raster import blend_plain, cuda_blend
+
+    dev = rows_exp.device
+    g_start = tb.g_start.contiguous()
+    slot_s = tb.slot_s.long()
+    sorted_rows = rows_exp[slot_s]  # the layout the backward kernel wrote before
+    scalar = scalar_fold_fn()
+    stream = torch.cuda.current_stream().cuda_stream
+    new_out = torch.empty((N, cuda_blend.ATTR), device=dev)
+    old_out = torch.empty_like(new_out)
+
+    def new_path():
+        cuda_blend.launch_fold_rows(rows_exp, g_start, new_out)
+
+    def old_path():
+        scattered = blend_plain.expansion_rows(sorted_rows, tb.slot_s)
+        rc = scalar(scattered.data_ptr(), g_start.data_ptr(), N, old_out.data_ptr(), stream)
+        check(rc == 0, f"scalar fold launch failed: cudaError {rc}")
+
+    def old_kernel_only():
+        rc = scalar(rows_exp.data_ptr(), g_start.data_ptr(), N, old_out.data_ptr(), stream)
+        check(rc == 0, f"scalar fold launch failed: cudaError {rc}")
+
+    new_path()
+    old_path()
+    plain = blend_plain.fold_rows(rows_exp, g_start)
+    check(torch.equal(new_out, plain), "the fold kernel is not bitwise the plain fold at full width")
+    check(torch.equal(new_out, old_out), "the fold kernel is not bitwise the scalar fold path at full width")
+    turns = [time_ms(fn) for fn in (new_path, old_path, old_path, new_path)]
+    b2b = [time_per_launch_ms(fn) for fn in (new_path, old_path, old_kernel_only)]
+    fold_ms = statistics.median([turns[0], turns[3]])
+    plain_ms = time_ms(lambda: blend_plain.fold_rows(rows_exp, g_start))
+    total = int(tb.num_instances.clamp(max=rows_exp.shape[0]))
+    visible = int((torch.diff(g_start.long()) > 0).sum())
+    fold_bound = (total * 64 + (N + 1) * 4 + N * 64) / HBM_BYTES_S * 1e3
+    print(f"[train-times] fold kernel in turns with the scalar fold path (fold, scalar path, scalar path, fold), "
+          f"one launch at a time: {', '.join(f'{t:.4f}' for t in turns)} ms; per launch over runs of 20 "
+          f"back-to-back launches: fold {b2b[0]:.4f}, scalar path {b2b[1]:.4f}, the scalar fold kernel alone "
+          f"{b2b[2]:.4f} ms; plain (segment_reduce, float32) {plain_ms:.3f} ms; the fold is bitwise the plain "
+          f"fold and the scalar path")
+    print(f"[train-times] fold bound {fold_bound:.4f} ms (bytes: {total} expansion rows in, {N + 1} span bounds, "
+          f"{N} rows out, {visible} of them with a non-empty span); one launch at a time the fold is at "
+          f"{fold_bound / fold_ms:.1%} of it and the scalar path at {fold_bound / statistics.median(turns[1:3]):.1%}; "
+          f"back to back the fold at {fold_bound / b2b[0]:.1%}, the scalar fold kernel at {fold_bound / b2b[2]:.1%}")
+    return dict(ms=fold_ms, plain_ms=plain_ms, bound_ms=fold_bound, bound_by="bytes")
+
+
 def phase_train_times(train, held):
     from hidegs_tpu_torch.raster import blend_plain, cuda_blend
     from hidegs_tpu_torch.train import loop as tl
@@ -938,46 +1295,39 @@ def phase_train_times(train, held):
     tile, P = tcfg.raster.tile, tcfg.raster.tile ** 2
     I, N, T = tb.gauss_id.shape[0], attrs.shape[0], ty * tx
     rows = torch.zeros((I, cuda_blend.ATTR), device=attrs.device)
+    slot_s = tb.slot_s.contiguous()
 
     def launch_bwd():
         rows.zero_()
-        cuda_blend.launch_blend_bwd(attrs, tb.gauss_id, tb.tile_start, count, tx, tile, g_aug, rows)
+        cuda_blend.launch_blend_bwd(attrs, tb.gauss_id, tb.tile_start, count, tx, tile, slot_s, g_aug, rows)
 
     bwd_ms = time_ms(launch_bwd)
     view = blend_plain.unpack_attrs(attrs)
     bwd_plain_ms = time_ms(lambda: blend_plain.blend_tiles_bwd(view, tb, g_aug, ty, tx, tile,
                                                                tcfg.raster.max_blocks))
-    folded = torch.empty((N, cuda_blend.ATTR), device=attrs.device)
-    g_start = tb.g_start.contiguous()
-    fold_ms = time_ms(lambda: cuda_blend.launch_fold_rows(rows_exp, g_start, folded))
-    fold_plain_ms = time_ms(lambda: blend_plain.fold_rows(rows_exp, g_start))
+    fold = fold_ab(rows_exp, tb, N)
     zeros = torch.zeros((N + 1, cuda_blend.ATTR), device=attrs.device)
     owner = tb.owner.long()
     fold_library_ms = time_ms(lambda: zeros.index_add_(0, owner, rows_exp))
-    same = torch.equal(folded, blend_plain.fold_rows(rows_exp, g_start))
 
     post_cull = int(count.sum())
     unique_rows = int(torch.unique(tb.gauss_id[:post_cull]).numel())
     counts = blend_plain.pair_counts(view, tb, tx, tile, tcfg.raster.max_blocks)
-    bwd_bytes = post_cull * 4 + 2 * T * 4 + unique_rows * 64 + T * P * 48 + I * 64
+    # the rows, the cotangents, the spans, the gather ids, the expansion
+    # slots (the new addressing of the rows) and the rows written
+    bwd_bytes = post_cull * 4 + 2 * T * 4 + unique_rows * 64 + T * P * 48 + I * 4 + I * 64
     bound = blend_bound(bwd_bytes, counts, tile, BWD_OPS_PER_LIVE_PAIR, BWD_OPS_PER_KEPT_PAIR,
                         BWD_SFU_PER_KEPT_PAIR)
-    total = int(tb.num_instances.clamp(max=I))
-    fold_bound = (total * 64 + (N + 1) * 4 + N * 64) / HBM_BYTES_S * 1e3
     print(f"[train-times] backward kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms; {bound['text']}; "
           f"kernel at {bound['bound_ms'] / bwd_ms:.1%} of the bound, {bound['yardstick_ms'] / bwd_ms:.1%} of the "
           f"yardstick (post-cull instances {post_cull}, pairs live {counts[0]} kept {counts[1]} open {counts[2]})")
-    print(f"[train-times] fold kernel {fold_ms:.3f} ms, plain (segment_reduce, float32) {fold_plain_ms:.3f} ms "
-          f"(bitwise equal to the kernel: {same}), index_add_ {fold_library_ms:.3f} ms; bound "
-          f"{fold_bound:.4f} ms (bytes: {total} expansion rows in, {N} rows out); kernel at "
-          f"{fold_bound / fold_ms:.1%} of it")
+    print(f"[train-times] fold: index_add_ {fold_library_ms:.3f} ms (atomics: not deterministic)")
     print(f"[train-times] backward: {mask_report(view, tb, tx, tile, count, counts[0])}; ptxas (build log): "
           f"{usage_report(ptxas_usage(cuda_blend.build()['blend_bwd']))}")
     profile_device(lambda: tl.train_step(ts, batch, tcfg), "train-breakdown")
     return dict(step_ms=step_ms, split=split,
                 bwd=dict(ms=bwd_ms, plain_ms=bwd_plain_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"]),
-                fold=dict(ms=fold_ms, plain_ms=fold_plain_ms, bound_ms=fold_bound, bound_by="bytes",
-                          library_ms=fold_library_ms))
+                fold=dict(fold, library_ms=fold_library_ms))
 
 
 def main() -> int:
@@ -994,11 +1344,13 @@ def main() -> int:
     times = phase_times(scene, cams[0], cfg, pre, tb)
     phase_breakdown(scene, cams[0], cfg, pre, tb)
     del outs, pre, tb
+    serve = phase_serve(scene, cams, cfg)
     train = phase_train(scene, cams, cfg)
     held = phase_hold_train(train)
     ttimes = phase_train_times(train, held)
     launches = train["launches"]
-    by_path = {name: {"render": render_launches[name], "train": launches[name]} for name in launches}
+    by_path = {name: {"render": render_launches[name], "serve": serve["launches"][name], "train": launches[name]}
+               for name in launches}
     kernels = [{
         "name": "blend_fwd",
         "route": "cuda",

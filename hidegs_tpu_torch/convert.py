@@ -4,9 +4,10 @@ formats and the port.
 Inputs are numpy arrays (never JAX objects): the raw `GaussianParams`
 fields of hidegs_tpu/model/gaussians.py (xyz, sh_dc, sh_rest, scaling,
 rotation, opacity), the other leaves of a `GaussianState` or `TrainState`,
-a camera's leaves, or a 3DGS checkpoint ply. Outputs are tensors on `device`
-(default "cuda", which raises without a card). The exporters give numpy
-arrays back, keyed as the JAX package's fields, for comparing results.
+a camera's leaves, LPIPS weights, or a 3DGS checkpoint ply. Outputs are
+tensors on `device` (default "cuda", which raises without a card). The
+exporters give numpy arrays back, keyed as the JAX package's fields, for
+comparing results.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from hidegs_tpu_torch.core.transforms import normalize
 from hidegs_tpu_torch.device import DeviceLike, resolve_device
 from hidegs_tpu_torch.model.adam import AdamState
 from hidegs_tpu_torch.model.gaussians import GaussianParams, GaussianState
+from hidegs_tpu_torch.train import lpips
 from hidegs_tpu_torch.train.loop import TrainState
 from hidegs_tpu_torch.utils.ply import load_gaussian_arrays
 
@@ -166,3 +168,16 @@ def load_gaussian_state_from_ply(path: str, device: DeviceLike = "cuda") -> Rend
         _tensor(1.0 / (1.0 + np.exp(-d["opacity"])), dev),
         _tensor(shs, dev),
     )
+
+
+def lpips_params_from_jax(params: Dict[str, np.ndarray], device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """The JAX package's LPIPS parameter dict (`conv{i}_w`, `conv{i}_b`,
+    `lin{j}_w`, as numpy arrays) → float32 tensors on `device` for
+    train/lpips.py. Every key the VGG16 trunk and heads need must be there."""
+    n_convs = sum(n for _, n in lpips.VGG16_BLOCKS)
+    need = ([f"conv{i}_{p}" for i in range(n_convs) for p in "wb"]
+            + [f"lin{j}_w" for j in range(len(lpips.VGG16_BLOCKS))])
+    missing = [k for k in need if k not in params]
+    if missing:
+        raise KeyError(f"LPIPS parameters lack {missing}")
+    return lpips.params_to_device({k: np.asarray(params[k]) for k in need}, device)

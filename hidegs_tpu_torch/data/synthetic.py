@@ -7,9 +7,12 @@ builders and reproduce the JAX package's arrays bit for bit.
 from `jax.random`: tests that need the JAX toy scene build it with JAX and
 convert it (convert.py). `make_blend_boundary_scene` builds screen-space
 gaussians that stress the blend kernels' warp-block mask.
+`write_synthetic_colmap_scene` renders a scene into a COLMAP-layout dataset
+that `data/scene.py:load_scene`, `evaluate.py` and `render_cli.py` read.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -315,3 +318,58 @@ def make_blend_boundary_scene(
         radius=tensor(np.minimum(np.ceil(3.0 * sigma_max), 4096), torch.int32),
         visible=torch.ones((n,), dtype=torch.bool, device=dev),
     )
+
+
+def write_synthetic_colmap_scene(
+    root: str,
+    scene: ToyScene,
+    cams,
+    render_config=None,
+    point_stride: int = 4,
+    jitter_points: float = 0.0,
+    seed: int = 0,
+):
+    """Render `scene` from `cams` and write a COLMAP-layout dataset
+    (sparse/0/*.bin + images/*.png), as hidegs_tpu/data/synthetic.py:
+    write_synthetic_colmap_scene does. The renders run through the port's
+    `render` on the scene's device; the PNGs go through utils/png.py.
+    `point_stride` thins the gaussian centers into the sparse point cloud
+    (COLMAP sparse points are far sparser than the final model);
+    `jitter_points` adds noise like real triangulation error."""
+    from hidegs_tpu_torch.core.sh import sh_dc_to_rgb
+    from hidegs_tpu_torch.core.transforms import rotmat_to_quat
+    from hidegs_tpu_torch.data import colmap
+    from hidegs_tpu_torch.raster.api import RasterConfig, render
+    from hidegs_tpu_torch.utils.png import write_png
+
+    if render_config is None:
+        render_config = RasterConfig(max_instances=1 << 18)
+    os.makedirs(os.path.join(root, "sparse", "0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+
+    H, W = cams[0].height, cams[0].width
+    ccams = {1: colmap.ColmapCamera(
+        1, "PINHOLE", W, H,
+        np.array([float(cams[0].fx), float(cams[0].fy), W / 2, H / 2]))}
+    imgs = {}
+    for i, cam in enumerate(cams, start=1):
+        with torch.no_grad():
+            out = render(*scene, cam, config=render_config)
+        img = np.clip(out["render"].cpu().numpy().transpose(1, 2, 0), 0, 1)
+        name = f"v{i:04d}.png"
+        write_png(os.path.join(root, "images", name), (img * 255).astype(np.uint8))
+        q = rotmat_to_quat(cam.R.cpu()[None])[0].numpy()
+        imgs[i] = colmap.ColmapImage(
+            i, q.astype(np.float64), cam.t.cpu().numpy().astype(np.float64), 1, name,
+            np.zeros((0, 2)), np.zeros((0,), np.int64))
+
+    rng = np.random.default_rng(seed)
+    pts = scene.means3d[::point_stride].cpu().numpy().astype(np.float64)
+    if jitter_points:
+        pts = pts + rng.normal(0, jitter_points, pts.shape)
+    cols = np.clip(sh_dc_to_rgb(scene.shs[::point_stride, 0, :]).cpu().numpy(), 0, 1)
+    colmap.write_cameras_binary(ccams, os.path.join(root, "sparse/0/cameras.bin"))
+    colmap.write_images_binary(imgs, os.path.join(root, "sparse/0/images.bin"))
+    colmap.write_points3d_binary(
+        pts, (cols * 255).astype(np.uint8), os.path.join(root, "sparse/0/points3D.bin"))
+    return root

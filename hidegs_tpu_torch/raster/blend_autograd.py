@@ -8,12 +8,13 @@ planes and per-gaussian observe counts out.
   * forward: the CUDA kernel on CUDA tensors (raster/cuda_blend.py), the
     plain blend on CPU tensors; the tile planes are saved for the backward;
   * backward: G_total = Σ_ch out·g (T_final masked) and T_final·g_T ride
-    channels 10 and 11 of the cotangents, then the backward kernel (or its
-    plain version, `blend_plain.blend_tiles_bwd`) gives one gradient row per
-    sorted instance, and the rows are summed per gaussian in expansion order
-    (each gaussian's instances are contiguous there): the fold kernel on
-    CUDA, `blend_plain.fold_rows` on the CPU. No float atomics, so the
-    gradient is bitwise reproducible.
+    channels 10 and 11 of the cotangents, then one gradient row per
+    instance, summed per gaussian in expansion order (each gaussian's
+    instances are contiguous there). On CUDA the backward kernel stores
+    each row at its expansion slot and the fold kernel sums them; on the
+    CPU `blend_plain.blend_tiles_bwd` gives the rows in sorted order,
+    `expansion_rows` places them and `fold_rows` sums them. No float
+    atomics, so the gradient is bitwise reproducible.
 
 On a CUDA tensor the kernels run or the call raises; nothing falls back.
 """

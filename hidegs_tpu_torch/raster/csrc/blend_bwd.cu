@@ -20,9 +20,9 @@
 //     tile 32 (at two CTAs it needs 113 registers, spills nothing and ran
 //     12% slower on the H100).
 //   * Batches of 48 instances are gathered through gauss_id into shared
-//     memory, with each instance's warp-block mask beside its row, as in
-//     the forward: a warp evaluates only the blocks an instance can reach.
-//     Per pixel and instance, front to back:
+//     memory, with each instance's warp-block mask and expansion slot beside
+//     its row, as in the forward: a warp evaluates only the blocks an
+//     instance can reach. Per pixel and instance, front to back:
 //       α, keep, T_excl, T_incl as in the forward kernel
 //       w      = T_excl·α·m,  m = [T_incl ≥ 1e-4]
 //       chg    = Σ_c g_c·channel_c  (rgb, invdepth, normal, distance, 1)
@@ -40,17 +40,26 @@
 //     and two zero pads: 8+4+2+1+1 = 16 shuffles, after which lanes 2s and
 //     2s+1 hold the warp's sum of slot s), and the per-warp partials
 //     (shared memory; zero from a warp that skipped the instance) are summed
-//     in warp order. One row per sorted instance is written; no atomics.
-//     Instances after the CTA stops keep the zero rows the wrapper
-//     allocated.
+//     in warp order. One row per instance is written, at the instance's
+//     expansion slot slot_s[k], so that each gaussian's rows lie contiguous
+//     for the fold; slot_s is a permutation, so no two instances share a
+//     row, and there are no atomics. Instances after the CTA stops keep the
+//     zero rows the wrapper allocated.
 //
-// fold_rows_kernel sums the rows, permuted into expansion order (where each
-// gaussian's instances are contiguous), over each gaussian's span
-// [g_start[g], g_start[g+1]) in slot order: one thread per (gaussian,
-// column). It takes the place of the segment sum of pallas_vjp.py:455 and
-// of a float index_add_, whose atomics would make gradients differ from run
-// to run. Its order is the plain version's (blend_plain.fold_rows on the
-// CPU), so the two agree to the bit there.
+// fold_rows_kernel sums those expansion-order rows over each gaussian's span
+// [g_start[g], g_start[g+1]) in slot order. It takes the place of the
+// segment sum of pallas_vjp.py:455 and of a float index_add_, whose atomics
+// would make gradients differ from run to run. What bounds it is bytes: each
+// 64-byte row is read once and each 64-byte gaussian row written once, and
+// at full width most gaussians have no instance at all (an empty span costs
+// its output row and nothing else). So four lanes own one gaussian, one
+// float4 of its row each (a warp covers 8 gaussians), read the rows with
+// 16-byte non-coherent loads and write one 16-byte store; a warp reads the 9
+// span bounds of its 8 gaussians once and passes them on with shuffles.
+// Each column
+// still adds its span's rows one by one in slot order with float32 adds
+// (no fma: there is nothing to fuse), which is the plain version's order
+// (blend_plain.fold_rows), so the two agree to the bit.
 //
 // What bounds the backward: the per-(pixel, instance) arithmetic, as in the
 // forward. Each evaluated pair costs the forward's ~16 ops and one exp; each
@@ -107,11 +116,12 @@ constexpr int kCot = 11;
 
 // Dynamic shared memory of blend_bwd_kernel<TILE>, in this order: the
 // staged rows (float4 [kBatch][4]), the cotangents (float [kCot][P]), the
-// per-warp partials (float [kBatch][kWarps][kGrad]) and the masks.
+// per-warp partials (float [kBatch][kWarps][kGrad]), the masks and the
+// expansion slots of the staged instances.
 template <int TILE>
 constexpr size_t bwd_smem_bytes() {
   return sizeof(float4) * kBatch * 4 + sizeof(float) * kCot * TileLayout<TILE>::P +
-         sizeof(float) * kBatch * kWarps * kGrad + sizeof(unsigned) * kBatch;
+         sizeof(float) * kBatch * kWarps * kGrad + sizeof(unsigned) * kBatch + sizeof(int) * kBatch;
 }
 
 template <int TILE>
@@ -121,6 +131,7 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
                  const int* __restrict__ tile_start,
                  const int* __restrict__ tile_count,
                  int tiles_x,
+                 const int* __restrict__ slot_s,
                  const float4* __restrict__ g_aug,
                  float* __restrict__ rows) {
   using L = TileLayout<TILE>;
@@ -133,6 +144,7 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
   float* s_cot = reinterpret_cast<float*>(s_dyn + kBatch * 4);
   float (*s_part)[kWarps][kGrad] = reinterpret_cast<float (*)[kWarps][kGrad]>(s_cot + kCot * P);
   unsigned* s_mask = reinterpret_cast<unsigned*>(s_part + kBatch);
+  int* s_slot = reinterpret_cast<int*>(s_mask + kBatch);
 
   const int t = blockIdx.x;
   const int start = tile_start[t];
@@ -173,6 +185,7 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
       const float4* row = gattr + 4 * (size_t)gauss_id[start + b0 + tid];
 #pragma unroll
       for (int q = 0; q < 4; ++q) s_attr[tid][q] = row[q];
+      s_slot[tid] = slot_s[start + b0 + tid];
     }
     __syncthreads();
     stage_masks<TILE>(s_attr, s_mask, n, ox, oy);
@@ -239,15 +252,22 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
     }
 
     const int n_live = __syncthreads_count(warp_live && lane == 0);  // also orders s_part
-    for (int e = tid; e < n * kRow; e += kThreads) {
-      const int j = e / kRow;
-      const int c = e % kRow;
-      float v = 0.0f;
-      if (c < kGrad) {
+    // one float4 of a row per thread: columns 4q..4q+3 of staged instance
+    // j, each summed over the warps in warp order, stored at its slot
+    for (int e = tid; e < n * 4; e += kThreads) {
+      const int j = e >> 2;
+      const int q = e & 3;
+      float v[4];
 #pragma unroll
-        for (int wi = 0; wi < kWarps; ++wi) v += s_part[j][wi][c];
+      for (int k = 0; k < 4; ++k) {
+        const int c = 4 * q + k;
+        v[k] = 0.0f;
+        if (c < kGrad) {
+#pragma unroll
+          for (int wi = 0; wi < kWarps; ++wi) v[k] += s_part[j][wi][c];
+        }
       }
-      rows[(size_t)(start + b0 + j) * kRow + c] = v;
+      reinterpret_cast<float4*>(rows)[(size_t)s_slot[j] * 4 + q] = make_float4(v[0], v[1], v[2], v[3]);
     }
     if (n_live == 0) break;
   }
@@ -255,28 +275,56 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
 
 template <int TILE>
 int launch_bwd(const float4* a, const int* gid, const int* ts, const int* tc, int num_tiles,
-               int tiles_x, const float4* g, float* r, cudaStream_t s) {
+               int tiles_x, const int* slot, const float4* g, float* r, cudaStream_t s) {
   constexpr size_t bytes = bwd_smem_bytes<TILE>();
   cudaError_t err = cudaFuncSetAttribute(blend_bwd_kernel<TILE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  blend_bwd_kernel<TILE><<<num_tiles, kThreads, bytes, s>>>(a, gid, ts, tc, tiles_x, g, r);
+  blend_bwd_kernel<TILE><<<num_tiles, kThreads, bytes, s>>>(a, gid, ts, tc, tiles_x, slot, g, r);
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void fold_rows_kernel(const float* __restrict__ rows_exp,
-                                 const int* __restrict__ g_start,
-                                 int num_gaussians,
-                                 float* __restrict__ out) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)num_gaussians * kRow) return;
-  const size_t gi = idx / kRow;
-  const int c = (int)(idx % kRow);
-  const int s = g_start[gi];
-  const int e = g_start[gi + 1];
-  float acc = 0.0f;
-  for (int j = s; j < e; ++j) acc += rows_exp[(size_t)j * kRow + c];
-  out[idx] = acc;
+constexpr int kFoldLanes = 4;  // lanes per gaussian, one float4 of its row each
+constexpr int kFoldPerWarp = 32 / kFoldLanes;
+
+__device__ __forceinline__ void add4(float4& acc, const float4 r) {
+  acc.x = __fadd_rn(acc.x, r.x);
+  acc.y = __fadd_rn(acc.y, r.y);
+  acc.z = __fadd_rn(acc.z, r.z);
+  acc.w = __fadd_rn(acc.w, r.w);
+}
+
+__global__ void __launch_bounds__(kThreads)
+fold_rows_kernel(const float4* __restrict__ rows_exp,
+                 const int* __restrict__ g_start,
+                 int num_gaussians,
+                 float4* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int q = lane & (kFoldLanes - 1);  // this lane's float4 of the row
+  const int sub = lane / kFoldLanes;      // this lane's gaussian in the warp's 8
+  const int g0 = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5) * kFoldPerWarp;
+  if (g0 >= num_gaussians) return;  // warp-uniform
+  // lanes 0..8 read the 9 bounds of the warp's 8 spans (g_start has N+1)
+  const int b = (lane <= kFoldPerWarp && g0 + lane <= num_gaussians) ? g_start[g0 + lane] : 0;
+  const int s = __shfl_sync(kFull, b, sub);
+  const int e = __shfl_sync(kFull, b, sub + 1);
+  const int g = g0 + sub;
+  if (g >= num_gaussians) return;  // only in the last group, after its shuffles
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4* r = rows_exp + (size_t)s * kFoldLanes + q;  // __ldg: ld.global.nc.v4.f32
+  int j = s;
+  for (; j + 4 <= e; j += 4, r += 4 * kFoldLanes) {
+    const float4 r0 = __ldg(r);
+    const float4 r1 = __ldg(r + kFoldLanes);
+    const float4 r2 = __ldg(r + 2 * kFoldLanes);
+    const float4 r3 = __ldg(r + 3 * kFoldLanes);
+    add4(acc, r0);
+    add4(acc, r1);
+    add4(acc, r2);
+    add4(acc, r3);
+  }
+  for (; j < e; ++j, r += kFoldLanes) add4(acc, __ldg(r));
+  out[(size_t)g * kFoldLanes + q] = acc;
 }
 
 }  // namespace
@@ -286,38 +334,41 @@ __global__ void fold_rows_kernel(const float* __restrict__ rows_exp,
 //
 // hidegs_blend_bwd — gattr: (N, 16) float32 packed rows; gauss_id: (I,)
 // int32 sorted instance → gaussian; tile_start, tile_count: (num_tiles,)
-// int32 spans (count 0 for tiles not blended); g_aug: (num_tiles, tile²,
-// 16) float32 augmented cotangents; rows: (I, 16) float32, zero-filled by
-// the caller, one gradient row per sorted instance.
+// int32 spans (count 0 for tiles not blended); slot_s: (I,) int32 sorted
+// instance → expansion slot, a permutation of [0, I); g_aug: (num_tiles,
+// tile², 16) float32 augmented cotangents; rows: (I, 16) float32,
+// zero-filled by the caller, one gradient row per instance in expansion
+// order (row slot_s[k] for sorted instance k).
 extern "C" int hidegs_blend_bwd(const void* gattr, const void* gauss_id,
                                 const void* tile_start, const void* tile_count,
                                 int num_tiles, int tiles_x, int tile,
-                                const void* g_aug, void* rows, void* stream) {
+                                const void* slot_s, const void* g_aug, void* rows, void* stream) {
   if (num_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* a = static_cast<const float4*>(gattr);
   const int* gid = static_cast<const int*>(gauss_id);
   const int* ts = static_cast<const int*>(tile_start);
   const int* tc = static_cast<const int*>(tile_count);
+  const int* slot = static_cast<const int*>(slot_s);
   const float4* g = static_cast<const float4*>(g_aug);
   float* r = static_cast<float*>(rows);
-  if (tile == 16) return launch_bwd<16>(a, gid, ts, tc, num_tiles, tiles_x, g, r, s);
-  if (tile == 32) return launch_bwd<32>(a, gid, ts, tc, num_tiles, tiles_x, g, r, s);
+  if (tile == 16) return launch_bwd<16>(a, gid, ts, tc, num_tiles, tiles_x, slot, g, r, s);
+  if (tile == 32) return launch_bwd<32>(a, gid, ts, tc, num_tiles, tiles_x, slot, g, r, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // hidegs_fold_rows — rows_exp: (I, 16) float32 rows in expansion order;
 // g_start: (N + 1,) int32 first expansion slot of each gaussian (the last
-// entry is the expansion total), clamped to I; out: (N, 16) float32.
+// entry is the expansion total), clamped to I; out: (N, 16) float32. One
+// warp per group of 8 gaussians.
 extern "C" int hidegs_fold_rows(const void* rows_exp, const void* g_start,
                                 int num_gaussians, void* out, void* stream) {
   if (num_gaussians <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t total = (size_t)num_gaussians * kRow;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  fold_rows_kernel<<<blocks, threads, 0, s>>>(
-      static_cast<const float*>(rows_exp), static_cast<const int*>(g_start),
-      num_gaussians, static_cast<float*>(out));
+  const long long groups = ((long long)num_gaussians + kFoldPerWarp - 1) / kFoldPerWarp;
+  const unsigned blocks = (unsigned)((groups + kWarps - 1) / kWarps);
+  fold_rows_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const float4*>(rows_exp), static_cast<const int*>(g_start),
+      num_gaussians, static_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

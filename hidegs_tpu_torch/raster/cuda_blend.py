@@ -3,7 +3,9 @@
   * csrc/blend_fwd.cu, `hidegs_blend_fwd`: the forward blend; replaces the
     JAX package's Pallas kernel hidegs_tpu/raster/pallas_blend.py:_forward_kernel.
   * csrc/blend_bwd.cu, `hidegs_blend_bwd`: the backward blend, one gradient
-    row per sorted instance; replaces hidegs_tpu/raster/pallas_vjp.py:_passB_kernel.
+    row per instance, written at the instance's expansion slot (each
+    gaussian's rows contiguous); replaces
+    hidegs_tpu/raster/pallas_vjp.py:_passB_kernel.
   * csrc/blend_bwd.cu, `hidegs_fold_rows`: the per-gaussian sum of those
     rows, in a fixed order (no float atomics).
   * csrc/blend_common.cuh, included by both sources: the packed-row layout,
@@ -33,7 +35,7 @@ import torch
 
 from hidegs_tpu_torch.raster.binning import TileBinning
 from hidegs_tpu_torch.raster import blend_plain
-from hidegs_tpu_torch.raster.blend_plain import ATTR, OUT_CH, expansion_rows
+from hidegs_tpu_torch.raster.blend_plain import ATTR, OUT_CH
 
 # Launches in this process, one per call of the launcher named beside it.
 LAUNCHES = 0  # launch_blend_fwd
@@ -74,14 +76,15 @@ def _lib_path(src: Path) -> Path:
 
 def build(sources: Dict[str, Path] = SOURCES) -> Dict[str, Path]:
     """Compile every source whose library (same source, same headers, same
-    flags) is not in build/kernels/ yet, all nvcc processes at once; returns
+    flags) is not in build/kernels/ yet, each library once, all nvcc
+    processes at once; returns
     the library paths by name. Each compiler's register/shared-memory report
     lands next to its library as a .log file."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for src in sources.values():
         lib = _lib_path(src)
-        if lib.exists():
+        if lib.exists() or any(lib == job[3] for job in jobs):  # two names for one source build once
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -181,22 +184,25 @@ def launch_blend_bwd(
     tile_count: torch.Tensor,
     tiles_x: int,
     tile: int,
+    slot_s: torch.Tensor,
     g_aug: torch.Tensor,
     rows: torch.Tensor,
 ) -> None:
     """Launch the backward kernel once on the current stream. `g_aug` (T, P,
     16) holds the augmented cotangents (blend_plain.augment_cotangents);
-    writes one gradient row per sorted instance into `rows` (I, 16), which
-    must be zeroed."""
+    writes the gradient row of sorted instance k into row `slot_s[k]` of
+    `rows` (I, 16), which must be zeroed. `slot_s` must be a permutation of
+    [0, I) (TileBinning.slot_s is)."""
     global BWD_LAUNCHES
     dev, T = _check_spans(attrs, gauss_id, tile_start, tile_count, tiles_x, tile)
+    _check("slot_s", slot_s, torch.int32, gauss_id.shape, dev)
     _check("g_aug", g_aug, torch.float32, (T, tile * tile, OUT_CH), dev)
     _check("rows", rows, torch.float32, (gauss_id.shape[0], ATTR), dev)
-    fn = _fn("blend_bwd", "hidegs_blend_bwd", 4, 3, 3)
+    fn = _fn("blend_bwd", "hidegs_blend_bwd", 4, 3, 4)
     with torch.cuda.device(dev):
         rc = fn(attrs.data_ptr(), gauss_id.data_ptr(), tile_start.data_ptr(),
-                tile_count.data_ptr(), T, tiles_x, tile, g_aug.data_ptr(),
-                rows.data_ptr(), _stream(dev))
+                tile_count.data_ptr(), T, tiles_x, tile, slot_s.data_ptr(),
+                g_aug.data_ptr(), rows.data_ptr(), _stream(dev))
     BWD_LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"blend_bwd kernel launch failed: cudaError {rc}")
@@ -204,7 +210,8 @@ def launch_blend_bwd(
 
 def launch_fold_rows(rows_exp: torch.Tensor, g_start: torch.Tensor, out: torch.Tensor) -> None:
     """Launch the fold kernel once on the current stream: out[g] = Σ of
-    rows_exp over [g_start[g], g_start[g+1]), in slot order."""
+    rows_exp over [g_start[g], g_start[g+1]), in slot order (bitwise
+    blend_plain.fold_rows)."""
     global FOLD_LAUNCHES
     dev = rows_exp.device
     if dev.type != "cuda":
@@ -259,17 +266,18 @@ def instance_rows(
     tiles_x: int,
     tile: int,
 ) -> torch.Tensor:
-    """The backward kernel: (I, 16) gradient rows, one per sorted instance."""
+    """The backward kernel: (I, 16) gradient rows in expansion order, the
+    plain `expansion_rows(blend_tiles_bwd(...), slot_s)`'s layout."""
     rows = torch.zeros((binning.gauss_id.shape[0], ATTR), dtype=torch.float32, device=attrs.device)
     launch_blend_bwd(attrs, binning.gauss_id.contiguous(), binning.tile_start.contiguous(),
-                     count, tiles_x, tile, g_aug, rows)
+                     count, tiles_x, tile, binning.slot_s.contiguous(), g_aug, rows)
     return rows
 
 
-def fold(rows: torch.Tensor, binning: TileBinning, num_gaussians: int) -> torch.Tensor:
-    """Sorted-instance rows → (N, 16) per-gaussian sums with the fold kernel."""
-    out = torch.empty((num_gaussians, ATTR), dtype=torch.float32, device=rows.device)
-    launch_fold_rows(expansion_rows(rows, binning.slot_s), binning.g_start.contiguous(), out)
+def fold(rows_exp: torch.Tensor, binning: TileBinning, num_gaussians: int) -> torch.Tensor:
+    """Expansion-order rows → (N, 16) per-gaussian sums with the fold kernel."""
+    out = torch.empty((num_gaussians, ATTR), dtype=torch.float32, device=rows_exp.device)
+    launch_fold_rows(rows_exp, binning.g_start.contiguous(), out)
     return out
 
 
@@ -283,5 +291,5 @@ def grad_attrs(
 ) -> torch.Tensor:
     """Gradient of the blend with respect to the packed rows, (N, 16): the
     backward kernel, then the fold kernel. Bitwise reproducible."""
-    rows = instance_rows(attrs, binning, count, g_aug, tiles_x, tile)
-    return fold(rows, binning, attrs.shape[0])
+    rows_exp = instance_rows(attrs, binning, count, g_aug, tiles_x, tile)
+    return fold(rows_exp, binning, attrs.shape[0])

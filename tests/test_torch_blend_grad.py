@@ -38,6 +38,22 @@ from hidegs_tpu_torch.raster.api import RasterConfig, render
 torch.set_num_threads(1)
 
 GRAD_ATOL = 5e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cold_jax_caches():
+    """Start and leave this module with JAX's compile caches empty.
+
+    The Pallas kernels run here in interpret mode, whose io_callbacks
+    dispatch JAX ops of their own. tests/test_pallas.py runs the same
+    problems; when every op of its jax.grad is already compiled in the
+    process, the eager backward runs ahead of the interpreted kernel and the
+    two stall each other on the CPU client (seen under load in a worker
+    that ran this module, then that one). Empty caches give each module
+    the cold start it has alone."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 NAMES = ["means", "scales", "quats", "opac", "shs"]
 
 

@@ -13,6 +13,8 @@ pair count behind the kernels' evaluated-pairs figure is held against a
 brute-force numpy count, exactly. No JAX function computes the mask (the
 JAX kernels evaluate every pixel of a tile), so nothing here runs JAX.
 """
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -154,3 +156,30 @@ def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "\n// changed\n")
     after = {name: cuda_blend._lib_path(src) for name, src in cuda_blend.SOURCES.items()}
     assert all(after[name] != before[name] for name in cuda_blend.SOURCES)
+
+
+def test_build_compiles_each_library_once(tmp_path, monkeypatch):
+    """Two names for sources with the same text and headers (this checkout
+    and a copy of it, as tools/blend_kernel_ab.py passes them) are one
+    library: build() runs the compiler once for it and maps both names to
+    it."""
+    copy = tmp_path / "copy"
+    copy.mkdir()
+    for src in cuda_blend.CSRC.iterdir():
+        (copy / src.name).write_bytes(src.read_bytes())
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys\n"
+        f"open({str(calls)!r}, 'a').write(sys.argv[-1] + '\\n')\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'wb').write(b'lib')\n"
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(cuda_blend, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(cuda_blend, "BUILD_DIR", tmp_path / "kernels")
+    libs = cuda_blend.build({"this": cuda_blend.SOURCES["blend_bwd"], "copy": copy / "blend_bwd.cu"})
+    assert libs["this"] == libs["copy"] and libs["this"].read_bytes() == b"lib"
+    assert len(calls.read_text().splitlines()) == 1
+    assert cuda_blend.build({"again": copy / "blend_bwd.cu"}) == {"again": libs["this"]}
+    assert len(calls.read_text().splitlines()) == 1

@@ -12,8 +12,12 @@ normalised by the max |grad| of each attribute, atol 1e-5 (the two differ
 only in the order of their float32 sums); gradients through a whole render
 or train step, where the forward planes already differ by up to 1e-4,
 normalised atol 1e-3; the fold kernel against the plain fold in float64
-within the rounding bound of a float32 sum, k·2^-24·Σ|row| for k rows.
+within the rounding bound of a float32 sum, k·2^-24·Σ|row| for k rows, and
+bitwise against the scalar fold it replaced (tools/csrc/fold_rows_scalar.cu,
+fed by a scatter of sorted-instance rows into expansion order).
 """
+import pathlib
+
 import pytest
 import torch
 
@@ -52,6 +56,18 @@ def _assert_grads_close(got, want, what):
         assert err <= GRAD_NORM_TOL, f"{what}: column {c} normalised err {err:.3e}"
 
 
+def _scalar_fold(rows_exp, g_start, num_gaussians):
+    """The scalar fold of tools/csrc/fold_rows_scalar.cu on expansion-order rows."""
+    src = pathlib.Path(__file__).resolve().parents[1] / "tools" / "csrc" / "fold_rows_scalar.cu"
+    fn = cuda_blend.bind(cuda_blend.build({"fold_rows_scalar": src})["fold_rows_scalar"],
+                         "hidegs_fold_rows_scalar", 2, 1, 2)
+    out = torch.empty((num_gaussians, cuda_blend.ATTR), device=rows_exp.device)
+    rc = fn(rows_exp.data_ptr(), g_start.data_ptr(), num_gaussians, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return out
+
+
 def _assert_fold_within_rounding(rows_exp, g_start, got):
     want = blend_plain.fold_rows(rows_exp.double(), g_start)
     k = torch.diff(g_start.long()).double()[:, None]
@@ -86,8 +102,8 @@ def test_backward_kernel_matches_plain(cuda, tile, max_blocks):
     g = torch.randn(tile_out.shape, generator=gen, device=cuda)
     g_aug = blend_plain.augment_cotangents(tile_out, g)
     before = (cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
-    rows = cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile)
-    got = cuda_blend.fold(rows, tb, attrs.shape[0])
+    rows_exp = cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile)
+    got = cuda_blend.fold(rows_exp, tb, attrs.shape[0])
     torch.cuda.synchronize()
     assert (cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES) == (before[0] + 1, before[1] + 1)
     view = blend_plain.unpack_attrs(attrs)
@@ -95,7 +111,8 @@ def test_backward_kernel_matches_plain(cuda, tile, max_blocks):
     want = blend_plain.fold_rows(blend_plain.expansion_rows(plain_rows, tb.slot_s), tb.g_start)
     _assert_grads_close(got, want, f"tile {tile} max_blocks {max_blocks}")
     # the fold kernel against the plain fold on the same rows
-    _assert_fold_within_rounding(blend_plain.expansion_rows(rows, tb.slot_s), tb.g_start, got)
+    _assert_fold_within_rounding(rows_exp, tb.g_start, got)
+    assert torch.equal(got, blend_plain.fold_rows(rows_exp, tb.g_start))
     # bitwise reproducible
     again = cuda_blend.grad_attrs(attrs, tb, count, g_aug, tx, tile)
     assert torch.equal(again, got)
@@ -128,13 +145,13 @@ def test_kernels_on_the_mask_boundary_scene(cuda, tile, max_blocks):
     gen = torch.Generator(device=cuda).manual_seed(tile + max_blocks)
     g = torch.randn(tile_out.shape, generator=gen, device=cuda)
     g_aug = blend_plain.augment_cotangents(tile_out, g)
-    rows = cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile)
-    got = cuda_blend.fold(rows, tb, attrs.shape[0])
+    rows_exp = cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile)
+    got = cuda_blend.fold(rows_exp, tb, attrs.shape[0])
     plain_rows = blend_plain.blend_tiles_bwd(blend_plain.unpack_attrs(attrs), tb, g_aug, ty, tx, tile, max_blocks)
     want = blend_plain.fold_rows(blend_plain.expansion_rows(plain_rows, tb.slot_s), tb.g_start)
     _assert_grads_close(got, want, f"boundary scene, tile {tile} max_blocks {max_blocks}")
-    _assert_fold_within_rounding(blend_plain.expansion_rows(rows, tb.slot_s), tb.g_start, got)
-    assert torch.equal(cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile), rows)
+    _assert_fold_within_rounding(rows_exp, tb.g_start, got)
+    assert torch.equal(cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile), rows_exp)
     assert torch.equal(cuda_blend.grad_attrs(attrs, tb, count, g_aug, tx, tile), got)
 
 
@@ -202,15 +219,17 @@ def test_backward_launchers_validate_inputs(cuda):
     T, I, N = ty * tx, tb.gauss_id.shape[0], attrs.shape[0]
     g_aug = torch.zeros((T, 256, cuda_blend.OUT_CH), device=cuda)
     rows = torch.zeros((I, cuda_blend.ATTR), device=cuda)
-    args = [attrs, tb.gauss_id, tb.tile_start, tb.tile_count, tx, 16, g_aug, rows]
+    args = [attrs, tb.gauss_id, tb.tile_start, tb.tile_count, tx, 16, tb.slot_s, g_aug, rows]
     with pytest.raises(ValueError, match="shape"):
-        cuda_blend.launch_blend_bwd(*args[:6], g_aug[:, :128], rows)
+        cuda_blend.launch_blend_bwd(*args[:7], g_aug[:, :128], rows)
     with pytest.raises(ValueError, match="shape"):
-        cuda_blend.launch_blend_bwd(*args[:7], rows[:-1])
+        cuda_blend.launch_blend_bwd(*args[:8], rows[:-1])
     with pytest.raises(ValueError, match="dtype"):
-        cuda_blend.launch_blend_bwd(*args[:7], rows.double())
+        cuda_blend.launch_blend_bwd(*args[:8], rows.double())
     with pytest.raises(ValueError, match="tile"):
-        cuda_blend.launch_blend_bwd(*args[:5], 8, g_aug, rows)
+        cuda_blend.launch_blend_bwd(*args[:5], 8, *args[6:])
+    with pytest.raises(ValueError, match="slot_s"):
+        cuda_blend.launch_blend_bwd(*args[:6], tb.slot_s[:-1], g_aug, rows)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_blend.launch_blend_bwd(attrs.cpu(), *args[1:])
     cuda_blend.launch_blend_bwd(*args)
@@ -222,6 +241,60 @@ def test_backward_launchers_validate_inputs(cuda):
     cuda_blend.launch_fold_rows(rows, tb.g_start, out)
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["toy", "boundary"])
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("truncated", [False, True])
+def test_fold_is_bitwise_the_scalar_fold_path(cuda, scene, tile, truncated):
+    """The gradient of the blend (the backward kernel writing expansion
+    order, then the fold kernel) against the path it replaced: the backward
+    kernel writing one row per sorted instance (an identity slot_s stores
+    row k at k, the earlier kernel's layout), those rows scattered by
+    blend_plain.expansion_rows and summed by the scalar fold. Bitwise, with
+    and without a too-small max_blocks, and two runs bitwise equal."""
+    if scene == "toy":
+        pre, tb, ty, tx = _binned(cuda, tile)
+    else:
+        pre = make_blend_boundary_scene(height=64, width=96, seed=7, device=cuda)
+        ty, tx = tbin.tile_grid(64, 96, tile)
+        tb = tbin.bin_gaussians(pre, ty, tx, 1 << 16, tile)
+    max_blocks = max(int(blend_plain.needed_blocks(tb.tile_count)) // 2, 1) if truncated else 0
+    attrs = blend_plain.pack_gaussian_attrs(pre)
+    count = cuda_blend.visited_count(tb, max_blocks)
+    tile_out, _ = cuda_blend.blend_tile_out(attrs, tb, count, ty, tx, tile)
+    g = torch.randn(tile_out.shape, generator=torch.Generator(device=cuda).manual_seed(tile), device=cuda)
+    g_aug = blend_plain.augment_cotangents(tile_out, g)
+    got = cuda_blend.grad_attrs(attrs, tb, count, g_aug, tx, tile)
+    I = tb.gauss_id.shape[0]
+    sorted_rows = torch.zeros((I, cuda_blend.ATTR), device=cuda)
+    identity = torch.arange(I, dtype=torch.int32, device=cuda)
+    cuda_blend.launch_blend_bwd(attrs, tb.gauss_id.contiguous(), tb.tile_start.contiguous(), count, tx, tile,
+                                identity, g_aug, sorted_rows)
+    want = _scalar_fold(blend_plain.expansion_rows(sorted_rows, tb.slot_s), tb.g_start, attrs.shape[0])
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, want)
+    assert torch.equal(cuda_blend.grad_attrs(attrs, tb, count, g_aug, tx, tile), got)
+
+
+@pytest.mark.cuda
+def test_fold_spans_at_the_edges(cuda):
+    """Empty spans, a span cut at the budget (g_start clamped to I), the last
+    gaussian's span and one longer than the unrolled loop, on a count of
+    gaussians that is not a multiple of a warp's 8: the fold kernel equals
+    the plain fold bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    I = 40
+    lengths = torch.tensor([0, 3, 0, 0, 9, 1, 0, 2, 0, 5, 0, 13, 4, 0, 6], device=cuda)
+    starts = torch.cat([torch.zeros(1, dtype=torch.long, device=cuda), torch.cumsum(lengths, 0)])
+    g_start = torch.clamp(starts, max=I).to(torch.int32)  # the spans run past I = 40 at the end
+    rows_exp = torch.randn((I, cuda_blend.ATTR), generator=gen, device=cuda)
+    N = lengths.numel()
+    out = torch.empty((N, cuda_blend.ATTR), device=cuda)
+    cuda_blend.launch_fold_rows(rows_exp, g_start, out)
+    assert torch.equal(out, blend_plain.fold_rows(rows_exp, g_start))
+    assert torch.equal(out[lengths == 0], torch.zeros_like(out[lengths == 0]))
 
 
 def _train_problem(dev, n=200, hw=64):

@@ -2,6 +2,7 @@
 runs where its caller asks without falling back to the CPU, and its "blend"
 backend differentiates through the autograd Function of the blend kernels,
 not through plain autograd."""
+import json
 import os
 import pathlib
 import re
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 import hidegs_tpu_torch
-from hidegs_tpu_torch import convert
+from hidegs_tpu_torch import convert, evaluate
 from hidegs_tpu_torch.data import synthetic as tsyn
 from hidegs_tpu_torch.device import resolve_device
 from hidegs_tpu_torch.raster import binning as tbin
@@ -48,7 +49,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 25  # the render and training slices
+    assert int(proc.stdout.split()[0]) >= 35  # the render, training and serving slices
 
 
 def test_sources_name_no_jax_import():
@@ -56,7 +57,45 @@ def test_sources_name_no_jax_import():
     sources = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
-    assert len(sources) >= 33
+    assert len(sources) >= 43
+
+
+def test_serving_path_needs_no_pillow(tmp_path):
+    """Write a COLMAP scene and a model directory, evaluate it and render it
+    through the port's entry points on the CPU, in a process where Pillow
+    cannot be imported: the PNG codec of utils/png.py carries the path."""
+    code = f"""
+import sys
+sys.modules["PIL"] = None
+import json, os
+import torch
+from hidegs_tpu_torch import config, evaluate, render_cli
+from hidegs_tpu_torch.data import synthetic as tsyn
+from hidegs_tpu_torch.raster.api import RasterConfig
+from hidegs_tpu_torch.utils.ply import gaussian_properties, write_ply
+root = {str(tmp_path)!r}
+scene = tsyn.make_toy_gaussians(120, seed=2, device="cpu")
+cams = [tsyn.ring_camera(i, n_cams=2, height=32, width=40, device="cpu") for i in range(2)]
+tsyn.write_synthetic_colmap_scene(root + "/scene", scene, cams, RasterConfig(max_instances=1 << 12))
+os.makedirs(root + "/model/point_cloud/iteration_7")
+op = scene.opacities.numpy()
+write_ply(root + "/model/point_cloud/iteration_7/point_cloud.ply", gaussian_properties(
+    scene.means3d.numpy(), scene.shs[:, 0].numpy(), scene.shs[:, 1:].numpy(), (torch.log(scene.opacities)
+    - torch.log1p(-scene.opacities)).numpy(), torch.log(scene.scales).numpy(), scene.quats.numpy()))
+config.save_cfg_args(root + "/model", config.ModelConfig(source_path=root + "/scene"),
+                     config.PipelineConfig(tile=16, max_instances=1 << 12), config.OptimizationConfig())
+report = evaluate.main(["--model_path", root + "/model", "--source_path", root + "/scene", "--resolution", "1", "--device", "cpu"])
+render_cli.main(["--model_path", root + "/model", "--source_path", root + "/scene", "--resolution", "1", "--device", "cpu",
+                 "--max_instances", "4096", "--output_path", root + "/renders"])
+print("RESULT", json.dumps([[v["psnr"] for v in report["train"]["per_view"]], sorted(os.listdir(root + "/renders"))]))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    psnrs, renders = json.loads(proc.stdout.split("RESULT", 1)[1])
+    assert len(psnrs) == 2 and min(psnrs) > 35.0  # the model is the scene: only 8-bit rounding differs
+    assert renders == ["00000.png", "00001.png"]
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
@@ -75,6 +114,12 @@ def test_default_device_raises_without_a_card(monkeypatch):
         tsyn.nadir_grid_camera(0, 0, 1, 1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda:0")
+    from hidegs_tpu_torch.train import lpips
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lpips.default_lpips_fn()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main(["--model_path", "model", "--source_path", "scene"])
     # asked for explicitly, the CPU works
     out = convert.gaussians_from_jax(params, device="cpu")
     assert all(x.device.type == "cpu" for x in out)

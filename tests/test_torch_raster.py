@@ -12,6 +12,7 @@ Tolerances and why:
     The port sums log-transmittance per tile in float64 while the JAX paths
     sum in float32, so T near the 1e-4 cutoff may round across it.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +40,18 @@ N_GAUSS = 250
 BLEND_TOL = dict(atol=3e-4, rtol=1e-3)
 PLANES = ["render", "invdepth", "alpha", "T_final", "normal", "distance"]
 RADIUS_FLIP_SHARE = 0.01
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cold_jax_caches():
+    """Start and leave this module with JAX's compile caches empty: the
+    Pallas kernels run here in interpret mode on problems tests/test_pallas.py
+    also runs, and an interpreted kernel whose caller's ops are all compiled
+    already can stall on the CPU client (tests/test_torch_blend_grad.py says
+    how)."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 
 
 def t(x):

@@ -16,11 +16,20 @@ reference (named by its directory) against this checkout:
     bitwise equal, and the times in turns (ref, this, this, ref; CUDA
     events, median of ITERS after WARMUP launches each);
   * backward: the gradient rows on seeded cotangents, their largest
-    difference per column normalised by the column's max, two runs of this
-    checkout's kernel bitwise equal, and the times in turns.
+    difference per column normalised by the column's max and the count of
+    rows that differ at all, two runs of this checkout's kernel bitwise
+    equal, and the times in turns. A version whose backward takes the
+    expansion slots (`slot_s` in its source) writes its rows in expansion
+    order; the others in sorted-instance order, and their rows are compared
+    in that order;
+  * fold: each version's fold kernel on this checkout's expansion-order
+    rows, which must be bitwise equal, and the times in turns, one launch
+    at a time (chip_smoke.time_ms) and per launch over runs of 20
+    back-to-back launches (chip_smoke.time_per_launch_ms).
 
 Prints the card's name and power limit first and a JSON summary last; exits
-non-zero if a forward differs or the backward is not reproducible.
+non-zero if a forward or a fold differs or the backward is not
+reproducible.
 """
 from __future__ import annotations
 
@@ -61,7 +70,9 @@ def main() -> int:
     libs = cuda_blend.build({f"{tag}:{name}": src for tag, srcs in versions.items() for name, src in srcs.items()})
     for key, lib in libs.items():
         print(f"[ptxas] {key}: {chip_smoke.usage_report(chip_smoke.ptxas_usage(lib))}")
-    fns = {(tag, name): cuda_blend.bind(libs[f"{tag}:{name}"], f"hidegs_{name}", 4, 3, 3)
+    by_slot = {tag: "slot_s" in srcs["blend_bwd"].read_text() for tag, srcs in versions.items()}
+    fns = {(tag, name): cuda_blend.bind(libs[f"{tag}:{name}"], f"hidegs_{name}", 4, 3,
+                                        4 if name == "blend_bwd" and by_slot[tag] else 3)
            for tag in versions for name in ("blend_fwd", "blend_bwd")}
     refs = [tag for tag in versions if tag != NEW]
 
@@ -75,6 +86,7 @@ def main() -> int:
     count = cuda_blend.visited_count(tb, cfg.max_blocks)
     stream_in = (blend_plain.pack_gaussian_attrs(pre), tb.gauss_id.contiguous(), tb.tile_start.contiguous(), count)
     I = tb.gauss_id.shape[0]
+    slot_s = tb.slot_s.contiguous()
     del scene, pre
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -83,7 +95,9 @@ def main() -> int:
         inputs a, b (forward: planes, observe; backward: g_aug, rows);
         zeroes the accumulated output b first."""
         b.zero_()
-        rc = fns[tag, name](*(x.data_ptr() for x in stream_in), T, tx, tile, a.data_ptr(), b.data_ptr(), stream)
+        slot = (slot_s.data_ptr(),) if name == "blend_bwd" and by_slot[tag] else ()
+        rc = fns[tag, name](*(x.data_ptr() for x in stream_in), T, tx, tile, *slot, a.data_ptr(), b.data_ptr(),
+                            stream)
         if rc != 0:
             raise RuntimeError(f"{tag} {name} launch failed: cudaError {rc}")
 
@@ -120,17 +134,49 @@ def main() -> int:
     run(NEW, "blend_bwd", g_aug, again)
     bwd_repro = torch.equal(again, rows[NEW][1])
     bwd_diff = {}
+
+    def sorted_rows(tag):  # every version's rows in sorted-instance order
+        return rows[tag][1][slot_s.long()] if by_slot[tag] else rows[tag][1]
+
     for r in refs:
-        want, got = rows[r][1], rows[NEW][1]
+        want, got = sorted_rows(r), sorted_rows(NEW)
         bwd_diff[r] = max(float((got[:, c] - want[:, c]).abs().max()) / (float(want[:, c].abs().max()) + 1e-30)
                           for c in range(blend_plain.GRAD_COLS))
-        print(f"[blend_bwd] {r}: rows differ from {NEW} checkout's by at most {bwd_diff[r]:.3e} of a column's max")
+        n_rows = int((got != want).any(dim=1).sum())
+        print(f"[blend_bwd] {r}: rows differ from {NEW} checkout's by at most {bwd_diff[r]:.3e} of a column's max; "
+              f"{n_rows} of {I} rows differ at all")
     print(f"[blend_bwd] two runs of {NEW} checkout's kernel bitwise equal: {bwd_repro}")
     bwd_ms = turns("blend_bwd", rows)
 
+    # every version's fold on this checkout's expansion-order rows
+    rows_exp, g_start, N = rows[NEW][1], tb.g_start.contiguous(), stream_in[0].shape[0]
+    del rows, g_aug
+    folds = {tag: (cuda_blend.bind(libs[f"{tag}:blend_bwd"], "hidegs_fold_rows", 2, 1, 2),
+                   torch.empty((N, blend_plain.ATTR), device=dev)) for tag in versions}
+
+    def fold(tag):
+        fn, out = folds[tag]
+        rc = fn(rows_exp.data_ptr(), g_start.data_ptr(), N, out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"{tag} fold launch failed: cudaError {rc}")
+
+    for tag in versions:
+        fold(tag)
+    fold_equal = {r: torch.equal(folds[r][1], folds[NEW][1]) for r in refs}
+    fold_ms = {}
+    for timer in (chip_smoke.time_ms, chip_smoke.time_per_launch_ms):
+        ms = {tag: [] for tag in versions}
+        for r in refs:
+            for tag in (r, NEW, NEW, r):
+                ms[tag].append(timer(lambda: fold(tag), warmup=WARMUP, iters=ITERS))
+            print(f"[fold_rows] {r}: bitwise {NEW} checkout's: {fold_equal[r]}; {timer.__name__} in turns ({r}, "
+                  f"{NEW}, {NEW}, {r}): " + ", ".join(f"{x:.4f}" for x in (ms[r][0], ms[NEW][-2], ms[NEW][-1], ms[r][1])))
+        fold_ms[timer.__name__] = ms
+
     print(json.dumps(dict(card=smi, fwd_bitwise_equal=fwd_equal, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
-                          bwd_max_norm_diff=bwd_diff, bwd_two_runs_equal=bwd_repro)))
-    return 0 if all(fwd_equal.values()) and bwd_repro else 1
+                          bwd_max_norm_diff=bwd_diff, bwd_two_runs_equal=bwd_repro, fold_bitwise_equal=fold_equal,
+                          fold_ms=fold_ms)))
+    return 0 if all(fwd_equal.values()) and bwd_repro and all(fold_equal.values()) else 1
 
 
 if __name__ == "__main__":
