@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at full width — rendering
+Drives the port's four paths at full width — rendering
 (`hidegs_tpu_torch.raster.api.render`, the hand-written CUDA forward blend),
 serving a trained scene (`python -m hidegs_tpu_torch.evaluate` and
 `render_cli`, which reach the forward blend once per view) and training
 (`hidegs_tpu_torch.train.loop.train_step`, which adds the CUDA backward
-blend and the gradient fold kernel) — and holds every kernel of those paths
-against its plain PyTorch version. Phases:
+blend and the gradient fold kernel), and the scene trainer (`python -m
+hidegs_tpu_torch.train`, two blends forward and backward per multi-view
+step) — and holds every kernel of those paths against its plain PyTorch
+version. Phases:
 
   1. environment: card name and power limit, versions, the kernel builds
      (one nvcc per source, started together, with the scalar fold of
@@ -75,9 +77,42 @@ against its plain PyTorch version. Phases:
      share, evaluated pairs, registers and spills (as in phase 5), the fold
      against the scalar fold path it replaced (the sorted rows scattered by
      blend_plain.expansion_rows, then the scalar fold) in turns and
-     bitwise, and one step under torch.profiler.
+     bitwise, and one step under torch.profiler;
+ 12. trainer at full width: the four views written as a COLMAP scene
+     (write_synthetic_colmap_scene, point_stride 4: 252,560 sparse points;
+     every view must have a neighbour), then `trainer.main` (`python -m
+     hidegs_tpu_torch.train`) for 60 iterations on the card: automatic
+     capacity, no eval split, freq warm-up 0, the single-view term from 0,
+     the multi-view terms (differentiable source) from iteration 21, one
+     densify round at 30, checkpoints at 1 and 60. Launch counts are read
+     around the trainer's train steps alone: one of each kernel per
+     single-view step, two per multi-view step (100 each). Checks: finite
+     losses, no step skipped by the finite-step gate, at least a fifth of
+     the multi-view steps with valid samples (a pair that overlaps), the
+     final state on the card, `evaluate.main` reads both checkpoints and
+     the PSNR rises.
+     Prints ms per trainer iteration of the single-view window (2-20) and
+     the multi-view window (31-60), host clock synchronised at the ends of
+     each run of counted iterations (saves, the densify round and the
+     iterations before a counter fetch left out), and the init times;
+ 13. trainer hold, on the trained state and the view pair of the last
+     multi-view iteration with valid samples: both BlendPacked nodes of
+     the step (reference and source render) held against the plain
+     versions on each node's own rows and binning: the forward tile planes
+     and observe counts at phase 4's gates, the backward and fold with
+     `hold_backward`; two multi-view steps from one state and
+     generator bitwise equal, a step with the chunk box under
+     torch.cuda.set_sync_debug_mode("error"), a multi-view and a
+     single-view step timed, and a multi-view step under the profiler.
 
 Prints a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
+In the kernels line, `ms`, `plain_ms`, `bound_ms` and `library_ms` come from
+the render cell (phase 5: blend_fwd) and the train path (phase 11:
+blend_bwd, fold_rows); `launches` is the train path's count (phase 8), as
+in earlier slices; `launches_by_path` holds the count of every path (render,
+serve, train, trainer); `max_abs_err` is the largest error of the kernel's
+full-width holds in phases 4 (forward), 10 (backward, fold) and 13 (all
+three, on both nodes of a multi-view step).
 Any failed check raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -152,6 +187,20 @@ ROOT = Path(__file__).resolve().parent
 SCALAR_FOLD_SRC = ROOT / "tools" / "csrc" / "fold_rows_scalar.cu"
 SERVE_ITER = 30_000
 SERVE_MIN_PSNR, SERVE_MIN_SSIM = 50.0, 0.99
+# the trainer phase: `python -m hidegs_tpu_torch.train` on the render cell's
+# scene written as a COLMAP dataset; single-view steps up to
+# TRAINER_MV_FROM - 1, then the multi-view terms with the differentiable
+# source; one densify round at TRAINER_DENSIFY_AT
+TRAINER_ITERS, TRAINER_MV_FROM, TRAINER_DENSIFY_AT = 60, 21, 30
+TRAINER_SAVES = (1, TRAINER_ITERS)
+# the share of multi-view steps whose view pair must overlap (valid samples,
+# mv_geo > 0): only the pairs along a grid row share a footprint, and the
+# trainer draws each view's source from its two neighbours, so about a
+# quarter of the multi-view steps overlap
+TRAINER_MIN_OVERLAP_SHARE = 0.2
+# the timed windows (iterations, inclusive): single-view, and multi-view
+# after the densify round
+TRAINER_WINDOWS = {"single-view": (2, TRAINER_MV_FROM - 1), "multi-view": (TRAINER_DENSIFY_AT + 1, TRAINER_ITERS)}
 
 
 def check(cond, msg):
@@ -1149,18 +1198,36 @@ def phase_densify_round(pre_round, post_round, cams, targets, cfg, tcfg):
     return float(np.mean(before)), float(np.mean(after))
 
 
-def find_node(root, name):
-    """The first node of class `name` in the autograd graph under `root`."""
-    seen, stack = set(), [root]
+def find_nodes(root, name):
+    """Every node of class `name` in the autograd graph under `root`."""
+    seen, stack, found = set(), [root], []
     while stack:
         node = stack.pop()
         if node is None or node in seen:
             continue
-        if type(node).__name__ == name:
-            return node
         seen.add(node)
+        if type(node).__name__ == name:
+            found.append(node)
         stack.extend(fn for fn, _ in node.next_functions)
-    raise AssertionError(f"no {name} node in the step's graph")
+    return found
+
+
+def find_node(root, name):
+    """The first node of class `name` in the autograd graph under `root`."""
+    found = find_nodes(root, name)
+    check(bool(found), f"no {name} node in the step's graph")
+    return found[0]
+
+
+def keep_backward_inputs(node, got):
+    """A pre-hook on a blend node that keeps what its backward is given:
+    the packed rows, the tile planes, the binning, the visited counts and
+    the planes' cotangents."""
+    def keep(grad_outputs):
+        attrs, tile_out = (x.detach() for x in node.saved_tensors)
+        got.update(attrs=attrs, tile_out=tile_out, g_tiles=grad_outputs[0].contiguous(), tb=node.binning,
+                   count=node.count, args=node.args)
+    return node.register_prehook(keep)
 
 
 def blend_backward_inputs(ts, batch, tcfg):
@@ -1173,13 +1240,7 @@ def blend_backward_inputs(ts, batch, tcfg):
     loss, _, inputs = tl.step_forward(ts, batch, tcfg)
     node = find_node(loss.grad_fn, "BlendPackedBackward")
     got = {}
-
-    def keep(grad_outputs):
-        attrs, tile_out = (x.detach() for x in node.saved_tensors)
-        got.update(attrs=attrs, tile_out=tile_out, g_tiles=grad_outputs[0].contiguous(), tb=node.binning,
-                   count=node.count, args=node.args)
-
-    handle = node.register_prehook(keep)
+    handle = keep_backward_inputs(node, got)
     tl.step_backward(loss, inputs)
     handle.remove()
     check(bool(got), "the blend's backward did not run")
@@ -1330,6 +1391,283 @@ def phase_train_times(train, held):
                 fold=dict(fold, library_ms=fold_library_ms))
 
 
+def trainer_timing_plan(n_iters, check_every):
+    """Which trainer iterations each timed window counts, and where the
+    host clock is read (after a synchronise) at the start of a train step.
+    An iteration's time runs from the start of its train step to the start
+    of the next; the windows leave out the iterations whose time holds a
+    checkpoint save, the densify round or the next iteration's read of the
+    budget counters (one every `check_every` steps)."""
+    excluded = set(TRAINER_SAVES) | {TRAINER_DENSIFY_AT}
+    excluded |= {it - 1 for it in range(2, n_iters + 2) if (it - 1) % check_every == 0}
+    counted = {name: [it for it in range(lo, hi + 1) if it not in excluded]
+               for name, (lo, hi) in TRAINER_WINDOWS.items()}
+    every = set().union(*counted.values())
+    stamps = {it for it in range(1, n_iters + 1) if (it in every) != (it - 1 in every)}
+    check(max(every) < n_iters, "the last iteration of a window needs the next step's start as its end")
+    return counted, stamps
+
+
+def window_ms(counted, stamps_at):
+    """Mean ms per iteration over the runs of consecutive counted
+    iterations, each run timed between the stamps at its two ends."""
+    total, runs = 0.0, []
+    start = None
+    for it in counted:
+        if start is None or it - 1 not in counted:
+            start = it
+        if it + 1 not in counted:
+            total += stamps_at[it + 1] - stamps_at[start]
+            runs.append((start, it))
+            start = None
+    return 1e3 * total / len(counted), runs
+
+
+def phase_trainer(scene, cams, cfg):
+    """The trainer at full width, as a user runs it: the render cell's four
+    views written as a COLMAP scene, then `trainer.main` (what `python -m
+    hidegs_tpu_torch.train` runs) for TRAINER_ITERS iterations with the
+    multi-view terms from TRAINER_MV_FROM on, then `evaluate.main` on the
+    first and the last checkpoint. Launch counts are read around each of
+    the trainer's train steps alone."""
+    from hidegs_tpu_torch import evaluate
+    from hidegs_tpu_torch.data import scene as scene_io
+    from hidegs_tpu_torch.data.synthetic import write_synthetic_colmap_scene
+    from hidegs_tpu_torch.raster import cuda_blend
+    from hidegs_tpu_torch.raster.api import RasterConfig
+    from hidegs_tpu_torch.train import trainer
+
+    dev = scene.means3d.device
+    work = ROOT / "build" / "trainer_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    src, model = work / "scene", work / "model"
+    t0 = time.perf_counter()
+    write_synthetic_colmap_scene(str(src), scene, cams, point_stride=4,
+                                 render_config=RasterConfig(tile=cfg.tile, max_instances=cfg.max_instances))
+    t_write = time.perf_counter() - t0
+    loaded = scene_io.load_scene(str(src))
+    n_views = len(loaded.train_cameras)
+    check(n_views == len(cams) and all(loaded.neighbors.get(i) for i in range(n_views)),
+          f"trainer: every training view needs a neighbour, got {loaded.neighbors}")
+    print(f"[trainer] wrote the COLMAP scene ({n_views} views {FULL_W}x{FULL_H}, {len(loaded.info.points)} sparse "
+          f"points) in {t_write:.2f} s; neighbours {loaded.neighbors}")
+    del loaded
+
+    counted, stamp_its = trainer_timing_plan(TRAINER_ITERS, trainer.OVERFLOW_CHECK_EVERY)
+    stamps, steps, timers = {}, [], {}
+
+    def counts():
+        return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+
+    def timed(key):
+        def wrap(fn):
+            def call(*args, **kwargs):
+                sync(dev)
+                t = time.perf_counter()
+                res = fn(*args, **kwargs)
+                sync(dev)
+                timers[key] = time.perf_counter() - t
+                return res
+            return call
+        return wrap
+
+    def spy_step(train_step):
+        def call(ts, batch, tcfg, *args, **kwargs):
+            it = len(steps) + 1
+            if it in stamp_its or it == 1:
+                sync(dev)
+                stamps[it] = time.perf_counter()
+            before = counts()
+            res = train_step(ts, batch, tcfg, *args, **kwargs)
+            if it == 1:
+                sync(dev)
+                timers["first_step"] = time.perf_counter() - stamps[1]
+            steps.append(dict(launches=tuple(b - a for a, b in zip(before, counts())), metrics=res[1],
+                              mv=batch.multi_view is not None, batch=batch, tcfg=tcfg))
+            return res
+        return call
+
+    args = ["--source_path", str(src), "--model_path", str(model), "--iterations", str(TRAINER_ITERS),
+            "--freq_warmup_iterations", "0", "--single_view_weight_from_iter", "0",
+            "--multi_view_weight_from_iter", str(TRAINER_MV_FROM), "--densify_from_iter", "1",
+            "--densify_until_iter", str(TRAINER_DENSIFY_AT), "--densification_interval", str(TRAINER_DENSIFY_AT),
+            "--save_iterations", *map(str, TRAINER_SAVES), "--device", str(dev)]
+    with contextlib.ExitStack() as stack:
+        for obj, name, wrapper in ((scene_io, "load_scene", timed("load_scene")),
+                                   (trainer, "init_gaussians_from_scene", timed("init")),
+                                   (trainer, "train_step", spy_step)):
+            stack.enter_context(patched(obj, name, wrapper))
+        reset_counts()
+        t0 = time.perf_counter()
+        ts = trainer.main(args)
+        sync(dev)
+        t_main = time.perf_counter() - t0
+        launches = read_counts()
+    check(len(steps) == TRAINER_ITERS, f"trainer: {len(steps)} train steps, expected {TRAINER_ITERS}")
+    mv = [s["mv"] for s in steps]
+    check(mv == [False] * (TRAINER_MV_FROM - 1) + [True] * (TRAINER_ITERS - TRAINER_MV_FROM + 1),
+          f"trainer: multi-view steps at {[i + 1 for i, m in enumerate(mv) if m]}")
+    for i, s in enumerate(steps):
+        want = (2, 2, 2) if s["mv"] else (1, 1, 1)
+        check(s["launches"] == want, f"trainer iteration {i + 1}: launches {s['launches']}, expected {want}")
+    in_steps = {k: sum(s["launches"][j] for s in steps) for j, k in enumerate(launches)}
+    want = (TRAINER_MV_FROM - 1) + 2 * (TRAINER_ITERS - TRAINER_MV_FROM + 1)
+    check(in_steps == {k: want for k in launches}, f"trainer: launches in the train steps {in_steps}, expected {want}")
+    keys = ("total", "photo", "single_view", "mv_ncc", "mv_geo", "step_ok", "overflow", "block_overflow",
+            "visible_overflow")
+    vals = torch.stack([torch.stack([s["metrics"].get(k, torch.zeros((), device=dev)).to(torch.float64)
+                                     for k in keys]) for s in steps]).cpu().numpy()
+    check(bool(np.isfinite(vals).all()), "trainer: a non-finite loss or metric")
+    check(bool((vals[:, keys.index("step_ok")] == 1.0).all()), "trainer: a step was skipped by the finite-step gate")
+    overflow = vals[:, keys.index("overflow"):].sum()
+    others = {k: launches[k] - in_steps[k] for k in launches}
+    print(f"[trainer] {TRAINER_ITERS} iterations in {t_main:.2f} s host wall (trainer.main: load, init, train, "
+          f"2 checkpoint saves); launches on the trainer path {launches}: in the train steps {in_steps} "
+          f"({TRAINER_MV_FROM - 1} single-view steps x 1 + {TRAINER_ITERS - TRAINER_MV_FROM + 1} multi-view steps "
+          f"x 2), outside them (probe and save renders) {others}; budget overflow summed over steps {overflow:.0f}")
+    for i in (0, TRAINER_MV_FROM - 2, TRAINER_MV_FROM - 1, TRAINER_DENSIFY_AT - 1, TRAINER_ITERS - 1):
+        print(f"[trainer] iteration {i + 1}: " + ", ".join(f"{k} {vals[i, j]:.6g}" for j, k in enumerate(keys[:5])))
+    print(f"[trainer] init: load_scene {timers['load_scene']:.3f} s, init_gaussians_from_scene (KNN init) "
+          f"{timers['init']:.3f} s, first train step {timers['first_step']:.3f} s (host clock, synchronised)")
+    window = {}
+    for name, its in counted.items():
+        ms, runs = window_ms(its, stamps)
+        window[name] = ms
+        print(f"[trainer] ms per trainer iteration, {name} window: {ms:.3f} over {len(its)} iterations (runs "
+              f"{', '.join(f'{a}-{b}' for a, b in runs)}; host clock synchronised at each run's ends; left out: "
+              f"saves {TRAINER_SAVES}, densify @{TRAINER_DENSIFY_AT}, the iterations before a counter fetch)")
+
+    # the final state lies on the card
+    leaves = train_leaves(ts) + [ts.gaussians.protected, ts.gaussians.active_sh_degree, ts.exposure_m,
+                                 ts.exposure_v]
+    check(all(x.device == dev for x in leaves) and ts.mv_generator.device == dev,
+          "trainer: a tensor of the final state is off the card")
+
+    # evaluate reads the model directory: the last checkpoint beats the first
+    psnr = {}
+    for it in TRAINER_SAVES:
+        report = evaluate.main(["--model_path", str(model), "--source_path", str(src), "--iteration", str(it),
+                                "--skip_test", "--no_images", "--device", str(dev)])
+        psnr[it] = report["train"]["mean"]["psnr"]
+        check(np.isfinite(report["train"]["mean"]["lpips"]), f"trainer: LPIPS at iteration {it}")
+    print(f"[trainer] evaluate.main: train-view PSNR iteration {TRAINER_SAVES[0]} {psnr[TRAINER_SAVES[0]]:.4f} dB, "
+          f"iteration {TRAINER_SAVES[1]} {psnr[TRAINER_SAVES[1]]:.4f} dB")
+    check(psnr[TRAINER_SAVES[1]] > psnr[TRAINER_SAVES[0]], "trainer: PSNR did not rise over the run")
+    # the grid's views overlap across x on one row only (the image's
+    # footprint is 15.6 scene units wide, 8.8 high, the cameras 18 apart):
+    # a pair without overlap has no valid sample, and both terms are 0
+    geo = vals[:, keys.index("mv_geo")]
+    overlapping = [i for i, s in enumerate(steps) if s["mv"] and geo[i] > 0]
+    n_mv = TRAINER_ITERS - TRAINER_MV_FROM + 1
+    check(len(overlapping) >= TRAINER_MIN_OVERLAP_SHARE * n_mv,
+          f"trainer: {len(overlapping)} of {n_mv} multi-view steps had a valid sample "
+          f"(at least {TRAINER_MIN_OVERLAP_SHARE} of them expected)")
+    ncc = vals[overlapping, keys.index("mv_ncc")]
+    print(f"[trainer] multi-view steps whose pair overlaps (valid samples, mv_geo > 0): {len(overlapping)} of "
+          f"{n_mv} (iterations {[i + 1 for i in overlapping]}); over them mv_ncc "
+          f"{ncc.min():.4f}-{ncc.max():.4f}, mv_geo {geo[overlapping].min():.4f}-{geo[overlapping].max():.4f}")
+    held = steps[overlapping[-1]]
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(ts=ts, batch=held["batch"], tcfg=held["tcfg"], launches=launches, window=window)
+
+
+def hold_node_forward(g, what):
+    """The forward kernel of one blend node against the plain blend on the
+    node's own packed rows and binning, at phase 4's gates: the tile planes
+    the node saved (and its backward read) within atol 3e-4 / rtol 1e-3 of
+    the plain planes, the observe counts equal on all but 0.1% of the
+    gaussians; the kernel run again on the same inputs gives the saved
+    planes bitwise. Returns the max abs error of the planes."""
+    from hidegs_tpu_torch.raster import blend_plain, cuda_blend
+
+    attrs, tb, saved = g["attrs"], g["tb"], g["tile_out"]
+    ty, tx, tile, max_blocks = g["args"]
+    k_out, k_obs = cuda_blend.blend_tile_out(attrs, tb, g["count"], ty, tx, tile)
+    check(torch.equal(k_out, saved), f"{what}: the node's saved tile planes are not the forward kernel's output")
+    p_out, p_obs = blend_plain.blend_tile_out(blend_plain.unpack_attrs(attrs), tb, ty, tx, tile, max_blocks)
+    assert_close(saved, p_out, f"{what}, forward tile planes")
+    err = max_abs_err(saved, p_out)
+    N = attrs.shape[0]
+    n_diff = int((k_obs != p_obs).sum())
+    check(n_diff <= N // 1000, f"{what}: out_observe differs on {n_diff} of {N} gaussians (> 0.1%)")
+    print(f"[trainer-hold] {what}: forward kernel vs plain blend on the node's rows and binning: max abs err "
+          f"{err:.3e} (atol 3e-4 / rtol 1e-3 holds), out_observe differs on {n_diff} of {N} gaussians; the saved "
+          f"planes are bitwise the kernel's")
+    return err
+
+
+def phase_trainer_hold(trainer_run):
+    """On the trained state, with the view pair of the last multi-view
+    iteration that had valid samples: both blend nodes (reference and
+    source view), forward, backward and fold, held against the plain
+    versions on the node's own rows and binning; two steps
+    from one state and generator bitwise equal; a step with the chunk box
+    under torch.cuda.set_sync_debug_mode("error"); times of a multi-view
+    and a single-view step, and one multi-view step under the profiler."""
+    import dataclasses
+
+    from hidegs_tpu_torch.train import loop as tl
+
+    ts, batch, tcfg = trainer_run["ts"], trainer_run["batch"], trainer_run["tcfg"]
+    check(batch.multi_view is not None, "trainer hold: the last iteration is not a multi-view step")
+    uv, _ = tl.draw_step_pixels(ts, batch, tcfg)
+    loss, _, inputs = tl.step_forward(ts, batch, tcfg, uv=uv)
+    nodes = find_nodes(loss.grad_fn, "BlendPackedBackward")
+    check(len(nodes) == 2, f"trainer hold: {len(nodes)} blend nodes in a multi-view step, expected 2")
+    got = [{}, {}]
+    handles = [keep_backward_inputs(node, g) for node, g in zip(nodes, got)]
+    tl.step_backward(loss, inputs)
+    for h in handles:
+        h.remove()
+    errs, fwd_err = [], 0.0
+    for g in got:
+        check(bool(g), "trainer hold: a blend backward did not run")
+        ty, tx, tile, max_blocks = g["args"]
+        fwd_err = max(fwd_err, hold_node_forward(g, f"trainer, multi-view step, blend node {len(errs)}"))
+        nz = int((g["g_tiles"].abs().amax(dim=(0, 1)) > 0).sum())
+        h = hold_backward(g["attrs"], g["tb"], g["count"], g["tile_out"], g["g_tiles"], ty, tx, tile, max_blocks,
+                          f"trainer, multi-view step, blend node {len(errs)}")
+        errs.append(h)
+        print(f"[trainer-hold] blend node {len(errs) - 1} ({nz} of 16 cotangent channels non-zero, "
+              f"{int(g['tb'].num_instances)} instances): backward + fold kernels vs blend_tiles_bwd + plain fold: "
+              f"{hold_report(h)}")
+    del got, nodes, loss, inputs
+
+    a, ma = tl.train_step(ts, batch, tcfg)
+    b, mb = tl.train_step(ts, batch, tcfg)
+    for i, (x, y) in enumerate(zip(train_leaves(a), train_leaves(b))):
+        check(torch.equal(x, y), f"two multi-view steps from one state differ in leaf {i}")
+    check(torch.equal(ma["total"], mb["total"]) and torch.equal(a.mv_generator.get_state(), b.mv_generator.get_state()),
+          "two multi-view steps from one state differ in the loss or the generator")
+    print("[trainer-hold] two multi-view steps from one state and generator: params, moments, stats, loss bitwise equal")
+    del a, b
+
+    lo = ts.gaussians.params.xyz[ts.gaussians.alive].amin(0).tolist()
+    hi = ts.gaussians.params.xyz[ts.gaussians.alive].amax(0).tolist()
+    box = ((lo[0] * 0.5, lo[1] * 0.5, -1e9), (hi[0] * 0.5, hi[1] * 0.5, 1e9))
+    bcfg = dataclasses.replace(tcfg, chunk_box=box)
+    warm, _ = tl.train_step(ts, batch, bcfg)
+    sync(ts.step.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        boxed, mbox = tl.train_step(warm, batch, bcfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(float(mbox["step_ok"]) == 1.0 and bool(torch.isfinite(mbox["total"])), "chunk-box step: not finite")
+    print(f"[trainer-hold] a multi-view step with the chunk box {box} ran under set_sync_debug_mode('error'): no host "
+          f"sync; visible {int(mbox['num_visible'])} rows (without the box {int(ma['num_visible'])})")
+    del warm, boxed
+
+    single = tl.ViewBatch(**{**batch._asdict(), "multi_view": None})
+    mv_ms = time_ms(lambda: tl.train_step(ts, batch, tcfg))
+    sv_ms = time_ms(lambda: tl.train_step(ts, single, tcfg))
+    print(f"[trainer-times] train step on the trained state (full capacity rows, CUDA events, median of {ITERS}): "
+          f"multi-view {mv_ms:.3f} ms, single-view {sv_ms:.3f} ms")
+    profile_device(lambda: tl.train_step(ts, batch, tcfg), "trainer-mv-breakdown")
+    return dict(fwd_err=fwd_err, err=max(h["err"] for h in errs), fold_err=max(h["fold_err"] for h in errs),
+                mv_ms=mv_ms, sv_ms=sv_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one", file=sys.stderr)
@@ -1347,9 +1685,14 @@ def main() -> int:
     serve = phase_serve(scene, cams, cfg)
     train = phase_train(scene, cams, cfg)
     held = phase_hold_train(train)
+    train_launches = train["launches"]
     ttimes = phase_train_times(train, held)
-    launches = train["launches"]
-    by_path = {name: {"render": render_launches[name], "serve": serve["launches"][name], "train": launches[name]}
+    trainer_run = phase_trainer(scene, cams, cfg)
+    del train
+    trainer_hold = phase_trainer_hold(trainer_run)
+    launches = train_launches
+    by_path = {name: {"render": render_launches[name], "serve": serve["launches"][name],
+                      "train": train_launches[name], "trainer": trainer_run["launches"][name]}
                for name in launches}
     kernels = [{
         "name": "blend_fwd",
@@ -1358,7 +1701,7 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_blend.py:326",
         "launches": launches["blend_fwd"],
         "launches_by_path": by_path["blend_fwd"],
-        "max_abs_err": err,
+        "max_abs_err": max(err, trainer_hold["fwd_err"]),
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
@@ -1371,7 +1714,7 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_vjp.py:61",
         "launches": launches["blend_bwd"],
         "launches_by_path": by_path["blend_bwd"],
-        "max_abs_err": held["err"],
+        "max_abs_err": max(held["err"], trainer_hold["err"]),
         "ms": ttimes["bwd"]["ms"],
         "plain_ms": ttimes["bwd"]["plain_ms"],
         "bound_ms": ttimes["bwd"]["bound_ms"],
@@ -1385,7 +1728,7 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_vjp.py:455",
         "launches": launches["fold_rows"],
         "launches_by_path": by_path["fold_rows"],
-        "max_abs_err": held["fold_err"],
+        "max_abs_err": max(held["fold_err"], trainer_hold["fold_err"]),
         "ms": ttimes["fold"]["ms"],
         "plain_ms": ttimes["fold"]["plain_ms"],
         "bound_ms": ttimes["fold"]["bound_ms"],

@@ -96,8 +96,8 @@ def train_state_from_jax(
 ):
     """A `TrainState` from numpy leaves: `gaussians` holds the keyword
     arguments of `gaussian_state_from_jax`, `m`/`v`/`opt_step` the Adam
-    state. The densify generator is seeded with `seed` (JAX's PRNG key has
-    no counterpart)."""
+    state. The densify and multi-view generators are seeded with `seed`
+    (JAX's PRNG key has no counterpart)."""
     dev = resolve_device(device)
     return TrainState(
         gaussians=gaussian_state_from_jax(**gaussians, device=dev),
@@ -108,6 +108,7 @@ def train_state_from_jax(
         exposure_v=_tensor(exposure_v, dev),
         step=torch.tensor(int(step), dtype=torch.int32, device=dev),
         generator=torch.Generator().manual_seed(seed),
+        mv_generator=torch.Generator(device=dev).manual_seed(seed),
     )
 
 
@@ -124,7 +125,7 @@ def gaussian_state_to_numpy(state: GaussianState) -> Dict:
 
 
 def train_state_to_numpy(ts: TrainState) -> Dict:
-    """The numpy leaves of a `TrainState` (the generator left out)."""
+    """The numpy leaves of a `TrainState` (the generators left out)."""
     return {
         "gaussians": gaussian_state_to_numpy(ts.gaussians),
         "m": {f: _numpy(getattr(ts.opt.m, f)) for f in GaussianParams._fields},

@@ -1,6 +1,6 @@
 """Camera matrices, projections and ray generation.
 
-Port of the render-path part of hidegs_tpu/core/camera_math.py. Conventions (COLMAP / reference):
+Port of hidegs_tpu/core/camera_math.py. Conventions (COLMAP / reference):
   * `R` is world→camera rotation, `t` world→camera translation:
     X_cam = R @ X_world + t.  +z looks forward, +y down in image space.
   * Pixel coordinates: u = fx * x/z + cx, v = fy * y/z + cy; pixel (i, j)
@@ -58,6 +58,23 @@ class CameraParams:
         return -self.R.T @ self.t
 
     @property
+    def K(self) -> torch.Tensor:
+        """3x3 intrinsics, stacked on the camera's device (no host copy)."""
+        zero, one = torch.zeros_like(self.fx), torch.ones_like(self.fx)
+        return torch.stack([torch.stack([self.fx, zero, self.cx]),
+                            torch.stack([zero, self.fy, self.cy]),
+                            torch.stack([zero, zero, one])])
+
+    @property
+    def K_inv(self) -> torch.Tensor:
+        """Inverse intrinsics in closed form: the back substitution of the
+        upper-triangular K, which is what an LU inverse computes for it."""
+        zero, one = torch.zeros_like(self.fx), torch.ones_like(self.fx)
+        return torch.stack([torch.stack([1.0 / self.fx, zero, -self.cx / self.fx]),
+                            torch.stack([zero, 1.0 / self.fy, -self.cy / self.fy]),
+                            torch.stack([zero, zero, one])])
+
+    @property
     def fov_x(self) -> torch.Tensor:
         return 2.0 * torch.atan(torch.div(self.width, 2.0 * self.fx))
 
@@ -103,6 +120,31 @@ def focal_to_fov(focal: float, pixels: float) -> float:
     return 2.0 * math.atan(pixels / (2.0 * focal))
 
 
+def world_to_camera(points: torch.Tensor, cam: CameraParams) -> torch.Tensor:
+    """(N, 3) world points → camera frame."""
+    return points @ cam.R.T + cam.t
+
+
+def camera_to_world(points_cam: torch.Tensor, cam: CameraParams) -> torch.Tensor:
+    return (points_cam - cam.t) @ cam.R
+
+
+def _safe_divisor(z: torch.Tensor, eps: float) -> torch.Tensor:
+    """z, with |z| < eps replaced by ±eps (+eps at 0), as the JAX package
+    guards its perspective divisions."""
+    return torch.where(torch.abs(z) < eps, torch.sign(z) * eps + (z == 0) * eps, z)
+
+
+def project_points(points_cam: torch.Tensor, cam: CameraParams, eps: float = 1e-6):
+    """Camera-frame points → pixel coords (u, v) and depth z: ((..., 2),
+    (...,)). No clipping; callers cull on z."""
+    z = points_cam[..., 2]
+    zs = _safe_divisor(z, eps)
+    u = cam.fx * points_cam[..., 0] / zs + cam.cx
+    v = cam.fy * points_cam[..., 1] / zs + cam.cy
+    return torch.stack([u, v], dim=-1), z
+
+
 def pixel_rays(cam: CameraParams) -> torch.Tensor:
     """Unit-z camera-space ray directions per pixel center, shape (H, W, 3)."""
     dev = cam.device
@@ -120,3 +162,9 @@ def depth_to_points_cam(depth: torch.Tensor, cam: CameraParams) -> torch.Tensor:
     """(H, W) z-depth map → (H, W, 3) camera-space points."""
     return pixel_rays(cam) * depth[..., None]
 
+
+def ndc_from_pixels(uv: torch.Tensor, cam: CameraParams) -> torch.Tensor:
+    """Pixel coords → [-1, 1] NDC (grid-sample style lookups)."""
+    u = uv[..., 0] / cam.width * 2.0 - 1.0
+    v = uv[..., 1] / cam.height * 2.0 - 1.0
+    return torch.stack([u, v], dim=-1)

@@ -1,6 +1,7 @@
 """EWA splatting math: 3D Gaussians → screen-space mean, conic and radius.
 
-Port of hidegs_tpu/core/ewa.py (`project_gaussians_scq`, `gaussian_alpha`).
+Port of hidegs_tpu/core/ewa.py (`project_gaussians`, `project_gaussians_scq`,
+`gaussian_alpha`).
 Anti-aliasing follows the reference's convolution-rescale: the low-pass
 dilation adds `h_var` to the 2D covariance diagonal and opacity is rescaled
 by sqrt(det(cov)/det(cov_dilated)). One H_VAR is used throughout, as in the
@@ -28,6 +29,62 @@ class Projected2D(NamedTuple):
     radius: torch.Tensor  # (N,) float extent radius in pixels (3 sigma)
     aa_factor: torch.Tensor  # (N,) opacity rescale from AA dilation
     in_frustum: torch.Tensor  # (N,) bool
+
+
+def project_gaussians(
+    means3d: torch.Tensor,
+    cov3d: torch.Tensor,
+    cam: CameraParams,
+    h_var: float = H_VAR,
+    near_z: float = NEAR_Z,
+) -> Projected2D:
+    """EWA projection of (N, 3) world means with (N, 3, 3) world-frame
+    covariances: cov2d = J R Σ Rᵀ Jᵀ with the tangent-clamped Jacobian J."""
+    p_cam = means3d @ cam.R.T + cam.t
+    x, y, z = p_cam[..., 0], p_cam[..., 1], p_cam[..., 2]
+    in_frustum = z > near_z
+    zs = torch.clamp(z, min=near_z)
+
+    # tangent clamp at 1.3x the (full-frame) frustum half-extent
+    tan_half_x = torch.div(cam.frustum_width, 2.0 * cam.fx)
+    tan_half_y = torch.div(cam.frustum_height, 2.0 * cam.fy)
+    txz = torch.clamp(x / zs, -1.3 * tan_half_x, 1.3 * tan_half_x)
+    tyz = torch.clamp(y / zs, -1.3 * tan_half_y, 1.3 * tan_half_y)
+    j00 = cam.fx / zs
+    j11 = cam.fy / zs
+    j02 = -cam.fx * txz / zs
+    j12 = -cam.fy * tyz / zs
+    zero = torch.zeros_like(zs)
+    J = torch.stack([torch.stack([j00, zero, j02], dim=-1),
+                     torch.stack([zero, j11, j12], dim=-1)], dim=-2)  # (N, 2, 3)
+    M = J @ cam.R  # (N, 2, 3)
+    cov = M @ cov3d @ M.transpose(-1, -2)  # (N, 2, 2)
+    a, b, c = cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]
+
+    det_raw = a * c - b * b
+    a_d = a + h_var
+    c_d = c + h_var
+    det_d = a_d * c_d - b * b
+    aa_factor = torch.sqrt(torch.clamp(det_raw / torch.clamp(det_d, min=1e-12), min=0.0))
+    inv_det = 1.0 / torch.clamp(det_d, min=1e-12)
+    conic = torch.stack([c_d * inv_det, -b * inv_det, a_d * inv_det], dim=-1)
+    mid = 0.5 * (a_d + c_d)
+    lam1 = mid + torch.sqrt(torch.clamp(mid * mid - det_d, min=0.1))
+    radius = torch.ceil(3.0 * torch.sqrt(lam1))
+
+    # centers come from the UNCLAMPED projection; the clamp only tames J
+    u = cam.fx * (x / zs) + cam.cx
+    v = cam.fy * (y / zs) + cam.cy
+    valid = in_frustum & (det_d > 0.0)
+    return Projected2D(
+        mean2d=torch.stack([u, v], dim=-1),
+        depth=z,
+        cov2d=torch.stack([a_d, b, c_d], dim=-1),
+        conic=conic,
+        radius=torch.where(valid, radius, torch.zeros_like(radius)),
+        aa_factor=aa_factor,
+        in_frustum=valid,
+    )
 
 
 def project_gaussians_scq(

@@ -8,10 +8,15 @@ from `jax.random`: tests that need the JAX toy scene build it with JAX and
 convert it (convert.py). `make_blend_boundary_scene` builds screen-space
 gaussians that stress the blend kernels' warp-block mask.
 `write_synthetic_colmap_scene` renders a scene into a COLMAP-layout dataset
-that `data/scene.py:load_scene`, `evaluate.py` and `render_cli.py` read.
+that `data/scene.py:load_scene`, `evaluate.py` and `render_cli.py` read;
+`write_analytic_colmap_scene` (a ray-cast textured plane with spheres) and
+`write_terrain_colmap_scene` (a ray-marched height field with 16-bit
+monodepth maps and noisy sparse points) write datasets whose ground truth
+lies outside the gaussian model class, for training runs.
 """
 from __future__ import annotations
 
+import json
 import os
 from typing import NamedTuple, Optional
 
@@ -372,4 +377,465 @@ def write_synthetic_colmap_scene(
     colmap.write_images_binary(imgs, os.path.join(root, "sparse/0/images.bin"))
     colmap.write_points3d_binary(
         pts, (cols * 255).astype(np.uint8), os.path.join(root, "sparse/0/points3D.bin"))
+    return root
+
+# --------------------------------------------------------------------------
+# Scenes with analytic ground truth: ray-cast images that are NOT in the
+# gaussian model class, written as COLMAP datasets (numpy math, the JAX
+# package's functions line for line; the images and monodepth maps go
+# through utils/png.py).
+# --------------------------------------------------------------------------
+
+
+def _host_camera(cam: CameraParams):
+    """(R, t, cx, cy, fx, fy) of `cam` on the host, R and t as float64
+    arrays: one copy from the camera's device."""
+    leaves = torch.cat([cam.R.reshape(-1), cam.t, torch.stack([cam.cx, cam.cy, cam.fx, cam.fy])])
+    v = leaves.detach().cpu().numpy()
+    return (v[:9].reshape(3, 3).astype(np.float64), v[9:12].astype(np.float64), v[12], v[13], v[14], v[15])
+
+
+def _colmap_cameras(colmap, cam: CameraParams):
+    """The one PINHOLE camera of a synthetic scene (principal point at the
+    centre)."""
+    H, W = cam.height, cam.width
+    _, _, _, _, fx, fy = _host_camera(cam)
+    return {1: colmap.ColmapCamera(1, "PINHOLE", W, H, np.array([float(fx), float(fy), W / 2, H / 2]))}
+
+
+def _colmap_image(colmap, i: int, cam: CameraParams, name: str):
+    from hidegs_tpu_torch.core.transforms import rotmat_to_quat
+
+    R, t, *_ = _host_camera(cam)
+    q = rotmat_to_quat(torch.as_tensor(R, dtype=torch.float32)[None])[0].numpy()
+    return colmap.ColmapImage(i, q.astype(np.float64), t, 1, name, np.zeros((0, 2)), np.zeros((0,), np.int64))
+
+
+def procedural_texture(u: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """High-frequency procedural albedo at world ground coordinates (u, v).
+
+    Checker + two sine octaves + hash-based value noise — content a finite
+    gaussian mixture can approximate but never represent exactly, so quality
+    deltas between loss configurations are meaningful (ground truth rendered
+    FROM gaussians is fitted exactly by the model class). Returns (..., 3)
+    in [0, 1].
+    """
+    checker = ((np.floor(u / 0.9) + np.floor(v / 0.9)) % 2.0) * 0.30
+    fine = ((np.floor(u / 0.22) + np.floor(v / 0.22)) % 2.0) * 0.12
+    waves = 0.14 * np.sin(5.3 * u) * np.cos(4.1 * v) + 0.10 * np.sin(17.0 * v + 2.0 * u)
+    # deterministic value noise from an integer lattice hash, bilinear interp
+    def hash01(ix, iy):
+        h = (ix.astype(np.int64) * 374761393 + iy.astype(np.int64) * 668265263) % 2147483647
+        h = (h ^ (h >> 13)) * 1274126177 % 2147483647
+        return (h % 65536).astype(np.float64) / 65536.0
+
+    gu, gv = u / 0.35, v / 0.35
+    iu, iv = np.floor(gu), np.floor(gv)
+    fu, fv = gu - iu, gv - iv
+    n = (
+        hash01(iu, iv) * (1 - fu) * (1 - fv)
+        + hash01(iu + 1, iv) * fu * (1 - fv)
+        + hash01(iu, iv + 1) * (1 - fu) * fv
+        + hash01(iu + 1, iv + 1) * fu * fv
+    )
+    r = 0.38 + checker + 0.18 * (n - 0.5)
+    g = 0.45 + waves + fine
+    b = 0.33 + 0.22 * checker - 0.10 * waves + 0.12 * (n - 0.5)
+    return np.clip(np.stack([r, g, b], axis=-1), 0.02, 0.98)
+
+
+def render_analytic_scene(
+    cam: CameraParams,
+    spheres: np.ndarray = None,
+    sphere_colors: np.ndarray = None,
+    sky=(0.70, 0.80, 0.95),
+    sun=(0.45, 0.35, 0.80),
+) -> np.ndarray:
+    """Exact ray-cast render of a procedurally-textured ground plane (z=0)
+    plus lambertian spheres — analytic ground truth that is NOT in the
+    gaussian model class. Returns (3, H, W) float32 in [0, 1].
+
+    spheres: (K, 4) rows [cx, cy, cz, radius]; scene coords have +z up.
+    """
+    H, W = cam.height, cam.width
+    R, t, cx_, cy_, fx_, fy_ = _host_camera(cam)
+    origin = -R.T @ t  # camera center in world
+    xs = (np.arange(W) + 0.5 - float(cx_)) / float(fx_)
+    ys = (np.arange(H) + 0.5 - float(cy_)) / float(fy_)
+    dx, dy = np.meshgrid(xs, ys)  # (H, W)
+    d_cam = np.stack([dx, dy, np.ones_like(dx)], axis=-1)
+    d_world = d_cam @ R  # rows of R are camera axes => d_world = Rᵀ d_cam
+    d_world /= np.linalg.norm(d_world, axis=-1, keepdims=True)
+
+    t_hit = np.full((H, W), np.inf)
+    color = np.tile(np.asarray(sky, np.float64), (H, W, 1))
+
+    # ground plane z = 0
+    dz = d_world[..., 2]
+    t_pl = np.where(np.abs(dz) > 1e-9, -origin[2] / dz, np.inf)
+    ok = (t_pl > 1e-6) & (t_pl < t_hit)
+    pu = origin[0] + t_pl * d_world[..., 0]
+    pv = origin[1] + t_pl * d_world[..., 1]
+    tex = procedural_texture(pu, pv)
+    color = np.where(ok[..., None], tex, color)
+    t_hit = np.where(ok, t_pl, t_hit)
+
+    if spheres is not None:
+        sundir = np.asarray(sun, np.float64)
+        sundir = sundir / np.linalg.norm(sundir)
+        for (cx_, cy_, cz_, rad), col in zip(np.asarray(spheres), np.asarray(sphere_colors)):
+            oc = origin - np.array([cx_, cy_, cz_])
+            b = np.einsum("hwc,c->hw", d_world, oc)
+            c = oc @ oc - rad * rad
+            disc = b * b - c
+            t_sp = np.where(disc >= 0, -b - np.sqrt(np.maximum(disc, 0.0)), np.inf)
+            ok = (t_sp > 1e-6) & (t_sp < t_hit)
+            p = origin[None, None] + t_sp[..., None] * d_world
+            n = (p - np.array([cx_, cy_, cz_])[None, None]) / rad
+            lam = np.clip(np.einsum("hwc,c->hw", n, sundir), 0.0, 1.0) * 0.7 + 0.3
+            shaded = np.asarray(col)[None, None] * lam[..., None]
+            color = np.where(ok[..., None], shaded, color)
+            t_hit = np.where(ok, t_sp, t_hit)
+
+    return np.transpose(color, (2, 0, 1)).astype(np.float32)
+
+
+def analytic_init_points(
+    n_ground: int,
+    extent_xy: float,
+    spheres: np.ndarray = None,
+    sphere_colors: np.ndarray = None,
+    n_per_sphere: int = 400,
+    seed: int = 0,
+):
+    """Noisy init point cloud for the analytic scene (plays COLMAP sparse
+    points): ground samples colored by the true texture + sphere-surface
+    samples. Returns (points (N,3), colors (N,3))."""
+    rng = np.random.default_rng(seed)
+    gx = rng.uniform(-extent_xy, extent_xy, n_ground)
+    gy = rng.uniform(-extent_xy, extent_xy, n_ground)
+    gz = rng.normal(0.0, 0.01, n_ground)
+    cols = procedural_texture(gx, gy)
+    pts = [np.stack([gx, gy, gz], -1)]
+    cs = [cols]
+    if spheres is not None:
+        for (cx_, cy_, cz_, rad), col in zip(np.asarray(spheres), np.asarray(sphere_colors)):
+            v = rng.normal(size=(n_per_sphere, 3))
+            v /= np.linalg.norm(v, axis=-1, keepdims=True)
+            pts.append(np.array([cx_, cy_, cz_]) + rad * v)
+            cs.append(np.tile(np.asarray(col, np.float64)[None], (n_per_sphere, 1)))
+    return (
+        np.concatenate(pts).astype(np.float32),
+        np.clip(np.concatenate(cs), 0, 1).astype(np.float32),
+    )
+
+
+def write_analytic_colmap_scene(
+    root: str,
+    cams,
+    spheres: np.ndarray = None,
+    sphere_colors: np.ndarray = None,
+    extent_xy: float = 12.0,
+    n_points: int = 12_000,
+    seed: int = 0,
+):
+    """COLMAP-layout dataset whose GT images are the ANALYTIC ray-cast scene
+    (render_analytic_scene) — ground truth outside the gaussian model class,
+    so quality numbers measure reconstruction, not self-fitting
+    (write_synthetic_colmap_scene's fits exactly by construction). Sparse points
+    come from analytic_init_points (noisy ground/sphere samples standing in
+    for triangulation)."""
+    from hidegs_tpu_torch.data import colmap
+    from hidegs_tpu_torch.utils.png import write_png
+
+    os.makedirs(os.path.join(root, "sparse", "0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    ccams = _colmap_cameras(colmap, cams[0])
+    imgs = {}
+    for i, cam in enumerate(cams, start=1):
+        img = render_analytic_scene(cam, spheres, sphere_colors)
+        name = f"v{i:04d}.png"
+        write_png(os.path.join(root, "images", name),
+                  (np.clip(img.transpose(1, 2, 0), 0, 1) * 255).astype(np.uint8))
+        imgs[i] = _colmap_image(colmap, i, cam, name)
+    pts, cols = analytic_init_points(
+        n_points, extent_xy, spheres, sphere_colors, seed=seed
+    )
+    colmap.write_cameras_binary(ccams, os.path.join(root, "sparse/0/cameras.bin"))
+    colmap.write_images_binary(imgs, os.path.join(root, "sparse/0/images.bin"))
+    colmap.write_points3d_binary(
+        pts.astype(np.float64), (cols * 255).astype(np.uint8),
+        os.path.join(root, "sparse/0/points3D.bin"))
+    return root
+
+
+# --------------------------------------------------------------------------
+# Realistic-image benchmark scene: a textured HEIGHT
+# FIELD rendered with view-dependent lighting, plus synthetic monodepth with
+# realistic error statistics and COLMAP-style noisy sparse points. Unlike
+# the plane+spheres analytic scene, this workload carries the error modes
+# the HiDeGS-specific losses exist for: parallax-dependent shading (multi-
+# view NCC), smooth monodepth bias (depth reliability + multi-view geo),
+# sharp texture over smooth geometry (frequency regularizer).
+# --------------------------------------------------------------------------
+
+
+
+
+def _value_noise(u, v, cell, seed=0):
+    """Deterministic bilinear value noise on a lattice of size `cell`."""
+
+    def hash01(ix, iy):
+        h = (
+            ix.astype(np.int64) * 374761393
+            + iy.astype(np.int64) * 668265263
+            + np.int64(seed) * 97002337
+        ) % 2147483647
+        h = (h ^ (h >> 13)) * 1274126177 % 2147483647
+        return (h % 65536).astype(np.float64) / 65536.0
+
+    gu, gv = u / cell, v / cell
+    iu, iv = np.floor(gu), np.floor(gv)
+    fu, fv = gu - iu, gv - iv
+    fu = fu * fu * (3 - 2 * fu)  # smoothstep → C1 height field
+    fv = fv * fv * (3 - 2 * fv)
+    return (
+        hash01(iu, iv) * (1 - fu) * (1 - fv)
+        + hash01(iu + 1, iv) * fu * (1 - fv)
+        + hash01(iu, iv + 1) * (1 - fu) * fv
+        + hash01(iu + 1, iv + 1) * fu * fv
+    )
+
+
+def terrain_height(u, v, hmax: float = 2.4, seed: int = 0):
+    """Smooth multi-octave height field h(u, v) ≥ 0 (+z up)."""
+    h = (
+        0.50 * _value_noise(u, v, 9.0, seed)
+        + 0.30 * _value_noise(u, v, 3.7, seed + 1)
+        + 0.14 * _value_noise(u, v, 1.6, seed + 2)
+        + 0.06 * _value_noise(u, v, 0.7, seed + 3)
+    )
+    # gentle large-scale swell so oblique rays see silhouettes
+    h = h + 0.18 * (1 + np.sin(0.21 * u + 0.8) * np.cos(0.17 * v - 0.4)) / 2
+    return hmax * h
+
+
+def _terrain_normal(u, v, hmax, seed, eps=0.05):
+    hx = (terrain_height(u + eps, v, hmax, seed) - terrain_height(u - eps, v, hmax, seed)) / (2 * eps)
+    hy = (terrain_height(u, v + eps, hmax, seed) - terrain_height(u, v - eps, hmax, seed)) / (2 * eps)
+    n = np.stack([-hx, -hy, np.ones_like(hx)], axis=-1)
+    return n / np.linalg.norm(n, axis=-1, keepdims=True)
+
+
+def render_terrain_scene(
+    cam: CameraParams,
+    extent_xy: float = 12.0,
+    hmax: float = 2.4,
+    seed: int = 0,
+    sun=(0.45, 0.35, 0.80),
+    sky=(0.70, 0.80, 0.95),
+    n_steps: int = 160,
+    n_bisect: int = 12,
+):
+    """Ray-marched render of the textured height field with Lambert + Blinn-
+    Phong (view-dependent) shading. Returns ((3, H, W) image in [0, 1],
+    (H, W) ray-hit distance with inf for sky)."""
+    H, W = cam.height, cam.width
+    R, t, cx_, cy_, fx_, fy_ = _host_camera(cam)
+    origin = -R.T @ t
+    xs = (np.arange(W) + 0.5 - float(cx_)) / float(fx_)
+    ys = (np.arange(H) + 0.5 - float(cy_)) / float(fy_)
+    dx, dy = np.meshgrid(xs, ys)
+    d = np.stack([dx, dy, np.ones_like(dx)], axis=-1) @ R
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dz = d[..., 2]
+
+    # march only descending rays, from just below the camera to the z=0 crossing
+    desc = dz < -1e-4
+    t_lo = np.where(desc, np.maximum((origin[2] - hmax) / -np.where(desc, dz, -1.0), 0.3), 0.3)
+    t_hi = np.where(desc, (origin[2] - 0.0) / -np.where(desc, dz, -1.0) + 1.0, 1.0)
+
+    # The march and the bisection evaluate the height field only on the
+    # rays still looking for their crossing (descending, not hit yet), as
+    # flat index subsets: every value is the elementwise result the JAX
+    # package computes on the whole image, at a fraction of the work.
+    dxf, dyf, dzf = d[..., 0].ravel(), d[..., 1].ravel(), dz.ravel()
+    t_lo_f, t_hi_f = t_lo.ravel(), t_hi.ravel()
+    hit_f = np.full(H * W, np.inf)
+    act = np.flatnonzero(desc)
+    prev_above = np.ones(act.shape, bool)
+    prev_t = t_lo_f[act]
+    for s in range(n_steps):
+        lo, hi = t_lo_f[act], t_hi_f[act]
+        tt = lo + (hi - lo) * (s / (n_steps - 1))
+        px = origin[0] + tt * dxf[act]
+        py = origin[1] + tt * dyf[act]
+        pz = origin[2] + tt * dzf[act]
+        above = pz > terrain_height(px, py, hmax, seed)
+        crossed = prev_above & ~above
+        # bracket [prev_t, tt] for newly crossed rays
+        if crossed.any():
+            ci = act[crossed]
+            a, b = prev_t[crossed], tt[crossed]
+            for _ in range(n_bisect):
+                m = 0.5 * (a + b)
+                mx = origin[0] + m * dxf[ci]
+                my = origin[1] + m * dyf[ci]
+                mz = origin[2] + m * dzf[ci]
+                mabove = mz > terrain_height(mx, my, hmax, seed)
+                a = np.where(mabove, m, a)
+                b = np.where(mabove, b, m)
+            hit_f[ci] = 0.5 * (a + b)
+        act, prev_above, prev_t = act[~crossed], above[~crossed], tt[~crossed]
+    hit_t = hit_f.reshape(H, W)
+    hit = np.isfinite(hit_t)
+
+    th = np.where(hit, hit_t, 1.0)
+    pu = origin[0] + th * d[..., 0]
+    pv = origin[1] + th * d[..., 1]
+    albedo = procedural_texture(pu, pv)
+    n = _terrain_normal(pu, pv, hmax, seed)
+    # slope-tinted albedo (rockier on steep faces) — more texture variety
+    slope = np.clip(1.0 - n[..., 2], 0.0, 1.0)
+    albedo = albedo * (1.0 - 0.5 * slope[..., None]) + 0.5 * slope[..., None] * np.array([0.45, 0.40, 0.36])
+
+    sund = np.asarray(sun, np.float64)
+    sund /= np.linalg.norm(sund)
+    lam = np.clip(np.einsum("hwc,c->hw", n, sund), 0.0, 1.0)
+    # Blinn-Phong specular: view direction makes shading VIEW-DEPENDENT —
+    # the same surface point changes appearance across cameras, which is the
+    # photometric inconsistency the LNCC multi-view term is built for
+    view = -d
+    half = view + sund[None, None]
+    half /= np.linalg.norm(half, axis=-1, keepdims=True) + 1e-9
+    spec = np.clip(np.einsum("hwc,c->hw", n, sund) > 0, 0, 1) * (
+        np.clip(np.einsum("hwc,hwc->hw", n, half), 0.0, 1.0) ** 32
+    )
+    shaded = albedo * (0.30 + 0.70 * lam)[..., None] + 0.18 * spec[..., None]
+
+    # sky gradient for non-hit rays
+    skyc = np.asarray(sky, np.float64)[None, None] * (
+        0.85 + 0.15 * np.clip(dz, 0, 1)[..., None]
+    )
+    color = np.where(hit[..., None], shaded, skyc)
+    return (
+        np.transpose(np.clip(color, 0, 1), (2, 0, 1)).astype(np.float32),
+        np.where(hit, hit_t, np.inf).astype(np.float32),
+    )
+
+
+def synthetic_monodepth(
+    ray_depth: np.ndarray,  # (H, W) hit distance, inf = sky
+    seed: int = 0,
+    rel_err: float = 0.04,
+    hole_frac: float = 0.01,
+):
+    """Corrupt true inverse depth the way a monodepth net fails: an unknown
+    per-image affine (scale, offset), a SMOOTH low-frequency multiplicative
+    error field (rel_err amplitude), and holes. Returns (uint16 png array,
+    depth_params {scale, offset} that map png/65535 back to scene inverse
+    depth up to the smooth error — exactly what make_depth_scale's robust
+    fit would recover from COLMAP sparse depth)."""
+    rng = np.random.default_rng(seed)
+    H, W = ray_depth.shape
+    inv = np.where(np.isfinite(ray_depth), 1.0 / np.maximum(ray_depth, 1e-6), 0.0)
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    err = rel_err * _value_noise(
+        xx / W * 6.0, yy / H * 6.0, 1.0, seed=seed + 11
+    )
+    err = 2.0 * (err / rel_err - 0.5) * rel_err  # [-rel_err, rel_err]
+    inv_md = inv * (1.0 + err)
+    # unknown per-image affine the depth_params must undo
+    alpha = float(rng.uniform(0.6, 1.6))
+    beta = float(rng.uniform(0.02, 0.1))
+    raw = alpha * inv_md + beta
+    raw[inv <= 0] = 0.0  # sky: no monodepth sample
+    # random hole blotches (failed predictions)
+    n_holes = max(int(hole_frac * H * W / 64), 1)
+    for _ in range(n_holes):
+        hy, hx = rng.integers(0, H), rng.integers(0, W)
+        r = int(rng.integers(3, 9))
+        raw[max(hy - r, 0):hy + r, max(hx - r, 0):hx + r] = 0.0
+    mx = raw.max()
+    png = np.clip(raw / max(mx, 1e-9) * 65535.0, 0, 65535).astype(np.uint16)
+    # the loader first normalizes png→[0,1]: png/65535 = raw/mx, so
+    # (png/65535)·(mx/α) − β/α = inv_md — the affine make_depth_scale's
+    # robust fit would recover; the smooth `err` field remains as the
+    # realistic residual the multi-view terms must handle
+    params = {"scale": mx / alpha, "offset": -beta / alpha}
+    return png, params
+
+
+def _write_terrain_view(job):
+    """Ray-march view i of the terrain scene and write its image and
+    monodepth PNGs; returns (name, depth params)."""
+    from hidegs_tpu_torch.utils.png import write_png
+
+    root, i, cam, extent_xy, hmax, seed, depth_rel_err = job
+    img, ray_depth = render_terrain_scene(cam, extent_xy=extent_xy, hmax=hmax, seed=seed)
+    name = f"v{i:04d}"
+    write_png(os.path.join(root, "images", name + ".png"),
+              (np.clip(img.transpose(1, 2, 0), 0, 1) * 255).astype(np.uint8))
+    png, params = synthetic_monodepth(ray_depth, seed=seed + i, rel_err=depth_rel_err)
+    write_png(os.path.join(root, "depths", name + ".png"), png)
+    return name, params
+
+
+def _terrain_view_jobs(root, cams, extent_xy=12.0, hmax=2.4, seed=0, depth_rel_err=0.04):
+    """The scene's directories, and one `_write_terrain_view` job per
+    camera."""
+    for sub in (os.path.join("sparse", "0"), "images", "depths"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    return [(root, i, cam, extent_xy, hmax, seed, depth_rel_err) for i, cam in enumerate(cams, start=1)]
+
+
+def _write_terrain_sparse(root, cams, depth_params, extent_xy=12.0, hmax=2.4, n_points=16_000, seed=0,
+                          point_noise=0.04, outlier_frac=0.01):
+    """The scene's sparse/0: cameras, images, noisy points and the
+    monodepth affine of each view."""
+    from hidegs_tpu_torch.data import colmap
+
+    ccams = _colmap_cameras(colmap, cams[0])
+    imgs = {i: _colmap_image(colmap, i, cam, f"v{i:04d}.png") for i, cam in enumerate(cams, start=1)}
+
+    # sparse points: surface samples with depth-proportional noise + outliers
+    rng = np.random.default_rng(seed + 999)
+    gx = rng.uniform(-extent_xy, extent_xy, n_points)
+    gy = rng.uniform(-extent_xy, extent_xy, n_points)
+    gz = terrain_height(gx, gy, hmax, seed)
+    noise = rng.normal(0.0, point_noise, (n_points, 3))
+    pts = np.stack([gx, gy, gz], -1) + noise
+    n_out = int(outlier_frac * n_points)
+    if n_out:
+        idx = rng.choice(n_points, n_out, replace=False)
+        pts[idx, 2] += rng.uniform(1.0, 6.0, n_out)  # floaters
+    cols = procedural_texture(pts[:, 0], pts[:, 1])
+    cols = np.clip(cols + rng.normal(0, 0.05, cols.shape), 0, 1)
+
+    colmap.write_cameras_binary(ccams, os.path.join(root, "sparse/0/cameras.bin"))
+    colmap.write_images_binary(imgs, os.path.join(root, "sparse/0/images.bin"))
+    colmap.write_points3d_binary(
+        pts.astype(np.float64), (cols * 255).astype(np.uint8),
+        os.path.join(root, "sparse/0/points3D.bin"))
+    with open(os.path.join(root, "sparse/0/depth_params.json"), "w") as f:
+        json.dump(depth_params, f)
+
+
+def write_terrain_colmap_scene(
+    root: str,
+    cams,
+    extent_xy: float = 12.0,
+    hmax: float = 2.4,
+    n_points: int = 16_000,
+    seed: int = 0,
+    point_noise: float = 0.04,
+    outlier_frac: float = 0.01,
+    depth_rel_err: float = 0.04,
+):
+    """COLMAP-layout dataset for the realistic benchmark: ray-marched GT
+    images, 16-bit monodepth pngs + sparse/0/depth_params.json, and noisy
+    sparse points (triangulation noise ∝ depth + gross outliers)."""
+    jobs = _terrain_view_jobs(root, cams, extent_xy, hmax, seed, depth_rel_err)
+    depth_params = dict(map(_write_terrain_view, jobs))
+    _write_terrain_sparse(root, cams, depth_params, extent_xy, hmax, n_points, seed, point_noise, outlier_frac)
     return root

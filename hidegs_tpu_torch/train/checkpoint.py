@@ -9,10 +9,12 @@ resume scans the `iteration_*` directories as the reference does
 `state.npz` uses the JAX package's leaf keys (`gaussians/params/xyz`, ...,
 `opt/m/xyz`, ..., `opt/step`, `exposure`, `step`, `rng`), so a checkpoint
 written by either package loads in the other. The port's TrainState carries
-a torch.Generator where the JAX one carries a PRNG key: the port writes
-`rng` as the key of the generator's seed and adds the generator's state
-under `torch_generator_state`, which the JAX package ignores; a checkpoint
-without that key seeds the generator from `rng`.
+two torch.Generators where the JAX one carries a PRNG key: the densify
+generator (CPU) and the multi-view pixel generator (on the state's
+device). The port writes `rng` as the key of the densify generator's seed
+and adds the generators' states under `torch_generator_state` and
+`torch_mv_generator_state`, which the JAX package ignores; a checkpoint
+without them seeds each generator from `rng`.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from hidegs_tpu_torch.train.loop import TrainState
 from hidegs_tpu_torch.utils.ply import save_gaussian_ply
 
 GENERATOR_KEY = "torch_generator_state"
+MV_GENERATOR_KEY = "torch_mv_generator_state"
 _PARAM_FIELDS = GaussianParams._fields
 
 
@@ -52,7 +55,8 @@ def _rng_key(generator: torch.Generator) -> np.ndarray:
     return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
 
 
-def _unflatten(leaves: Dict[str, torch.Tensor], generator: torch.Generator) -> TrainState:
+def _unflatten(leaves: Dict[str, torch.Tensor], generator: torch.Generator,
+               mv_generator: torch.Generator) -> TrainState:
     def params(prefix):
         return GaussianParams(*(leaves[f"{prefix}/{f}"] for f in _PARAM_FIELDS))
 
@@ -62,7 +66,7 @@ def _unflatten(leaves: Dict[str, torch.Tensor], generator: torch.Generator) -> T
         gaussians=gaussians,
         opt=AdamState(m=params("opt/m"), v=params("opt/v"), step=leaves["opt/step"]),
         exposure=leaves["exposure"], exposure_m=leaves["exposure_m"], exposure_v=leaves["exposure_v"],
-        step=leaves["step"], generator=generator,
+        step=leaves["step"], generator=generator, mv_generator=mv_generator,
     )
 
 
@@ -111,6 +115,7 @@ def save_train_state(ts: TrainState, directory: str, iteration: int, extras: Opt
     arrays = {k: v.detach().cpu().numpy() for k, v in _flatten_with_paths(ts).items()}
     arrays["rng"] = _rng_key(ts.generator)
     arrays[GENERATOR_KEY] = ts.generator.get_state().numpy()
+    arrays[MV_GENERATOR_KEY] = ts.mv_generator.get_state().numpy()
     np.savez_compressed(os.path.join(d, "state.npz"), **arrays)
     params = {f: arrays[f"gaussians/params/{f}"] for f in _PARAM_FIELDS}
     save_gaussian_ply(os.path.join(d, "point_cloud.ply"), params, alive=arrays["gaussians/alive"])
@@ -157,10 +162,13 @@ def load_train_state(template_ts: TrainState, directory: str, iteration: int = -
                 raise ValueError(
                     f"shape mismatch for {key}: checkpoint {saved.shape} vs template {tuple(want.shape)}")
             leaves[key] = torch.as_tensor(saved).to(dtype=want.dtype, device=want.device)
+        key = data["rng"].astype(np.uint64)
+        seed = int((key[0] << np.uint64(32)) | key[1])
         generator = torch.Generator()
-        if GENERATOR_KEY in data:
-            generator.set_state(torch.as_tensor(data[GENERATOR_KEY]))
-        else:
-            key = data["rng"].astype(np.uint64)
-            generator.manual_seed(int((key[0] << np.uint64(32)) | key[1]))
-    return _unflatten(leaves, generator), iteration
+        mv_generator = torch.Generator(device=template_ts.mv_generator.device)
+        for gen, name in ((generator, GENERATOR_KEY), (mv_generator, MV_GENERATOR_KEY)):
+            if name in data:
+                gen.set_state(torch.as_tensor(data[name]))
+            else:
+                gen.manual_seed(seed)
+    return _unflatten(leaves, generator, mv_generator), iteration

@@ -14,7 +14,9 @@ scripts/frequency_regularization.py:1047-1676):
   * scale regularization of visible gaussians whose max scale > 0.01,
     gated on the mask having any pixel;
   * total = clip(λ_freq·freq + λ_scale·scale, 0, 1), zero during warm-up.
-    The warm-up gate is a `where`, so the terms run on every step.
+    The warm-up gate is a `where`, so the terms run on every step;
+  * `save_debug_panel`, the 2x2 panel the trainer dumps, written with
+    utils/png.py (the JAX package writes it through Pillow).
 
 3x3 convolutions use padding 1 (zero-padded SAME) in full float32.
 Clamps and |x| go through losses.clip / maximum / abs_ (the JAX
@@ -152,6 +154,34 @@ def frequency_pyramid_loss(rendered: torch.Tensor, gt: torch.Tensor, num_levels:
             r = _avg_pool2(r)
             g = _avg_pool2(g)
     return clip(total, 0.0, 0.1)
+
+
+def save_debug_panel(rendered: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor, out_dir: str,
+                     iteration: int, camera_name: str = "") -> str:
+    """2x2 visualization panel (render / gt / high-freq mask / gt log-FFT),
+    the reference's save_visualizations dumps, as an 8-bit RGB PNG in
+    `out_dir`. Returns the file's path."""
+    import os
+
+    from hidegs_tpu_torch.utils.png import write_png
+
+    os.makedirs(out_dir, exist_ok=True)
+
+    def to_u8(img: torch.Tensor) -> np.ndarray:
+        a = img.detach().cpu().numpy()
+        a = a.transpose(1, 2, 0) if a.ndim == 3 else np.stack([a] * 3, axis=-1)
+        return (np.clip(a, 0, 1) * 255).astype(np.uint8)
+
+    gray = torch.mean(gt, dim=0)
+    logmag = torch.log(torch.abs(torch.fft.fftshift(torch.fft.fft2(gray))) + 1e-6)
+    logmag = (logmag - logmag.min()) / maximum(logmag.max() - logmag.min(), 1e-8)
+
+    top = np.concatenate([to_u8(rendered), to_u8(gt)], axis=1)
+    bottom = np.concatenate([to_u8(mask), to_u8(logmag)], axis=1)
+    name = f"freq_{camera_name}_{iteration:06d}.png" if camera_name else f"freq_{iteration:06d}.png"
+    path = os.path.join(out_dir, name)
+    write_png(path, np.concatenate([top, bottom], axis=0))
+    return path
 
 
 def frequency_regularization(

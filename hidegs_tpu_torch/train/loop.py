@@ -4,23 +4,32 @@ Port of hidegs_tpu/train/loop.py. A step is
 
   render → photometric (1-λ)·L1 + λ·(1-SSIM) → depth L1 (when the view has
   a depth prior) → frequency and scale regularization → single-view normal
-  consistency → backward (the blend's through its CUDA kernel) → masked
-  sparse Adam → densification statistics;
+  consistency → [multi-view NCC / geometric terms] → backward (the blend's
+  through its CUDA kernels) → masked sparse Adam → densification
+  statistics;
 
 densify / prune, opacity reset and the SH warm-up run from the host loop
 (`maybe_host_side_schedule`). The step reads nothing back to the host: the
 finite-step gate, the budget counters and the metrics stay tensors on the
-device. The multi-view terms are not ported yet (ROADMAP A8): a batch that
-carries them raises.
+device, and the step's constants are fills or are cached per device.
+
+A batch with a multi-view part and no source depth renders the source view
+inside the loss, so the step runs two blends forward and backward in one
+graph. Its pixel samples come from `TrainState.mv_generator`, a generator
+on the state's device: `train_step` draws from a copy of it and returns the
+advanced copy in the new state, so the input state is left as it was (the
+JAX step splits `ts.rng` the same way).
 
 Weight schedules follow the reference's OptimizationParams: depth 1.0 →
-0.01 from iteration 7000; the single-view term from 7000; densify every 300
-in [500, 15000]; opacity reset every 3000; one more SH band every 1000.
+0.01 from iteration 7000; the single-view and multi-view terms from 7000;
+densify every 300 in [500, 15000]; opacity reset every 3000; one more SH
+band every 1000.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,15 +45,19 @@ from hidegs_tpu_torch.model.gaussians import GaussianParams, GaussianState, oneu
 from hidegs_tpu_torch.model.schedules import LRConfig, expon_lr, lr_tree
 from hidegs_tpu_torch.raster.api import RasterConfig, render
 from hidegs_tpu_torch.train.frequency import frequency_regularization
-from hidegs_tpu_torch.train.geometric import single_view_normal_loss
+from hidegs_tpu_torch.train.geometric import (
+    MultiViewBatch,
+    multi_view_losses,
+    sample_pixels,
+    single_view_normal_loss,
+)
 from hidegs_tpu_torch.train.losses import abs_, clip, dssim_l1, maximum
 
 
 @dataclass(frozen=True)
 class TrainConfig:
     """The reference's OptimizationParams plus raster settings (the JAX
-    package's TrainConfig without the multi-view fields, which wait for
-    ROADMAP A8)."""
+    package's TrainConfig)."""
 
     iterations: int = 30_000
     lambda_dssim: float = 0.2
@@ -56,6 +69,17 @@ class TrainConfig:
     # single-view normal consistency
     single_view_weight: float = 0.015
     single_view_from: int = 7_000
+    # multi-view consistency
+    multi_view_ncc_weight: float = 0.15
+    multi_view_geo_weight: float = 0.03
+    multi_view_from: int = 7_000
+    multi_view_sample_num: int = 4096
+    multi_view_patch_half: int = 1
+    multi_view_pixel_noise_th: float = 1.0
+    # False (default): render the source view inside the loss and
+    # backpropagate through both views (the PGSR recipe); True: the trainer
+    # passes a detached source depth
+    multi_view_detached_src: bool = False
     # frequency regularization
     lambda_freq: float = 0.001
     lambda_scale: float = 0.005
@@ -83,6 +107,7 @@ class TrainState(NamedTuple):
     exposure_v: torch.Tensor
     step: torch.Tensor  # () int32, on the device
     generator: torch.Generator  # CPU generator of the densify draws
+    mv_generator: torch.Generator  # generator of the multi-view pixel draws, on the state's device
 
 
 class ViewBatch(NamedTuple):
@@ -95,7 +120,7 @@ class ViewBatch(NamedTuple):
     invdepth: Optional[torch.Tensor] = None  # (H, W) monodepth inverse depth
     depth_mask: Optional[torch.Tensor] = None  # (H, W) reliability mask
     alpha_mask: Optional[torch.Tensor] = None  # (H, W)
-    multi_view: Optional[object] = None  # not ported yet (ROADMAP A8)
+    multi_view: Optional[MultiViewBatch] = None
 
 
 def init_train_state(gaussians: GaussianState, num_images: int, seed: int = 0) -> TrainState:
@@ -111,6 +136,7 @@ def init_train_state(gaussians: GaussianState, num_images: int, seed: int = 0) -
         exposure_v=torch.zeros_like(exposure),
         step=torch.zeros((), dtype=torch.int32, device=dev),
         generator=torch.Generator().manual_seed(seed),
+        mv_generator=torch.Generator(device=dev).manual_seed(seed),
     )
 
 
@@ -131,6 +157,31 @@ def depth_l1_weight(step, cfg: TrainConfig) -> torch.Tensor:
                      + torch.log(torch.full((), cfg.depth_l1_weight_final, **f32)) * t)
 
 
+@functools.lru_cache(maxsize=16)
+def chunk_box_tensors(chunk_box: tuple, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(boxmin, boxmax) of `TrainConfig.chunk_box` on `device`, built once
+    per box and device, from fills: a copy from the host would make the
+    host wait for the device."""
+    return tuple(torch.stack([torch.full((), float(v), dtype=torch.float32, device=device) for v in corner])
+                 for corner in chunk_box)
+
+
+def fork_generator(generator: torch.Generator) -> torch.Generator:
+    """A new generator on the same device in the same state."""
+    out = torch.Generator(device=generator.device)
+    out.set_state(generator.get_state())
+    return out
+
+
+def draw_step_pixels(ts: TrainState, batch: ViewBatch, cfg: TrainConfig):
+    """The multi-view pixel samples of one step, drawn on the device from a
+    copy of `ts.mv_generator`: (uv, the advanced copy)."""
+    gen = fork_generator(ts.mv_generator)
+    uv = sample_pixels(gen, cfg.multi_view_sample_num, batch.cam.height, batch.cam.width,
+                       cfg.multi_view_patch_half)
+    return uv, gen
+
+
 def compute_losses(
     gaussians: GaussianState,
     exposure: torch.Tensor,
@@ -139,19 +190,16 @@ def compute_losses(
     cfg: TrainConfig,
     mean2d_offset: torch.Tensor,
     use_exposure: bool,
+    uv: Optional[torch.Tensor] = None,
 ):
-    """The loss stack. Returns (total, aux dict of tensors)."""
-    if batch.multi_view is not None:
-        raise NotImplementedError("the multi-view loss terms are not ported yet (ROADMAP A8)")
-    render_geo = cfg.single_view_weight > 0
+    """The loss stack. Returns (total, aux dict of tensors). `uv`: the
+    multi-view pixel samples (`sample_pixels`), needed when the batch has a
+    multi-view part."""
+    render_geo = cfg.single_view_weight > 0 or batch.multi_view is not None
     box_kw = {}
     if cfg.chunk_box is not None:
-        dev = gaussians.alive.device
-        box_kw = dict(
-            boxmin=torch.tensor(cfg.chunk_box[0], dtype=torch.float32, device=dev),
-            boxmax=torch.tensor(cfg.chunk_box[1], dtype=torch.float32, device=dev),
-            box_exempt=gaussians.protected,
-        )
+        boxmin, boxmax = chunk_box_tensors(cfg.chunk_box, gaussians.alive.device)
+        box_kw = dict(boxmin=boxmin, boxmax=boxmax, box_exempt=gaussians.protected)
     out = render(
         gaussians.params.xyz,
         gaussians.scales,
@@ -195,18 +243,52 @@ def compute_losses(
         total = total + freq_loss
         aux["freq"] = freq_loss
 
-    if render_geo:
+    if cfg.single_view_weight > 0:
         sv = single_view_normal_loss(out["rendered_normal"], out["depth_normal"], gt, out["alpha"])
         on = torch.as_tensor(step, device=sv.device) >= cfg.single_view_from
         total = total + torch.where(on, cfg.single_view_weight, 0.0) * sv
         aux["single_view"] = sv
 
+    src_out = None
+    if batch.multi_view is not None:
+        if uv is None:
+            raise ValueError("a batch with a multi-view part needs its pixel samples `uv` (sample_pixels)")
+        mvb = batch.multi_view
+        if mvb.src_plane_depth is None:
+            # the differentiable source: render the source view here, so
+            # that both views' geometry takes the multi-view gradient
+            src_out = render(
+                gaussians.params.xyz,
+                gaussians.scales,
+                gaussians.quats,
+                gaussians.opacities,
+                gaussians.shs_flat,
+                mvb.src_cam,
+                active_sh_degree=gaussians.active_sh_degree,
+                render_geo=True,
+                config=cfg.raster,
+                **box_kw,
+            )
+            mvb = mvb._replace(src_plane_depth=src_out["plane_depth"])
+        ncc_l, geo_l = multi_view_losses(
+            out["plane_depth"], out["rendered_normal"], torch.mean(batch.image, dim=0), batch.cam, mvb, uv,
+            patch_half=cfg.multi_view_patch_half, pixel_noise_th=cfg.multi_view_pixel_noise_th,
+        )
+        on = torch.as_tensor(step, device=ncc_l.device) >= cfg.multi_view_from
+        total = total + torch.where(on, 1.0, 0.0) * (
+            cfg.multi_view_ncc_weight * ncc_l + cfg.multi_view_geo_weight * geo_l)
+        aux["mv_ncc"] = ncc_l
+        aux["mv_geo"] = geo_l
+
     aux["total"] = total
     aux["visibility"] = out["visibility"]
     aux["radii"] = out["radii"]
-    for key in ("overflow", "block_overflow", "num_instances", "needed_blocks",
-                "visible_overflow", "num_visible"):
-        aux[key] = out[key]
+    # the budget counters feed the trainer's grow / shrink loop: the source
+    # render's demand counts too, or an overflow there would go unseen
+    for key in ("overflow", "block_overflow", "visible_overflow"):
+        aux[key] = out[key] if src_out is None else out[key] + src_out[key]
+    for key in ("num_instances", "needed_blocks", "num_visible"):
+        aux[key] = out[key] if src_out is None else torch.maximum(out[key], src_out[key])
     return total, aux
 
 
@@ -244,10 +326,12 @@ def _unslice_rows(full: TrainState, view: TrainState) -> TrainState:
     )
 
 
-def step_forward(ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposure: bool = False):
+def step_forward(ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposure: bool = False,
+                 uv: Optional[torch.Tensor] = None):
     """The forward half of a step: the loss stack on fresh leaves that
     require grad. Returns (loss, aux, inputs); `inputs` are the params'
-    leaves, the mean2d offset and, with `use_exposure`, the exposure."""
+    leaves, the mean2d offset and, with `use_exposure`, the exposure. `uv`:
+    the multi-view pixel samples (draw_step_pixels)."""
     C = ts.gaussians.capacity
     dev = ts.gaussians.alive.device
     params = GaussianParams(*(p.detach().requires_grad_(True) for p in ts.gaussians.params))
@@ -255,7 +339,7 @@ def step_forward(ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposur
     # its gradient is dL/d(mean2d), the screen-space gradient of densification
     mean2d_offset = torch.zeros((C, 2), dtype=torch.float32, device=dev, requires_grad=True)
     loss, aux = compute_losses(ts.gaussians._replace(params=params), exposure, batch, ts.step,
-                               cfg, mean2d_offset, use_exposure)
+                               cfg, mean2d_offset, use_exposure, uv=uv)
     inputs = list(params) + [mean2d_offset] + ([exposure] if use_exposure else [])
     return loss, aux, inputs
 
@@ -318,7 +402,7 @@ def step_update(
 
     new_ts = TrainState(
         gaussians=g_state, opt=new_opt, exposure=new_expo.detach(), exposure_m=m.detach(),
-        exposure_v=v.detach(), step=ts.step + 1, generator=ts.generator,
+        exposure_v=v.detach(), step=ts.step + 1, generator=ts.generator, mv_generator=ts.mv_generator,
     )
     metrics = {k: val.detach() for k, val in aux.items() if val.ndim == 0}
     return new_ts, metrics
@@ -330,6 +414,7 @@ def train_step(
     cfg: TrainConfig,
     use_exposure: bool = False,
     row_budget: int = 0,
+    uv: Optional[torch.Tensor] = None,
 ):
     """One iteration (render → loss → gradients → sparse Adam → stats):
     `step_forward`, `step_backward`, `step_update`. Returns (new state, dict
@@ -337,17 +422,22 @@ def train_step(
 
     `row_budget`: with 0 < R < capacity the step runs on the rows [0, R)
     only, so every per-gaussian stage scales with the live count; it needs
-    the alive-prefix layout of compact_gaussians."""
+    the alive-prefix layout of compact_gaussians. `uv`: the multi-view
+    pixel samples; by default a multi-view batch draws them
+    (draw_step_pixels) and the new state carries the advanced generator."""
+    mv_generator = ts.mv_generator
+    if batch.multi_view is not None and uv is None:
+        uv, mv_generator = draw_step_pixels(ts, batch, cfg)
     full_ts = None
     if 0 < row_budget < ts.gaussians.capacity:
         full_ts = ts
         ts = _slice_rows(ts, row_budget)
-    loss, aux, inputs = step_forward(ts, batch, cfg, use_exposure)
+    loss, aux, inputs = step_forward(ts, batch, cfg, use_exposure, uv=uv)
     grads = step_backward(loss, inputs)
     new_ts, metrics = step_update(ts, batch, cfg, loss, aux, grads, use_exposure)
     if full_ts is not None:
         new_ts = _unslice_rows(full_ts, new_ts)
-    return new_ts, metrics
+    return new_ts._replace(mv_generator=mv_generator), metrics
 
 
 def densify_step(ts: TrainState, scene_extent, cfg: TrainConfig):

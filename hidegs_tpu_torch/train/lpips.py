@@ -22,6 +22,7 @@ between the two packages (ROADMAP C6); carried across with
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -53,10 +54,17 @@ def vgg16_features(params: Params, x: torch.Tensor) -> List[torch.Tensor]:
     return taps
 
 
+@functools.lru_cache(maxsize=None)
+def _scaling_layer(device: torch.device):
+    """(SHIFT, SCALE) as (3, 1, 1) tensors on `device`, copied there once:
+    a copy per call would make the host wait for the device per view."""
+    return (torch.as_tensor(SHIFT, device=device)[:, None, None],
+            torch.as_tensor(SCALE, device=device)[:, None, None])
+
+
 def lpips_distance(params: Params, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
     """img: (3, H, W) in [0, 1] → scalar LPIPS."""
-    shift = torch.as_tensor(SHIFT, device=img1.device)[:, None, None]
-    scale = torch.as_tensor(SCALE, device=img1.device)[:, None, None]
+    shift, scale = _scaling_layer(img1.device)
 
     def prep(img):
         x = img * 2.0 - 1.0  # [0,1] → [-1,1] (lpips convention)

@@ -5,7 +5,9 @@ The JAX package reads and writes every image through Pillow
 serving path does not need it: `read_image` decodes the PNGs a scene holds
 (8-bit grayscale, grayscale + alpha, RGB and RGBA, and 16-bit grayscale such
 as the inverse-depth maps, non-interlaced, every filter type) into the array
-`np.asarray(PIL.Image.open(path))` gives, and `write_png` encodes 8-bit RGB.
+`np.asarray(PIL.Image.open(path))` gives, and `write_png` encodes 8-bit RGB,
+8-bit grayscale and 16-bit grayscale (the arrays `PIL.Image.fromarray`
+saves as modes RGB, L and I;16).
 Any other file (interlaced or palette PNGs, other bit depths, JPEG) goes to
 Pillow, imported only then; without Pillow that raises an ImportError naming
 the file.
@@ -154,17 +156,26 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG (filter type 0 on
-    every row, zlib at Pillow's default level 6)."""
-    rgb = np.ascontiguousarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"write_png takes an (H, W, 3) uint8 array, got {rgb.dtype} {rgb.shape}")
-    height, width, _ = rgb.shape
-    rows = np.zeros((height, 1 + width * 3), np.uint8)  # column 0: filter type 0
-    rows[:, 1:] = rgb.reshape(height, -1)
+def write_png(path: str, pixels: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG, an (H, W) uint8
+    array as 8-bit grayscale, or an (H, W) uint16 array as 16-bit grayscale
+    (filter type 0 on every row, zlib at Pillow's default level 6)."""
+    pixels = np.ascontiguousarray(pixels)
+    if pixels.ndim == 3 and pixels.shape[2] == 3 and pixels.dtype == np.uint8:
+        depth, colour, data = 8, 2, pixels
+    elif pixels.ndim == 2 and pixels.dtype == np.uint8:
+        depth, colour, data = 8, 0, pixels
+    elif pixels.ndim == 2 and pixels.dtype == np.uint16:
+        depth, colour, data = 16, 0, pixels.astype(">u2")  # PNG samples are big-endian
+    else:
+        raise ValueError("write_png takes an (H, W, 3) uint8, (H, W) uint8 or (H, W) uint16 array, "
+                         f"got {pixels.dtype} {pixels.shape}")
+    height, width = pixels.shape[:2]
+    row_bytes = data.reshape(height, -1).view(np.uint8)
+    rows = np.zeros((height, 1 + row_bytes.shape[1]), np.uint8)  # column 0: filter type 0
+    rows[:, 1:] = row_bytes
     with open(path, "wb") as f:
         f.write(SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)))
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, colour, 0, 0, 0)))
         f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
         f.write(_chunk(b"IEND", b""))

@@ -180,13 +180,22 @@ def test_resume_is_bitexact(tmp_path):
     rcfg = RasterConfig(max_instances=1 << 12)
     scene = tsyn.make_toy_gaussians(50, seed=1, device="cpu")
     cam = tsyn.ring_camera(0, height=32, width=32, device="cpu")
+    src = tsyn.ring_camera(1, n_cams=16, height=32, width=32, device="cpu")
     cfg = tl.TrainConfig(iterations=100, raster=rcfg, freq_warmup=10_000, single_view_weight=0.0,
-                         densify_from=1, densify_until=100, densify_interval=4)
+                         densify_from=1, densify_until=100, densify_interval=4, multi_view_from=0,
+                         multi_view_sample_num=64)
     cfg = cfg.__class__(**{**cfg.__dict__, "densify": cfg.densify._replace(grad_threshold=0.0,
                                                                            clone_min_opacity=0.0)})
     with torch.no_grad():
         gt = render(*scene, cam, config=rcfg)["render"]
-    batch = tl.ViewBatch(cam=cam, image=gt, image_idx=torch.tensor(0))
+    # the multi-view part draws its pixel samples from the state's second
+    # generator: a resume is bit-exact only if the checkpoint restores it
+    from hidegs_tpu_torch.train.geometric import MultiViewBatch
+
+    with torch.no_grad():
+        src_gray = render(*scene, src, config=rcfg)["render"].mean(0)
+    batch = tl.ViewBatch(cam=cam, image=gt, image_idx=torch.tensor(0),
+                         multi_view=MultiViewBatch(src_image_gray=src_gray, src_cam=src))
 
     def fresh():
         state = init_from_points(scene.means3d, torch.full((50, 3), 0.5), capacity=128)
@@ -208,4 +217,6 @@ def test_resume_is_bitexact(tmp_path):
     for k in la:
         np.testing.assert_array_equal(lb[k], la[k], err_msg=k)
     assert torch.equal(a.generator.get_state(), b3.generator.get_state())
+    assert torch.equal(a.mv_generator.get_state(), b3.mv_generator.get_state())
+    assert not torch.equal(a.mv_generator.get_state(), fresh().mv_generator.get_state())
     assert int(a.step) == 6 and int(a.gaussians.alive.sum()) > 50  # the round grew the model

@@ -14,7 +14,9 @@ or train step, where the forward planes already differ by up to 1e-4,
 normalised atol 1e-3; the fold kernel against the plain fold in float64
 within the rounding bound of a float32 sum, k·2^-24·Σ|row| for k rows, and
 bitwise against the scalar fold it replaced (tools/csrc/fold_rows_scalar.cu,
-fed by a scatter of sorted-instance rows into expansion order).
+fed by a scatter of sorted-instance rows into expansion order). The
+multi-view step (two blends forward and backward) is bitwise reproducible
+and makes no host synchronisation with the chunk box set.
 """
 import pathlib
 
@@ -358,3 +360,112 @@ def test_train_steps_blend_match_plain(cuda):
                 scale = float(b.abs().max()) + 1e-30
                 assert float((a - b).abs().max()) / scale <= STEP_GRAD_TOL
     assert float(mk["step_ok"]) == 1.0
+
+
+def _multi_view_batch(batches, i, src):
+    from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.train.geometric import MultiViewBatch
+
+    return tl.ViewBatch(cam=batches[i].cam, image=batches[i].image, image_idx=batches[i].image_idx,
+                        multi_view=MultiViewBatch(src_image_gray=batches[src].image.mean(0),
+                                                  src_cam=batches[src].cam))
+
+
+def _counts():
+    return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_multi_view_step_is_bitwise_deterministic(cuda):
+    """A step with the multi-view part renders the source view in the loss:
+    two forward, backward and fold launches, and two steps from one state
+    (one generator state) bitwise equal."""
+    import dataclasses
+
+    from hidegs_tpu_torch.train import loop as tl
+
+    ts, batches, cfg = _train_problem(cuda)
+    cfg = dataclasses.replace(cfg, multi_view_from=0, multi_view_sample_num=2048)
+    batch = _multi_view_batch(batches, 0, 1)
+    before = _counts()
+    a, ma = tl.train_step(ts, batch, cfg)
+    b, mb = tl.train_step(ts, batch, cfg)
+    torch.cuda.synchronize()
+    assert tuple(x - y for x, y in zip(_counts(), before)) == (4, 4, 4)
+    assert float(ma["step_ok"]) == 1.0 and float(ma["mv_geo"]) > 0
+    for x, y in zip(_leaves(a), _leaves(b)):
+        assert torch.equal(x, y)
+    assert torch.equal(ma["total"], mb["total"])
+    assert torch.equal(a.mv_generator.get_state(), b.mv_generator.get_state())
+
+
+@pytest.mark.cuda
+def test_bilinear_sample_gradient_is_deterministic(cuda):
+    """The image gradient of bilinear_sample with many samples per pixel
+    (its backward is a sorted index_put_) is bitwise reproducible."""
+    from hidegs_tpu_torch.core.geometry import bilinear_sample
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    img = torch.rand((64, 80, 3), generator=gen, device=cuda).requires_grad_(True)
+    uv = torch.rand((200_000, 2), generator=gen, device=cuda) * torch.tensor([12.0, 9.0], device=cuda) + 3.0
+    w = torch.randn((200_000, 3), generator=gen, device=cuda)
+    grads = []
+    for _ in range(3):
+        out, _ = bilinear_sample(img, uv)
+        grads.append(torch.autograd.grad(torch.sum(out * w), img)[0])
+    assert float(grads[0].abs().sum()) > 0
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
+    # and equal, up to float32 summation order, to the CPU's
+    img_cpu = img.detach().cpu().requires_grad_(True)
+    cpu = torch.autograd.grad(torch.sum(bilinear_sample(img_cpu, uv.cpu())[0] * w.cpu()), img_cpu)[0]
+    torch.testing.assert_close(grads[0].cpu(), cpu, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_multi_view_steps_blend_match_plain(cuda):
+    """Two multi-view steps with the kernels against two with the plain
+    backend, on the same pixel draws: losses at rtol 1e-3, first-step
+    gradients normalised at 1e-3."""
+    import dataclasses
+
+    from hidegs_tpu_torch.train import loop as tl
+
+    ts, batches, cfg = _train_problem(cuda)
+    cfg = dataclasses.replace(cfg, multi_view_from=0, multi_view_sample_num=2048)
+    pcfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, backend="plain"))
+    k, p = ts, ts
+    for step, (i, src) in enumerate(((0, 1), (2, 3))):
+        batch = _multi_view_batch(batches, i, src)
+        k, mk = tl.train_step(k, batch, cfg)
+        p, mp = tl.train_step(p, batch, pcfg)
+        for key in ("total", "mv_ncc", "mv_geo"):
+            torch.testing.assert_close(mk[key], mp[key], rtol=1e-3, atol=1e-6)
+        if step == 0:
+            for a, b in zip(k.opt.m, p.opt.m):
+                scale = float(b.abs().max()) + 1e-30
+                assert float((a - b).abs().max()) / scale <= STEP_GRAD_TOL
+    assert float(mk["step_ok"]) == 1.0
+
+
+@pytest.mark.cuda
+def test_chunk_box_multi_view_step_makes_no_host_sync(cuda):
+    """A train step with the chunk box and the multi-view part (the source
+    render in the loss) under torch.cuda.set_sync_debug_mode("error"): no
+    host-to-device copy, no read of a device value, no synchronisation."""
+    import dataclasses
+
+    from hidegs_tpu_torch.train import loop as tl
+
+    ts, batches, cfg = _train_problem(cuda)
+    cfg = dataclasses.replace(cfg, multi_view_from=0, multi_view_sample_num=2048,
+                              chunk_box=((-1.5, -1.5, -1.5), (1.5, 1.5, 1.5)))
+    batch = _multi_view_batch(batches, 0, 1)
+    ts, _ = tl.train_step(ts, batch, cfg)  # builds the kernels, the box and the loss constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new_ts, metrics = tl.train_step(ts, batch, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(metrics["step_ok"]) == 1.0 and float(metrics["mv_geo"]) > 0
+    assert int(new_ts.step) == int(ts.step) + 1

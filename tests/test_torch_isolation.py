@@ -49,7 +49,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 35  # the render, training and serving slices
+    assert int(proc.stdout.split()[0]) >= 38  # the render, training, serving and trainer slices
 
 
 def test_sources_name_no_jax_import():
@@ -57,7 +57,7 @@ def test_sources_name_no_jax_import():
     sources = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
-    assert len(sources) >= 43
+    assert len(sources) >= 46
 
 
 def test_serving_path_needs_no_pillow(tmp_path):
@@ -98,6 +98,37 @@ print("RESULT", json.dumps([[v["psnr"] for v in report["train"]["per_view"]], so
     assert renders == ["00000.png", "00001.png"]
 
 
+def test_training_path_needs_no_pillow(tmp_path):
+    """Write a terrain scene (16-bit monodepth maps) and train it with the
+    multi-view terms, depth supervision and a debug panel through the
+    port's trainer on the CPU, in a process where Pillow cannot be
+    imported."""
+    code = f"""
+import sys
+sys.modules["PIL"] = None
+import json, os
+import torch
+from hidegs_tpu_torch.data import synthetic as tsyn
+from hidegs_tpu_torch.train import trainer
+root = {str(tmp_path)!r}
+cams = [tsyn.nadir_grid_camera(ix, iy, 2, 2, height=32, width=40, device="cpu") for iy in range(2) for ix in range(2)]
+tsyn.write_terrain_colmap_scene(root + "/scene", cams, n_points=300)
+ts = trainer.main(["--source_path", root + "/scene", "--model_path", root + "/model", "--depths", "depths",
+                   "--iterations", "4", "--device", "cpu", "--freq_warmup_iterations", "0",
+                   "--single_view_weight_from_iter", "0", "--multi_view_weight_from_iter", "1",
+                   "--depth_from_iter", "0", "--multi_view_sample_num", "128", "--debug_panel_every", "4",
+                   "--save_iterations", "4", "--max_instances", "4096"])
+print("RESULT", json.dumps([int(ts.step), sorted(os.listdir(root + "/model/freq_debug")),
+                            sorted(os.listdir(root + "/model/point_cloud"))]))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    step, panels, ckpts = json.loads(proc.stdout.split("RESULT", 1)[1])
+    assert step == 4 and len(panels) == 1 and ckpts == ["iteration_4"]
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     params = {
@@ -120,6 +151,10 @@ def test_default_device_raises_without_a_card(monkeypatch):
         lpips.default_lpips_fn()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate.main(["--model_path", "model", "--source_path", "scene"])
+    from hidegs_tpu_torch.train import trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer.main(["--source_path", "scene", "--model_path", "model"])
     # asked for explicitly, the CPU works
     out = convert.gaussians_from_jax(params, device="cpu")
     assert all(x.device.type == "cpu" for x in out)
@@ -150,6 +185,15 @@ def test_blend_backend_differentiates_through_the_function():
     out["render"].sum().backward()
     assert means.grad is not None and torch.isfinite(means.grad).all()
     assert float(means.grad.abs().sum()) > 0
+
+
+def test_float32_matmuls_stay_full_precision():
+    """Importing the package turns TF32 off for matmuls and convolutions:
+    the multi-view homographies and reprojections are float32 3x3 products
+    whose rounding moves samples across the pixel-noise threshold."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
 
 
 def test_kernel_launcher_refuses_cpu_tensors():

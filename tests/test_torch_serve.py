@@ -112,6 +112,21 @@ def test_random_vgg_is_seeded_and_labelled():
     assert float(tlpips.default_lpips_fn("", device="cpu")[0](torch.tensor(a), torch.tensor(b))) == d
 
 
+def test_lpips_constants_are_built_once_per_device():
+    """LPIPS's scaling-layer constants are copied to a device once, not per
+    call (a copy per served view would make the host wait)."""
+    tlpips._scaling_layer.cache_clear()
+    params = tlpips.random_lpips_params(0, "cpu")
+    a, b = (torch.tensor(x) for x in _images(4))
+    for _ in range(3):
+        tlpips.lpips_distance(params, a, b)
+    info = tlpips._scaling_layer.cache_info()
+    assert (info.misses, info.hits) == (1, 2)
+    shift, scale = tlpips._scaling_layer(torch.device("cpu"))
+    assert shift.shape == (3, 1, 1) and np.array_equal(scale[:, 0, 0].numpy(), tlpips.SCALE)
+    assert np.array_equal(shift[:, 0, 0].numpy(), tlpips.SHIFT)
+
+
 @pytest.fixture(scope="module")
 def model_dir(tmp_path_factory):
     """A COLMAP scene (JAX writer) and a model directory as a JAX training

@@ -298,8 +298,17 @@ def test_exposure_and_depth_terms_run(problem):
     assert float(metrics["step_ok"]) == 1.0 and float(metrics["depth_l1"]) > 0
     assert not torch.equal(new.exposure[2], ts.exposure[2])
     assert torch.equal(new.exposure[0], ts.exposure[0])
-    with pytest.raises(NotImplementedError, match="A8"):
-        tl.train_step(ts, batch._replace(multi_view=object()), TCFG)
+    # the multi-view part runs in the same step (tests/test_torch_multiview.py
+    # holds it against JAX); without its pixel samples step_forward refuses it
+    from hidegs_tpu_torch.train.geometric import MultiViewBatch
+
+    mv = batch._replace(multi_view=MultiViewBatch(src_image_gray=problem["tgts"][1].mean(0),
+                                                  src_cam=problem["tcams"][1]))
+    with pytest.raises(ValueError, match="uv"):
+        tl.step_forward(ts, mv, TCFG)
+    _, mv_metrics = tl.train_step(ts, mv, dataclasses.replace(TCFG, multi_view_from=0), use_exposure=True)
+    assert float(mv_metrics["step_ok"]) == 1.0 and float(mv_metrics["depth_l1"]) > 0
+    assert {"mv_ncc", "mv_geo"} <= set(mv_metrics)
 
 
 def test_host_side_schedule(problem):
