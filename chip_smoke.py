@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths at full width — rendering
+Drives the port's paths at full width — rendering
 (`hidegs_tpu_torch.raster.api.render`, the hand-written CUDA forward blend),
-serving a trained scene (`python -m hidegs_tpu_torch.evaluate` and
-`render_cli`, which reach the forward blend once per view) and training
-(`hidegs_tpu_torch.train.loop.train_step`, which adds the CUDA backward
-blend and the gradient fold kernel), and the scene trainer (`python -m
-hidegs_tpu_torch.train`, two blends forward and backward per multi-view
-step) — and holds every kernel of those paths against its plain PyTorch
-version. Phases:
+the LOD hierarchy (`hier.interp.AdaptiveHierRenderer`: cut select,
+interpolation, then the forward blend, once per frame), serving a trained
+scene (`python -m hidegs_tpu_torch.evaluate` and `render_cli`, with and
+without `--hierarchy`, which reach the forward blend once per view), the
+viewers (`python -m hidegs_tpu_torch.viewer`'s HTTP and SIBR frontends),
+training (`hidegs_tpu_torch.train.loop.train_step`, which adds the CUDA
+backward blend and the gradient fold kernel), and the scene trainer
+(`python -m hidegs_tpu_torch.train`, two blends forward and backward per
+multi-view step) — and holds every kernel of those paths, and the bf16
+attribute-stream mode of both blends, against its plain PyTorch version.
+Phases (run in the order of `main`):
 
   1. environment: card name and power limit, versions, the kernel builds
      (one nvcc per source, started together, with the scalar fold of
@@ -41,6 +45,21 @@ version. Phases:
      registers and spills from the loaded library's build log;
   6. render breakdown: preprocess, binning and blend timed alone, and one
      render under torch.profiler for the device busy share and top kernels;
+ 6a. hierarchy: the scene through the port's native builder (compiled with
+     g++ from hidegs_tpu_torch/hier/native/hier_builder.cpp into
+     build/hier/) on the host: seconds, points, nodes; written as .hier and
+     read back equal. AdaptiveHierRenderer on the card renders every view
+     at every tau of LOD_TAUS (0, 3, 6, 15 px); launch counts are read
+     around that run: exactly one cut-and-render call and one forward
+     blend per frame (a re-expansion or a regrow fails it). Checks:
+     the tau=0 cut is exactly the 1,010,240 leaves and its frames are
+     within PSNR >= 40 dB of the leaf render; cut sizes do not rise with
+     tau; num_selected equals the count pass; the tau=6 frame's forward
+     kernel against the plain blend on the frame's own rows and binning at
+     phase 4's gates; two tau=6 frames bitwise equal; no overflow. Prints
+     the cut, budget and instances per view and tau, and ms per LOD frame
+     (CUDA events, median of 10 after 2 warm-ups) with its four stages
+     (count, select, interpolate, render) timed alone;
   7. serve at full width: the port's write_synthetic_colmap_scene writes
      the four views as a COLMAP scene (the ground truth is the 8-bit image
      of the model), the model is written as point_cloud/iteration_30000/
@@ -54,7 +73,15 @@ version. Phases:
      phase 4, one forward launch per served view, no budget overflow,
      every tensor of the path on the card. Prints the seconds of each step
      and the ms per evaluated view split into render, LPIPS, image I/O and
-     the rest, and whether Pillow imports;
+     the rest, and whether Pillow imports; then `render_cli --hierarchy
+     <the scene's .hier> --tau 6` on the same scene: ms per view, exactly
+     one cut-and-render call and one forward launch per PNG, counted on the
+     hierarchy path;
+ 7a. viewers: `python -m hidegs_tpu_torch.viewer`'s render function behind
+     both frontends, one 1920x1088 frame each over localhost (HttpViewer on
+     port 0 fetched with urllib, NetworkGUI with a socket client speaking
+     the SIBR protocol); each frame's pixels equal render()'s image of the
+     same camera, clipped and quantised; one forward launch per frame;
   8. training at full width: the four rendered views are the targets; the
      trainable state is the scene through the inverse activations, seeded
      noise on sh_dc, opacity logits and xyz, capacity 1.25x. 30 train steps
@@ -71,6 +98,24 @@ version. Phases:
      and the PSNR it cost in each view;
  10. full-width hold: view 0's backward + fold kernels against the plain
      versions, on the cotangents one train step gives its blend;
+ 10a. B3, the bf16 attribute stream, through the path a user turns on:
+     RasterConfig(bf16_stream=True) in render() on the render cell's view 0
+     with the loss of the JAX package's bf16 test, mean(render²), and in
+     train_step's forward and backward on phase 8's trained state (the full
+     loss stack); one launch of each kernel for the render and its
+     backward. Each BlendPacked node is held against the plain bf16
+     versions on its own rows, binning and cotangents (the rows it saved
+     are bf16_rows of the packed rows; planes at phase 4's gates; d_attrs
+     with hold_backward), and its planes and d_attrs are bitwise the
+     launchers'. bf16 against float32 on the render cell at the JAX
+     tolerances: rgb within 0.03, the means' and opacities' gradients
+     within 5e-2 of their max. On the train cell the packed gradients of
+     both modes on the same cotangents, per column against the float32
+     column's max: within 5e-2 with the distance plane's cotangent zeroed
+     and with all geometric planes' (invdepth, normal, distance) zeroed;
+     with the whole cotangents printed, with the worst gaussians (C12).
+     Both modes timed in turns (f32, bf16, bf16, f32) one launch at a
+     time, with the bf16 bounds;
  11. train times: the step, split into train_step's own stages
      (step_forward / step_backward / step_update), the backward and fold
      kernels alone, their plain versions and bounds, the backward's mask
@@ -110,9 +155,17 @@ In the kernels line, `ms`, `plain_ms`, `bound_ms` and `library_ms` come from
 the render cell (phase 5: blend_fwd) and the train path (phase 11:
 blend_bwd, fold_rows); `launches` is the train path's count (phase 8), as
 in earlier slices; `launches_by_path` holds the count of every path (render,
-serve, train, trainer); `max_abs_err` is the largest error of the kernel's
-full-width holds in phases 4 (forward), 10 (backward, fold) and 13 (all
-three, on both nodes of a multi-view step).
+serve, train, trainer, hierarchy with render_cli --hierarchy, viewer);
+`max_abs_err` is the largest error of the kernel's full-width holds in
+phases 4 and 6a (forward), 10 (backward, fold) and 13 (all three, on both
+nodes of a multi-view step). Each blend entry has a `bf16` object from
+phase 10a: the bf16 mode's `ms` (median of its two turns), the float32
+kernel's time in the same turns (`f32_ms_in_turns`), `plain_ms`,
+`bound_ms`, `bound_by`, `max_abs_err` against the plain bf16 version, and
+the bf16-against-float32 errors: `image_err` (rgb), `grad_err_vs_f32` (the
+render cell's means3d and opacities gradients, gated at 5e-2) and
+`train_grad_err_vs_f32` (the train cell's largest packed-column departure
+per cotangent variant; gated at 5e-2 but with the whole cotangents).
 Any failed check raises and exits non-zero. Without a CUDA device it exits
 non-zero and prints no result.
 """
@@ -658,10 +711,12 @@ def serve_budget(scene, cams, tile):
     return round_budget(int(want * 1.12))
 
 
-def phase_serve(scene, cams, cfg):
+def phase_serve(scene, cams, cfg, hier_path):
     """The serving path at full width: a COLMAP scene and a model directory
     on disk, then the port's evaluate and render_cli entry points, as a
-    user calls them. Counts are read around those two calls alone."""
+    user calls them. Counts are read around those two calls alone; then
+    render_cli --hierarchy renders the scene's hierarchy (`hier_path`) at
+    tau SERVE_TAU, counted apart."""
     from hidegs_tpu_torch import config, evaluate, render_cli
     from hidegs_tpu_torch.data import cameras as cam_io
     from hidegs_tpu_torch.data import scene as scene_io
@@ -815,7 +870,7 @@ def phase_serve(scene, cams, cfg):
     # render_cli's view 0 (tile 16, the budget above): the kernel's planes
     # against the plain blend on the same inputs, as phase 4 holds tile 32;
     # the served image is the held kernel output
-    pre, tb, ty, tx, tile, max_blocks = blend_in["args"]
+    pre, tb, ty, tx, tile, max_blocks, _bf16 = blend_in["args"]
     k = blend_in["planes"]
     p = blend_plain.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
     err = 0.0
@@ -847,8 +902,9 @@ def phase_serve(scene, cams, cfg):
     print(f"[serve] render_cli: {t_cli:.2f} s for {n_served - n_eval} views: render "
           f"{1e3 * np.mean(timers['render'][n_eval:]):.2f} ms and PNG write "
           f"{1e3 * np.mean(timers['png_write'][2 * n_eval:]):.2f} ms per view")
+    hier_launches = serve_hierarchy(src, hier_path, dev)
     shutil.rmtree(work, ignore_errors=True)
-    return dict(launches=launches)
+    return dict(launches=launches, hier_launches=hier_launches, cli_budget=cli_budget)
 
 
 def grad_gate_stats(got, want):
@@ -910,27 +966,29 @@ def hold_fold(rows_exp, g_start, got, what):
     return float(err.max()), used
 
 
-def hold_backward(attrs, tb, count, tile_out, g_tiles, ty, tx, tile, max_blocks, what):
+def hold_backward(attrs, tb, count, tile_out, g_tiles, ty, tx, tile, max_blocks, what, bf16=False):
     """The backward and fold kernels (`grad_attrs`) against blend_tiles_bwd
     and the plain fold on the same packed rows, binning and cotangents, and
     the fold kernel against the float64 plain fold of the kernel's own
-    rows; two kernel runs must agree to the bit. Returns the errors and the
-    inputs, for timing."""
+    rows; two kernel runs must agree to the bit. `bf16`: the kernels read
+    `bf16_rows(attrs)`, the plain backward its bf16 mode. Returns the
+    errors, the kernels' gradient rows and the inputs, for timing."""
     from hidegs_tpu_torch.raster import blend_plain, cuda_blend
 
+    rows_k = blend_plain.bf16_rows(attrs) if bf16 else attrs
     g_aug = blend_plain.augment_cotangents(tile_out, g_tiles)
-    got = cuda_blend.grad_attrs(attrs, tb, count, g_aug, tx, tile)
-    rows = blend_plain.blend_tiles_bwd(blend_plain.unpack_attrs(attrs), tb, g_aug, ty, tx, tile, max_blocks)
+    got = cuda_blend.grad_attrs(rows_k, tb, count, g_aug, tx, tile)
+    rows = blend_plain.blend_tiles_bwd(blend_plain.unpack_attrs(attrs), tb, g_aug, ty, tx, tile, max_blocks, bf16)
     want = blend_plain.fold_rows(blend_plain.expansion_rows(rows, tb.slot_s), tb.g_start)
     abs_err, norm_err, needed = hold_grads(got, want, what)
-    k_rows_exp = cuda_blend.instance_rows(attrs, tb, count, g_aug, tx, tile)  # expansion order
+    k_rows_exp = cuda_blend.instance_rows(rows_k, tb, count, g_aug, tx, tile)  # expansion order
     fold_err, fold_used = hold_fold(k_rows_exp, tb.g_start, got, f"{what}, fold")
     check(torch.equal(got, blend_plain.fold_rows(k_rows_exp, tb.g_start)),
           f"{what}: the fold kernel is not bitwise the plain fold")
-    again = cuda_blend.grad_attrs(attrs, tb, count, g_aug, tx, tile)
+    again = cuda_blend.grad_attrs(rows_k, tb, count, g_aug, tx, tile)
     check(torch.equal(again, got), f"{what}: two backward runs differ")
     return dict(err=abs_err, norm_err=norm_err, needed=needed, fold_err=fold_err, fold_used=fold_used,
-                attrs=attrs, count=count, g_aug=g_aug, rows_exp=k_rows_exp)
+                attrs=attrs, count=count, g_aug=g_aug, rows_exp=k_rows_exp, got=got)
 
 
 def hold_report(h):
@@ -1220,14 +1278,19 @@ def find_node(root, name):
 
 
 def keep_backward_inputs(node, got):
-    """A pre-hook on a blend node that keeps what its backward is given:
-    the packed rows, the tile planes, the binning, the visited counts and
-    the planes' cotangents."""
+    """Hooks on a blend node that keep what its backward is given (the
+    rows it saved, the tile planes, the binning, the visited counts and the
+    planes' cotangents) and what it returns (`d_attrs`). Returns the
+    hooks' handles."""
     def keep(grad_outputs):
         attrs, tile_out = (x.detach() for x in node.saved_tensors)
         got.update(attrs=attrs, tile_out=tile_out, g_tiles=grad_outputs[0].contiguous(), tb=node.binning,
                    count=node.count, args=node.args)
-    return node.register_prehook(keep)
+
+    def keep_result(grad_inputs, _grad_outputs):
+        got.update(d_attrs=grad_inputs[0])
+
+    return node.register_prehook(keep), node.register_hook(keep_result)
 
 
 def blend_backward_inputs(ts, batch, tcfg):
@@ -1240,9 +1303,10 @@ def blend_backward_inputs(ts, batch, tcfg):
     loss, _, inputs = tl.step_forward(ts, batch, tcfg)
     node = find_node(loss.grad_fn, "BlendPackedBackward")
     got = {}
-    handle = keep_backward_inputs(node, got)
+    handles = keep_backward_inputs(node, got)
     tl.step_backward(loss, inputs)
-    handle.remove()
+    for h in handles:
+        h.remove()
     check(bool(got), "the blend's backward did not run")
     return got
 
@@ -1250,12 +1314,13 @@ def blend_backward_inputs(ts, batch, tcfg):
 def phase_hold_train(train):
     ts, tcfg = train["ts"], train["tcfg"]
     b = blend_backward_inputs(ts, train["batches"][0], tcfg)
-    ty, tx, tile, max_blocks = b["args"]
+    ty, tx, tile, max_blocks, _bf16 = b["args"]
     h = hold_backward(b["attrs"], b["tb"], b["count"], b["tile_out"], b["g_tiles"], ty, tx, tile, max_blocks,
                       "full-width backward, view 0")
+    check(torch.equal(b["d_attrs"], h["got"]), "full-width backward: the node's d_attrs are not bitwise the launchers'")
     print(f"[hold-bwd] view 0, trained state, the cotangents one train step gives its blend: backward + fold "
           f"kernels vs blend_tiles_bwd + plain fold: {hold_report(h)}")
-    return dict(tb=b["tb"], ty=ty, tx=tx, **h)
+    return dict(tb=b["tb"], ty=ty, tx=tx, g_tiles=b["g_tiles"], **h)
 
 
 def scalar_fold_fn():
@@ -1581,7 +1646,7 @@ def hold_node_forward(g, what):
     from hidegs_tpu_torch.raster import blend_plain, cuda_blend
 
     attrs, tb, saved = g["attrs"], g["tb"], g["tile_out"]
-    ty, tx, tile, max_blocks = g["args"]
+    ty, tx, tile, max_blocks, _bf16 = g["args"]
     k_out, k_obs = cuda_blend.blend_tile_out(attrs, tb, g["count"], ty, tx, tile)
     check(torch.equal(k_out, saved), f"{what}: the node's saved tile planes are not the forward kernel's output")
     p_out, p_obs = blend_plain.blend_tile_out(blend_plain.unpack_attrs(attrs), tb, ty, tx, tile, max_blocks)
@@ -1615,18 +1680,19 @@ def phase_trainer_hold(trainer_run):
     nodes = find_nodes(loss.grad_fn, "BlendPackedBackward")
     check(len(nodes) == 2, f"trainer hold: {len(nodes)} blend nodes in a multi-view step, expected 2")
     got = [{}, {}]
-    handles = [keep_backward_inputs(node, g) for node, g in zip(nodes, got)]
+    handles = [h for node, g in zip(nodes, got) for h in keep_backward_inputs(node, g)]
     tl.step_backward(loss, inputs)
     for h in handles:
         h.remove()
     errs, fwd_err = [], 0.0
     for g in got:
         check(bool(g), "trainer hold: a blend backward did not run")
-        ty, tx, tile, max_blocks = g["args"]
+        ty, tx, tile, max_blocks, _bf16 = g["args"]
         fwd_err = max(fwd_err, hold_node_forward(g, f"trainer, multi-view step, blend node {len(errs)}"))
         nz = int((g["g_tiles"].abs().amax(dim=(0, 1)) > 0).sum())
         h = hold_backward(g["attrs"], g["tb"], g["count"], g["tile_out"], g["g_tiles"], ty, tx, tile, max_blocks,
                           f"trainer, multi-view step, blend node {len(errs)}")
+        check(torch.equal(g["d_attrs"], h["got"]), "trainer hold: the node's d_attrs are not bitwise the launchers'")
         errs.append(h)
         print(f"[trainer-hold] blend node {len(errs) - 1} ({nz} of 16 cotangent channels non-zero, "
               f"{int(g['tb'].num_instances)} instances): backward + fold kernels vs blend_tiles_bwd + plain fold: "
@@ -1667,6 +1733,544 @@ def phase_trainer_hold(trainer_run):
     return dict(fwd_err=fwd_err, err=max(h["err"] for h in errs), fold_err=max(h["fold_err"] for h in errs),
                 mv_ms=mv_ms, sv_ms=sv_ms)
 
+LOD_TAUS = (0.0, 3.0, 6.0, 15.0)  # pixel granularities of the hierarchy phase
+LOD_HOLD_TAU = 6.0  # the τ whose frame the forward kernel is held on
+LOD_MIN_PSNR = 40.0  # τ=0 frame against the leaf render (tests/test_hier.py's bar)
+SERVE_TAU = 6.0  # render_cli --hierarchy --tau on the serve phase's scene
+
+
+def build_scene_hierarchy(scene):
+    """The render cell's scene through the port's native builder (compiled
+    from hidegs_tpu_torch/hier/native/hier_builder.cpp into build/hier/),
+    written as a .hier file and read back."""
+    from hidegs_tpu_torch.hier import build as hbuild
+    from hidegs_tpu_torch.hier import io as hio
+
+    host = [x.detach().cpu().numpy() for x in (scene.means3d, scene.quats, scene.scales, scene.opacities, scene.shs)]
+    t0 = time.perf_counter()
+    lib = hbuild.compile_native()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h = hbuild.build_hierarchy(*host, use_native=True)
+    t_hier = time.perf_counter() - t0
+    work = ROOT / "build" / "hier_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    path = work / "scene.hier"
+    t0 = time.perf_counter()
+    hio.write_hier(str(path), h)
+    back = hio.read_hier(str(path))
+    t_io = time.perf_counter() - t0
+    for name in hio.Hierarchy._fields:
+        check(np.array_equal(getattr(back, name), getattr(h, name)), f"hierarchy: .hier read back differs in {name}")
+    n_leaves = int((h.nodes[:, hio.DEPTH] == 0).sum())
+    check(n_leaves == scene.means3d.shape[0], f"hierarchy: {n_leaves} leaf nodes for {scene.means3d.shape[0]} gaussians")
+    print(f"[hier] built {lib.name} in {t_build:.2f} s; hierarchy of {scene.means3d.shape[0]} gaussians in "
+          f"{t_hier:.2f} s on the host: {h.num_points} points, {h.num_nodes} nodes, {n_leaves} leaves, root depth "
+          f"{int(h.nodes[0, hio.DEPTH])}; wrote and read back {path.name} ({path.stat().st_size / 2 ** 20:.1f} MiB) "
+          f"in {t_io:.2f} s, equal")
+    return back, path
+
+
+@contextlib.contextmanager
+def kept_blend(kept):
+    """Keep the last call of the "blend" backend's blend_tiles: its
+    arguments (pre, binning, tiles_y, tiles_x, tile, max_blocks, bf16) and
+    its planes."""
+    from hidegs_tpu_torch.raster import blend_autograd
+
+    def keep(blend_tiles):
+        def call(*args, **kwargs):
+            res = blend_tiles(*args, **kwargs)
+            kept.update(args=args, planes=res)
+            return res
+        return call
+
+    with patched(blend_autograd, "blend_tiles", keep):
+        yield
+
+
+@contextlib.contextmanager
+def frame_calls(calls):
+    """Count fused_lod_frame calls (each launches the forward kernel once)."""
+    from hidegs_tpu_torch.hier import interp
+
+    def wrap(fn):
+        def call(*args, **kwargs):
+            calls.append(1)
+            return fn(*args, **kwargs)
+        return call
+
+    with patched(interp, "fused_lod_frame", wrap):
+        yield
+
+
+def lod_stages(r, cam, tau):
+    """The LOD frame's four stages as separate calls, on the renderer's
+    current budgets: count, select, interpolate, render."""
+    from hidegs_tpu_torch.hier import lod
+    from hidegs_tpu_torch.hier.interp import interpolate_cut
+    from hidegs_tpu_torch.raster.api import RasterConfig, render
+
+    target = r.target_size(cam, tau)
+    vp = cam.camera_center
+    cfg = RasterConfig(backend=r.backend, tile=r.tile, depth_sort_bits=-1, max_instances=r._max_inst)
+    cut = lod.expand_packed(r._packed, target, vp, budget=r._budget, num_points=r.num_points)
+    ig = interpolate_cut(cut, *r.arrays, attrs=r._attrs)
+    return {
+        "count": lambda: lod.cut_size_packed(r._packed, target, vp),
+        "select": lambda: lod.expand_packed(r._packed, target, vp, budget=r._budget, num_points=r.num_points),
+        "interpolate": lambda: interpolate_cut(cut, *r.arrays, attrs=r._attrs),
+        "render": lambda: render(*ig, cam, config=cfg),
+    }
+
+
+def phase_hierarchy(scene, cams, h):
+    """The LOD hierarchy path at full width: AdaptiveHierRenderer on the
+    card (the scene's hierarchy, tile 32, depth_sort_bits -1), every view at
+    every τ of LOD_TAUS through `render`, with counts read around it; then
+    the checks and the times."""
+    from hidegs_tpu_torch.hier import lod
+    from hidegs_tpu_torch.hier.interp import AdaptiveHierRenderer
+    from hidegs_tpu_torch.raster import blend_plain
+    from hidegs_tpu_torch.raster.api import RasterConfig, render
+    from hidegs_tpu_torch.train.losses import psnr
+
+    r = AdaptiveHierRenderer.from_hierarchy(h, scene.means3d.device)
+    calls, frames, cuts = [], {}, {}
+    reset_counts()
+    with torch.no_grad(), frame_calls(calls):
+        for tau in LOD_TAUS:
+            for i, cam in enumerate(cams):
+                out = r.render(cam, tau)
+                frames[tau, i] = {k: out[k] for k in ("render", "num_selected", "overflow", "num_instances")}
+                cuts[tau, i] = (int(out["num_selected"]), r._budget, int(out["num_instances"]))
+    launches = read_counts()
+    n_frames = len(LOD_TAUS) * len(cams)
+    print(f"[hier] launches on the hierarchy path: {launches} for {n_frames} frames ({len(calls)} cut-and-render "
+          f"calls; a call past one per frame would be a re-expansion or an instance regrow)")
+    check(launches == {"blend_fwd": n_frames, "blend_bwd": 0, "fold_rows": 0} and len(calls) == n_frames,
+          f"hierarchy path launches {launches} in {len(calls)} cut-and-render calls, expected one forward blend "
+          f"and one call per frame ({n_frames})")
+    for (tau, i), f in frames.items():
+        check(int(f["overflow"]) == 0, f"hierarchy view {i} tau {tau}: overflow {int(f['overflow'])}")
+        check(bool(torch.isfinite(f["render"]).all()), f"hierarchy view {i} tau {tau}: render not finite")
+        n = int(lod.cut_size(r.nodes, r.boxes, r.target_size(cams[i], tau), cams[i].camera_center))
+        check(n == cuts[tau, i][0], f"hierarchy view {i} tau {tau}: num_selected {cuts[tau, i][0]} != count {n}")
+    N = scene.means3d.shape[0]
+    for i in range(len(cams)):
+        sizes = [cuts[tau, i][0] for tau in LOD_TAUS]
+        check(sizes[0] == N, f"hierarchy view {i}: the tau=0 cut has {sizes[0]} gaussians, not the {N} leaves")
+        check(all(a >= b for a, b in zip(sizes, sizes[1:])), f"hierarchy view {i}: cut sizes rise with tau: {sizes}")
+        print(f"[hier] view {i}: cut / budget / instances at tau " + ", ".join(
+            f"{tau:g}: {cuts[tau, i][0]} / {cuts[tau, i][1]} / {cuts[tau, i][2]}" for tau in LOD_TAUS))
+
+    # tau=0 is the leaf cut: against the leaf render of the scene
+    worst = float("inf")
+    with torch.no_grad():
+        r.render(cams[0], 0.0)  # the budgets of tau 0
+        leaf_cfg = RasterConfig(tile=32, depth_sort_bits=-1, max_instances=r._max_inst)
+        for i, cam in enumerate(cams):
+            leaf = render(*scene, cam, config=leaf_cfg)
+            check(int(leaf["overflow"]) == 0, f"leaf render view {i} overflows")
+            p = float(psnr(torch.clamp(frames[0.0, i]["render"], 0, 1), torch.clamp(leaf["render"], 0, 1)))
+            worst = min(worst, p)
+    check(worst >= LOD_MIN_PSNR, f"hierarchy: the tau=0 frame is {worst:.2f} dB from the leaf render (< {LOD_MIN_PSNR})")
+    print(f"[hier] tau=0 frames against the leaf render of the same scene: PSNR >= {worst:.4f} dB (bar {LOD_MIN_PSNR})")
+
+    # the forward kernel on the tau=6 frame's own rows and binning, and a repeat
+    kept = {}
+    with torch.no_grad(), kept_blend(kept):
+        a = r.render(cams[0], LOD_HOLD_TAU)
+        b = r.render(cams[0], LOD_HOLD_TAU)
+    for key, val in a.items():
+        check(torch.equal(val, b[key]), f"two tau={LOD_HOLD_TAU:g} frames differ in {key}")
+    pre, tb, ty, tx, tile, max_blocks, bf16 = kept["args"]
+    check(not bf16, "hierarchy: the frame blended the bf16 stream")
+    p = blend_plain.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
+    err = 0.0
+    for key in PLANE_KEYS:
+        assert_close(kept["planes"][key], p[key], f"hierarchy tau={LOD_HOLD_TAU:g} frame {key}")
+        err = max(err, max_abs_err(kept["planes"][key], p[key]))
+    n_rows = pre.mean2d.shape[0]
+    n_diff = int((kept["planes"]["out_observe"] != p["out_observe"]).sum())
+    check(n_diff <= n_rows // 1000, f"hierarchy: out_observe differs on {n_diff} of {n_rows} rows (> 0.1%)")
+    print(f"[hier] tau={LOD_HOLD_TAU:g} frame, view 0 ({n_rows} interpolated rows, {int(tb.num_instances)} instances): "
+          f"forward kernel vs plain blend: max abs err {err:.3e} (atol 3e-4 / rtol 1e-3 holds), out_observe differs "
+          f"on {n_diff} of {n_rows} rows; two frames bitwise equal")
+    del kept, pre, tb, p, a, b
+
+    # ms per LOD frame and its four stages, view 0
+    times = {}
+    for tau in LOD_TAUS:
+        with torch.no_grad():
+            frame_ms = time_ms(lambda: r.render(cams[0], tau))
+            parts = {name: time_ms(fn) for name, fn in lod_stages(r, cams[0], tau).items()}
+        times[tau] = dict(frame_ms=frame_ms, **parts)
+        print(f"[hier-times] tau {tau:g}: ms per LOD frame {frame_ms:.3f} (CUDA events, median of {ITERS}); stages "
+              f"alone: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + f" ms; cut {cuts[tau, 0][0]}, budget {cuts[tau, 0][1]}, instances {cuts[tau, 0][2]}")
+    return dict(launches=launches, err=err, times=times, cuts=cuts)
+
+
+def serve_hierarchy(src, hier_path, dev):
+    """`render_cli --hierarchy <file> --tau SERVE_TAU` on the serve phase's
+    COLMAP scene: launches and ms per view."""
+    from hidegs_tpu_torch import render_cli
+    from hidegs_tpu_torch.utils import png
+
+    out = src.parent / "render_cli_hier"
+    calls = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with frame_calls(calls):
+        render_cli.main(["--source_path", str(src), "--hierarchy", str(hier_path), "--tau", str(SERVE_TAU),
+                         "--resolution", "1", "--output_path", str(out), "--device", str(dev)])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    pngs = sorted(out.glob("*.png"))
+    check(len(pngs) >= 1 and launches == {"blend_fwd": len(pngs), "blend_bwd": 0, "fold_rows": 0}
+          and len(calls) == len(pngs), f"render_cli --hierarchy: {len(pngs)} PNGs, launches {launches}, {len(calls)} "
+                                       f"cut-and-render calls, expected one of each per PNG")
+    img = png.read_image(str(pngs[0]))
+    check(img.shape == (FULL_H, FULL_W, 3) and img.std() > 1, "render_cli --hierarchy: a blank or misshapen view")
+    print(f"[serve] render_cli --hierarchy {hier_path.name} --tau {SERVE_TAU:g}: {len(pngs)} views in {wall:.2f} s "
+          f"({1e3 * wall / len(pngs):.1f} ms per view, the .hier read, the renderer's set-up and the PNG writes "
+          f"included); launches {launches}")
+    return launches
+
+
+BF16_IMAGE_TOL = 0.03  # tests/test_pallas.py's bf16 test: the image against float32
+BF16_GRAD_TOL = 5e-2  # and the gradients, of each array's max |grad|, with its loss mean(render²)
+# the cotangent planes of the geometric (depth-normal) terms: invdepth,
+# normal and distance (blend_plain.tiles_to_planes)
+GEO_PLANES = slice(3, 8)
+DISTANCE_PLANE = 7
+
+
+def render_grads(scene, cam, cfg):
+    """render() of `scene` (render_geo on) and the loss of the JAX package's
+    bf16 test, mean(render²), backpropagated to the means and opacities;
+    hooks on the blend node keep what its backward is given and returns,
+    and the blend_tiles call its arguments."""
+    from hidegs_tpu_torch.raster.api import render
+
+    leaves = [x.detach().clone().requires_grad_(i in (0, 3)) for i, x in enumerate(scene)]
+    kept, got = {}, {}
+    with kept_blend(kept):
+        out = render(*leaves, cam, render_geo=True, config=cfg)
+    handles = keep_backward_inputs(find_node(out["render"].grad_fn, "BlendPackedBackward"), got)
+    out["render"].square().mean().backward()
+    for h in handles:
+        h.remove()
+    check(bool(got), "the blend's backward did not run")
+    return dict(render=out["render"].detach(), overflow=int(out["overflow"]), kept=kept, node=got,
+                grads=(leaves[0].grad, leaves[3].grad))
+
+
+def hold_bf16_node(node, kept, what):
+    """A bf16 blend node of the real path (RasterConfig.bf16_stream) against
+    the plain bf16 versions on its own packed rows, binning and cotangents:
+    the rows it saved are bf16_rows of the float32 packed rows, its planes
+    and observe counts at phase 4's gates, its d_attrs with `hold_backward`;
+    and its planes and d_attrs bitwise what the launchers give."""
+    from hidegs_tpu_torch.raster import blend_plain, cuda_blend
+
+    pre, tb, ty, tx, tile, max_blocks, bf16 = kept["args"]
+    check(bf16 and node["args"][-1], f"{what}: bf16_stream=True did not reach the blend")
+    attrs = blend_plain.pack_gaussian_attrs(pre).detach()
+    rows, tile_out, count = node["attrs"], node["tile_out"], node["count"]
+    # compared as bits: columns 0:4 carry the float32 mean2d's bytes, which may read as bf16 NaNs
+    check(rows.dtype == torch.bfloat16
+          and torch.equal(rows.view(torch.int16), blend_plain.bf16_rows(attrs).view(torch.int16)),
+          f"{what}: the node's saved rows are not bf16_rows of the packed rows")
+    p_out, p_obs = blend_plain.blend_tile_out(blend_plain.unpack_attrs(attrs), tb, ty, tx, tile, max_blocks, bf16=True)
+    assert_close(tile_out, p_out, f"{what}: forward vs plain bf16")
+    fwd_err = max_abs_err(tile_out, p_out)
+    observe = kept["planes"]["out_observe"]
+    n_diff = int((observe != p_obs).sum())
+    check(n_diff <= attrs.shape[0] // 1000, f"{what}: out_observe differs on {n_diff} of {attrs.shape[0]} (> 0.1%)")
+    k_out, k_obs = cuda_blend.blend_tile_out(rows, tb, count, ty, tx, tile)
+    check(torch.equal(k_out, tile_out) and torch.equal(k_obs, observe),
+          f"{what}: the node's planes are not bitwise the launcher's")
+    h = hold_backward(attrs, tb, count, tile_out, node["g_tiles"], ty, tx, tile, max_blocks, f"{what}: backward",
+                      bf16=True)
+    check(torch.equal(node["d_attrs"], h["got"]), f"{what}: the node's d_attrs are not bitwise the launchers'")
+    print(f"[bf16] {what}: rows of {rows.shape[1] * 2} bytes (not 64); forward vs plain bf16 max abs err "
+          f"{fwd_err:.3e} (atol 3e-4 / rtol 1e-3 holds), out_observe differs on {n_diff} of {attrs.shape[0]}; "
+          f"backward + fold vs plain bf16: {hold_report(h)}; planes and d_attrs bitwise the launchers'")
+    return dict(h, pre=pre, tb=tb, ty=ty, tx=tx, tile=tile, max_blocks=max_blocks, rows=rows, fwd_err=fwd_err,
+                tile_out=tile_out, g_tiles=node["g_tiles"])
+
+
+def grad_departures(a16, a32):
+    """Per column, max |bf16 − float32| over the float32 column's max |grad|."""
+    return [float((a16[:, c] - a32[:, c]).abs().max()) / max(float(a32[:, c].abs().max()), 1e-30)
+            for c in range(a32.shape[1])]
+
+
+def phase_bf16(scene, cams, cfg, train):
+    """B3, the bf16 attribute stream of both blends, through the path a user
+    turns on: RasterConfig(bf16_stream=True) in render() on the render
+    cell's view 0 (JAX's test loss, rgb only) and in train_step's forward
+    and backward on the train cell's trained state (the full loss stack).
+    Each blend node is held against the plain bf16 versions and bitwise
+    against the launchers (`hold_bf16_node`). bf16 against float32 at the
+    JAX tolerances on the render cell: image within 0.03, the means' and
+    opacities' gradients within 5e-2 of their max. On the train cell the
+    packed gradients of both modes on the same cotangents, per column
+    within 5e-2 of the float32 column's max with the distance plane's
+    cotangent zeroed and with all geometric planes' zeroed; with the whole
+    cotangents printed, not gated (the distance plane's cotangent turns
+    the rounding of a splat's plane distance into gradient). Both modes
+    timed one launch at a time, in turns."""
+    import dataclasses
+
+    from hidegs_tpu_torch.raster import blend_plain, cuda_blend
+
+    # render(): forward and backward with bf16_stream=True, and float32
+    reset_counts()
+    r16 = render_grads(scene, cams[0], dataclasses.replace(cfg, bf16_stream=True))
+    launches = read_counts()
+    check(launches == {"blend_fwd": 1, "blend_bwd": 1, "fold_rows": 1},
+          f"bf16 render and backward launched {launches}, expected one of each kernel")
+    r32 = render_grads(scene, cams[0], cfg)
+    check(r16["overflow"] == 0 and r32["overflow"] == 0, "bf16 render: overflow")
+    a = hold_bf16_node(r16["node"], r16["kept"], "render(), bf16_stream=True, render cell view 0, loss mean(render²)")
+    img_err = max_abs_err(r16["render"], r32["render"])
+    grad_errs = {}
+    for name, g16, g32 in zip(("means3d", "opacities"), r16["grads"], r32["grads"]):
+        check(bool(torch.isfinite(g16).all()), f"bf16 render: non-finite {name} gradients")
+        grad_errs[name] = float((g16 - g32).abs().max()) / (float(g32.abs().max()) + 1e-8)
+    print(f"[bf16] render cell view 0, bf16 against float32 (JAX's tolerances): rgb max abs err {img_err:.4e} "
+          f"(tol {BF16_IMAGE_TOL}); gradients of mean(render²), max |bf16 − f32| over the float32 max |grad|: "
+          + ", ".join(f"{k} {v:.4e}" for k, v in grad_errs.items()) + f" (tol {BF16_GRAD_TOL})")
+    check(img_err < BF16_IMAGE_TOL, f"bf16 render: the image is {img_err:.4f} from float32's (tol {BF16_IMAGE_TOL})")
+    for name, e in grad_errs.items():
+        check(e <= BF16_GRAD_TOL, f"bf16 render: {name} gradients {e:.4e} of the max from float32's "
+                                  f"(tol {BF16_GRAD_TOL})")
+    del r16, r32
+
+    # train_step with bf16_stream=True on the train cell's trained state
+    ts, tcfg, batch = train["ts"], train["tcfg"], train["batches"][0]
+    kept = {}
+    with kept_blend(kept):
+        node = blend_backward_inputs(
+            ts, batch, dataclasses.replace(tcfg, raster=dataclasses.replace(tcfg.raster, bf16_stream=True)))
+    b = hold_bf16_node(node, kept, "train_step, bf16_stream=True, train cell view 0, full loss stack")
+    battrs, btb, bcount, btx, tile = b["attrs"], b["tb"], b["count"], b["tx"], b["tile"]
+    t32, _ = cuda_blend.blend_tile_out(battrs, btb, bcount, b["ty"], btx, tile)
+    g_tiles = b["g_tiles"]
+    variants = {"full": g_tiles}
+    for name, planes in (("distance zeroed", DISTANCE_PLANE), ("geometric planes zeroed", GEO_PLANES)):
+        g = g_tiles.clone()
+        g[..., planes] = 0.0
+        variants[name] = g
+    deps = {}
+    for name, g in variants.items():
+        g16 = cuda_blend.grad_attrs(b["rows"], btb, bcount, blend_plain.augment_cotangents(b["tile_out"], g), btx, tile)
+        g32 = cuda_blend.grad_attrs(battrs, btb, bcount, blend_plain.augment_cotangents(t32, g), btx, tile)
+        deps[name] = grad_departures(g16, g32)
+        print(f"[bf16] train cell, bf16 against float32 packed gradients on the same cotangents ({name}), per "
+              "column max |bf16 − f32| over the float32 column's max: "
+              + ", ".join(f"c{c} {d:.3e}" for c, d in enumerate(deps[name])))
+        if name == "full":  # printed: the distance plane's cotangent turns its rounding into gradient
+            bf16_departures(battrs, btb, g16, g32, g_tiles)
+        else:
+            check(max(deps[name]) <= BF16_GRAD_TOL, f"bf16 train cell ({name}): a packed gradient column departs "
+                                                    f"{max(deps[name]):.4e} of its max from float32's "
+                                                    f"(tol {BF16_GRAD_TOL})")
+
+    # times, both modes in turns (f32, bf16, bf16, f32), one launch at a time
+    with torch.no_grad():
+        pre, tb, tx, ftile = a["pre"], a["tb"], a["tx"], a["tile"]
+        attrs, rows, count = a["attrs"], a["rows"], a["count"]
+        I, P, T = tb.gauss_id.shape[0], ftile * ftile, a["ty"] * tx
+        out = torch.empty((T, P, cuda_blend.OUT_CH), device=attrs.device)
+        obs = torch.zeros((I,), dtype=torch.int32, device=attrs.device)
+
+        def fwd(r):
+            def launch():
+                obs.zero_()
+                cuda_blend.launch_blend_fwd(r, tb.gauss_id, tb.tile_start, count, tx, ftile, out, obs)
+            return launch
+
+        turns = [time_ms(fwd(x)) for x in (attrs, rows, rows, attrs)]
+        view = blend_plain.unpack_attrs(attrs)
+        plain16_ms = time_ms(lambda: blend_plain.blend_tile_out(view, tb, a["ty"], tx, ftile, a["max_blocks"],
+                                                                bf16=True))
+        post_cull = int(count.sum())
+        unique_rows = int(torch.unique(tb.gauss_id[:post_cull]).numel())
+        bytes16 = post_cull * 4 + 2 * T * 4 + unique_rows * 32 + T * P * 64 + post_cull * 4
+        counts = blend_plain.pair_counts(pre, tb, tx, ftile, a["max_blocks"], bf16=True)
+        bound = blend_bound(bytes16, counts, ftile, OPS_PER_LIVE_PAIR, OPS_PER_KEPT_PAIR, SFU_PER_KEPT_PAIR)
+        ms16 = statistics.median(turns[1:3])
+        print(f"[bf16-times] forward kernel, render cell view 0, in turns (f32, bf16, bf16, f32), one launch at a "
+              f"time: {', '.join(f'{t:.4f}' for t in turns)} ms; plain bf16 {plain16_ms:.3f} ms; bf16 "
+              f"{bound['text']}; bf16 kernel at {bound['bound_ms'] / ms16:.1%} of its bound")
+        fwd16 = dict(ms=ms16, f32_ms_in_turns=statistics.median([turns[0], turns[3]]), plain_ms=plain16_ms,
+                     bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], max_abs_err=a["fwd_err"],
+                     image_err=img_err)
+        del out, obs
+
+        brows_out = torch.zeros((btb.gauss_id.shape[0], cuda_blend.ATTR), device=battrs.device)
+        slot_s = btb.slot_s.contiguous()
+        g_aug32 = blend_plain.augment_cotangents(t32, g_tiles)
+
+        def bwd(r, g):
+            def launch():
+                brows_out.zero_()
+                cuda_blend.launch_blend_bwd(r, btb.gauss_id, btb.tile_start, bcount, btx, tile, slot_s, g, brows_out)
+            return launch
+
+        bturns = [time_ms(bwd(*x)) for x in ((battrs, g_aug32), (b["rows"], b["g_aug"]), (b["rows"], b["g_aug"]),
+                                               (battrs, g_aug32))]
+        bview = blend_plain.unpack_attrs(battrs)
+        bplain_ms = time_ms(lambda: blend_plain.blend_tiles_bwd(bview, btb, b["g_aug"], b["ty"], btx, tile,
+                                                                b["max_blocks"], bf16=True))
+        bpost = int(bcount.sum())
+        bunique = int(torch.unique(btb.gauss_id[:bpost]).numel())
+        bI, bT = btb.gauss_id.shape[0], b["ty"] * btx
+        bbytes = bpost * 4 + 2 * bT * 4 + bunique * 32 + bT * tile * tile * 48 + bI * 4 + bI * 64
+        bcounts = blend_plain.pair_counts(bview, btb, btx, tile, b["max_blocks"], bf16=True)
+        bbound = blend_bound(bbytes, bcounts, tile, BWD_OPS_PER_LIVE_PAIR, BWD_OPS_PER_KEPT_PAIR,
+                             BWD_SFU_PER_KEPT_PAIR)
+        bms16 = statistics.median(bturns[1:3])
+        print(f"[bf16-times] backward kernel, train cell view 0, in turns (f32, bf16, bf16, f32), one launch at a "
+              f"time: {', '.join(f'{t:.4f}' for t in bturns)} ms; plain bf16 {bplain_ms:.3f} ms; bf16 "
+              f"{bbound['text']}; bf16 kernel at {bbound['bound_ms'] / bms16:.1%} of its bound")
+    bwd16 = dict(ms=bms16, f32_ms_in_turns=statistics.median([bturns[0], bturns[3]]), plain_ms=bplain_ms,
+                 bound_ms=bbound["bound_ms"], bound_by=bbound["bound_by"], max_abs_err=max(a["err"], b["err"]),
+                 grad_err_vs_f32=grad_errs, train_grad_err_vs_f32={k: max(v) for k, v in deps.items()})
+    return dict(fwd=fwd16, bwd=bwd16)
+
+
+def bf16_departures(attrs, tb, g16, g32, g_tiles, top=4):
+    """Where bf16 gradients depart from float32 ones: the gaussians whose
+    mean2d and conic gradients (columns 0-4) depart most, normalised by each
+    float32 column's max, with their conic's determinant before and after
+    bf16 rounding, and the count of touched gaussians whose rounded conic
+    is no longer positive definite; for the worst, both gradient rows and
+    the largest cotangent in its tiles against the largest anywhere."""
+    from hidegs_tpu_torch.raster import blend_plain
+
+    scale = g32[:, :5].abs().amax(dim=0).clamp(min=1e-30)
+    dep = ((g16[:, :5] - g32[:, :5]).abs() / scale).amax(dim=1)
+    con, conr = attrs[:, 2:5], blend_plain.round_bf16(attrs[:, 2:5])
+    det = con[:, 0] * con[:, 2] - con[:, 1] ** 2
+    detr = conr[:, 0] * conr[:, 2] - conr[:, 1] ** 2
+    touched = torch.diff(tb.g_start.long()) > 0
+    flips = int(((detr <= 0) & (det > 0) & touched).sum())
+    print(f"[bf16] {int(touched.sum())} gaussians have instances; {flips} of them have a conic that bf16 rounding "
+          f"leaves not positive definite (det <= 0); {int((dep > 5e-2).sum())} depart above 5e-2 of a column's max")
+    for g in torch.argsort(dep, descending=True)[:top].tolist():
+        print(f"[bf16]   gaussian {g}: departure {float(dep[g]):.3e}, conic {[round(x, 6) for x in con[g].tolist()]}, "
+              f"det {float(det[g]):.3e} -> {float(detr[g]):.3e} rounded, opacity {float(attrs[g, 5]):.4f}, "
+              f"instances {int(tb.g_start[g + 1] - tb.g_start[g])}, mean2d {[round(x, 1) for x in attrs[g, 0:2].tolist()]}")
+    worst = int(torch.argmax(dep))
+    tiles = tb.tile_id[tb.gauss_id == worst].long()
+    local = g_tiles[tiles].abs().amax(dim=(0, 1))[:10]
+    print(f"[bf16]   worst gaussian {worst}: float32 row {[f'{x:.3e}' for x in g32[worst, :6].tolist()]}, bf16 row "
+          f"{[f'{x:.3e}' for x in g16[worst, :6].tolist()]}; tiles {tiles.tolist()}; max |cotangent| per plane there "
+          f"{[f'{x:.2e}' for x in local.tolist()]} against anywhere "
+          f"{[f'{x:.2e}' for x in g_tiles.abs().amax(dim=(0, 1))[:10].tolist()]}")
+
+
+def phase_viewer(scene, cams, max_instances):
+    """Both viewers serve one full-width frame of the render scene over
+    localhost, through the render function `python -m
+    hidegs_tpu_torch.viewer` builds: HttpViewer on port 0 fetched with
+    urllib, NetworkGUI with a socket client speaking the SIBR protocol.
+    Each frame's pixels must equal render()'s image of the same camera,
+    clipped and quantised. Counts are read around the two frames."""
+    import socket
+    import struct
+    import threading
+    import urllib.request
+
+    from hidegs_tpu_torch.core.camera_math import focal_to_fov
+    from hidegs_tpu_torch.raster.api import RasterConfig, render
+    from hidegs_tpu_torch.utils import png
+    from hidegs_tpu_torch.viewer import __main__ as viewer_main
+    from hidegs_tpu_torch.viewer.http_viewer import HttpViewer, orbit_camera
+    from hidegs_tpu_torch.viewer.network_gui import NetworkGUI, camera_from_message, image_bytes
+
+    dev = scene.means3d.device
+    cfg = RasterConfig(max_instances=max_instances)  # the viewer's defaults but --max_instances
+    render_fn = viewer_main.make_render_fn(scene, cfg)
+    xyz = scene.means3d.cpu().numpy()
+    center = np.median(xyz, axis=0)
+    view = (0.6, 1.2, 16.0)  # yaw, pitch, dist: the scene seen from above and aside
+    http = HttpViewer(render_fn, center=center, dist=view[2], host="127.0.0.1", port=0, width=FULL_W,
+                      height=FULL_H, info={"n_gaussians": int(xyz.shape[0])}, device=dev)
+    gui = NetworkGUI("127.0.0.1", 0, device=dev)
+    cam0 = cams[0]
+    R, t = cam0.R.cpu().numpy(), cam0.t.cpu().numpy()
+    Rt = np.eye(4, dtype=np.float32)
+    Rt[:3, :3], Rt[:3, 3] = R, t
+    wire = Rt.T.copy()
+    wire[:, 1] *= -1
+    wire[:, 2] *= -1
+    msg = {"resolution_x": FULL_W, "resolution_y": FULL_H, "train": False,
+           "fov_x": focal_to_fov(float(cam0.fx), FULL_W), "fov_y": focal_to_fov(float(cam0.fy), FULL_H),
+           "z_near": 0.01, "z_far": 100.0, "shs_python": False, "rot_scale_python": False, "keep_alive": True,
+           "scaling_modifier": 1.0, "view_matrix": [float(x) for x in wire.reshape(-1)],
+           "view_projection_matrix": [float(x) for x in wire.reshape(-1)]}
+    got = {}
+
+    def client():
+        with socket.create_connection(("127.0.0.1", gui.listener.getsockname()[1]), timeout=120) as sk:
+            payload = json.dumps(msg).encode()
+            sk.sendall(struct.pack("<I", len(payload)) + payload)
+            buf = b""
+            while len(buf) < FULL_W * FULL_H * 3 + 4:
+                chunk = sk.recv(1 << 20)
+                check(bool(chunk), "viewer: the GUI closed the socket early")
+                buf += chunk
+            got["gui"] = np.frombuffer(buf[:FULL_W * FULL_H * 3], np.uint8).reshape(FULL_H, FULL_W, 3)
+
+    http.serve_background()
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        url = (f"http://127.0.0.1:{http.port}/frame?yaw={view[0]}&pitch={view[1]}&dist={view[2]}"
+               f"&cx={center[0]:.2f}&cy={center[1]:.2f}&cz={center[2]:.2f}&w={FULL_W}&h={FULL_H}")
+        frame = urllib.request.urlopen(url, timeout=300).read()
+        http_s = time.perf_counter() - t0
+        th = threading.Thread(target=client)
+        th.start()
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 120
+        while gui.poll(render_fn, verify="smoke") is None:
+            check(time.monotonic() < deadline, "viewer: the GUI never served its client")
+            time.sleep(0.002)
+        th.join(timeout=120)
+        gui_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        http.shutdown()
+        gui.close()
+    check(launches == {"blend_fwd": 2, "blend_bwd": 0, "fold_rows": 0},
+          f"viewer path launches {launches}, expected one forward blend per served frame (2)")
+    arr = png.decode_png(frame)
+    hcam = orbit_camera(view[0], view[1], view[2], tuple(float(f"{c:.2f}") for c in center), FULL_H, FULL_W,
+                        device=dev)
+    with torch.no_grad():
+        want_http = image_bytes(torch.clamp(render(*scene, hcam, config=cfg)["render"], 0, 1))
+        want_gui = image_bytes(torch.clamp(render(*scene, camera_from_message(msg, dev), config=cfg)["render"], 0, 1))
+    check(arr.shape == (FULL_H, FULL_W, 3) and np.array_equal(arr, want_http),
+          "viewer: the HTTP frame is not render()'s image, clipped and quantised")
+    check(np.array_equal(got["gui"], want_gui), "viewer: the SIBR frame is not render()'s image, clipped and quantised")
+    check(arr.std() > 1 and got["gui"].std() > 1, "viewer: a blank frame")
+    print(f"[viewer] HttpViewer: one {FULL_W}x{FULL_H} frame over localhost in {1e3 * http_s:.1f} ms (render, "
+          f"PNG encode of {len(frame) / 2 ** 20:.2f} MiB, HTTP), pixels equal render()'s; NetworkGUI: one frame in "
+          f"{1e3 * gui_s:.1f} ms (accept, render, {FULL_W * FULL_H * 3 / 2 ** 20:.2f} MiB of RGB), pixels equal "
+          f"render()'s; launches {launches}")
+    return dict(launches=launches)
+
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1681,18 +2285,27 @@ def main() -> int:
     pre, tb, err = phase_hold_full_width(scene, cams, cfg, outs)
     times = phase_times(scene, cams[0], cfg, pre, tb)
     phase_breakdown(scene, cams[0], cfg, pre, tb)
-    del outs, pre, tb
-    serve = phase_serve(scene, cams, cfg)
+    del outs
+    hier, hier_path = build_scene_hierarchy(scene)
+    lod = phase_hierarchy(scene, cams, hier)
+    del hier
+    serve = phase_serve(scene, cams, cfg, hier_path)
+    shutil.rmtree(hier_path.parent, ignore_errors=True)
+    viewer = phase_viewer(scene, cams, serve["cli_budget"])
     train = phase_train(scene, cams, cfg)
     held = phase_hold_train(train)
     train_launches = train["launches"]
+    bf16 = phase_bf16(scene, cams, cfg, train)
+    del pre, tb
     ttimes = phase_train_times(train, held)
     trainer_run = phase_trainer(scene, cams, cfg)
     del train
     trainer_hold = phase_trainer_hold(trainer_run)
     launches = train_launches
     by_path = {name: {"render": render_launches[name], "serve": serve["launches"][name],
-                      "train": train_launches[name], "trainer": trainer_run["launches"][name]}
+                      "train": train_launches[name], "trainer": trainer_run["launches"][name],
+                      "hierarchy": lod["launches"][name] + serve["hier_launches"][name],
+                      "viewer": viewer["launches"][name]}
                for name in launches}
     kernels = [{
         "name": "blend_fwd",
@@ -1701,12 +2314,13 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_blend.py:326",
         "launches": launches["blend_fwd"],
         "launches_by_path": by_path["blend_fwd"],
-        "max_abs_err": max(err, trainer_hold["fwd_err"]),
+        "max_abs_err": max(err, trainer_hold["fwd_err"], lod["err"]),
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this blend
+        "bf16": bf16["fwd"],  # the bf16-stream mode on the same view
     }, {
         "name": "blend_bwd",
         "route": "cuda",
@@ -1720,6 +2334,7 @@ def main() -> int:
         "bound_ms": ttimes["bwd"]["bound_ms"],
         "bound_by": ttimes["bwd"]["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this backward
+        "bf16": bf16["bwd"],  # the bf16-stream mode on the same state
     }, {
         "name": "fold_rows",
         "route": "cuda",

@@ -54,6 +54,12 @@ class RasterConfig:
     # with 0 < max_visible < N, visible rows are packed into a
     # (max_visible,)-row buffer before binning; excess is `visible_overflow`
     max_visible: int = 0
+    # "blend" backend: blend the bf16 attribute stream (each instance's
+    # attributes rounded to bfloat16, mean2d re-based to its tile first;
+    # float32 arithmetic; raster/blend_plain.py). EXPERIMENTAL and off, as
+    # in the JAX package, whose "jnp" backend ignores it as "plain" and
+    # "oracle" do here.
+    bf16_stream: bool = False
 
     def __post_init__(self):
         if self.backend in _RENAMED:
@@ -136,8 +142,11 @@ def render(
         pre, tiles_y, tiles_x, config.max_instances, config.tile,
         depth_bits=config.depth_sort_bits,
     )
-    blend = blend_autograd.blend_tiles if config.backend == "blend" else blend_plain.blend_tiles
-    planes = blend(pre, tb, tiles_y, tiles_x, config.tile, config.max_blocks)
+    if config.backend == "blend":
+        planes = blend_autograd.blend_tiles(pre, tb, tiles_y, tiles_x, config.tile, config.max_blocks,
+                                            config.bf16_stream)
+    else:
+        planes = blend_plain.blend_tiles(pre, tb, tiles_y, tiles_x, config.tile, config.max_blocks)
     blocks_needed = blend_plain.needed_blocks(tb.tile_count)
     block_overflow = torch.zeros((), dtype=torch.int32, device=dev)
     if config.max_blocks:

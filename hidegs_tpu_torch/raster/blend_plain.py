@@ -23,6 +23,13 @@ instance, the gradient of the tile planes with respect to its packed row.
 Also here: the packed per-gaussian row and the 16-channel per-tile plane
 layout shared with the kernels, and the 128-instance block budget
 (`max_blocks`) of the JAX Pallas path.
+
+`bf16=True` is the bf16 attribute stream (RasterConfig.bf16_stream; JAX's
+pallas_blend.expand_to_instances(bf16=True)): each instance's attributes
+rounded to bfloat16, mean2d first re-based to the origin of the instance's
+tile, and the pixels placed at tile-local centres; the arithmetic stays
+float32, and the rounding's gradient is the identity. `bf16_rows` is the
+kernels' input in that mode, `instance_attrs` what they read from it.
 """
 from __future__ import annotations
 
@@ -138,7 +145,34 @@ class GroupAlpha(NamedTuple):
     T_incl: torch.Tensor
 
 
-def _group_alpha(pre, gid, tid, head, tiles_x: int, tile: int) -> GroupAlpha:
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even, as XLA's convert), back in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_attrs(pre) -> PackedGaussians:
+    """The blend's fields of `pre` as the bf16 stream carries them: every
+    channel but mean2d rounded to bfloat16 (mean2d is rounded per instance,
+    after `_instance_mean` re-bases it to its tile)."""
+    return PackedGaussians(pre.mean2d, round_bf16(pre.conic), round_bf16(pre.opacity), round_bf16(pre.rgb),
+                           round_bf16(pre.inv_depth), round_bf16(pre.normal), round_bf16(pre.distance))
+
+
+def _instance_mean(pre, gid, tid, tiles_x: int, tile: int, rel: bool):
+    """Each instance's mean2d and the pixel origin of its tile, (n, 2) and
+    (n,), (n,). With `rel` (the bf16 stream) the mean is re-based to the
+    tile origin and rounded to bfloat16, and the origin is 0: the pixels sit
+    at tile-local centres."""
+    ox = ((tid % tiles_x) * tile).to(torch.float32)
+    oy = (torch.div(tid, tiles_x, rounding_mode="floor") * tile).to(torch.float32)
+    mean2d = pre.mean2d[gid]
+    if rel:
+        mean2d = round_bf16(mean2d - torch.stack([ox, oy], dim=1))
+        ox = oy = torch.zeros_like(ox)
+    return mean2d, ox, oy
+
+
+def _group_alpha(pre, gid, tid, head, tiles_x: int, tile: int, rel: bool = False) -> GroupAlpha:
     """α of each instance at each pixel of its tile, its keep mask,
     log(1-α) in float64, and the transmittance before and after it."""
     P = tile * tile
@@ -146,12 +180,10 @@ def _group_alpha(pre, gid, tid, head, tiles_x: int, tile: int) -> GroupAlpha:
     lin = torch.arange(P, device=dev)
     lx = (lin % tile).to(torch.float32) + 0.5
     ly = torch.div(lin, tile, rounding_mode="floor").to(torch.float32) + 0.5
-    ox = ((tid % tiles_x) * tile).to(torch.float32)
-    oy = (torch.div(tid, tiles_x, rounding_mode="floor") * tile).to(torch.float32)
+    mean2d, ox, oy = _instance_mean(pre, gid, tid, tiles_x, tile, rel)
     px = lx[None, :] + ox[:, None]
     py = ly[None, :] + oy[:, None]
 
-    mean2d = pre.mean2d[gid]
     conic = pre.conic[gid]
     opacity = pre.opacity[gid]
     dx = px - mean2d[:, 0:1]
@@ -175,12 +207,12 @@ def _group_alpha(pre, gid, tid, head, tiles_x: int, tile: int) -> GroupAlpha:
     return GroupAlpha(dx, dy, power, alpha_raw, alpha, keep, lt64, T_excl, T_incl)
 
 
-def _blend_group(pre, gid, tid, head, tiles_x: int, tile: int, n_tiles: int, t0: int):
+def _blend_group(pre, gid, tid, head, tiles_x: int, tile: int, n_tiles: int, t0: int, rel: bool = False):
     """Blend one group's instances. Returns ((n_tiles, P, OUT_CH) planes,
     (n,) int32 observe counts)."""
     dev = gid.device
     P = tile * tile
-    ga = _group_alpha(pre, gid, tid, head, tiles_x, tile)
+    ga = _group_alpha(pre, gid, tid, head, tiles_x, tile, rel)
     alpha, lt64, T_excl = ga.alpha, ga.lt64, ga.T_excl
     w = T_excl * alpha * (ga.T_incl >= T_EPS)
 
@@ -212,11 +244,14 @@ def blend_tile_out(
     tiles_x: int,
     tile: int = TILE,
     max_blocks: int = 0,
+    bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (T, P, OUT_CH) tile planes, with empty and unvisited tiles at
     the background defaults, and the (N,) int32 per-gaussian observe
     counts. `pre` is a PreprocessedGaussians or the `unpack_attrs` view of
-    a packed matrix."""
+    a packed matrix; `bf16` blends the bf16 stream."""
+    if bf16:
+        pre = bf16_attrs(pre)
     N = pre.mean2d.shape[0]
     T = tiles_y * tiles_x
     P = tile * tile
@@ -225,7 +260,7 @@ def blend_tile_out(
     tile_out = torch.zeros((T, P, OUT_CH), dtype=torch.float32, device=dev)
     observe = torch.zeros((N,), dtype=torch.int32, device=dev)
     for t0, t1, gid, tid, head, _ in _tile_groups(binning, count):
-        out, obs = _blend_group(pre, gid, tid, head, tiles_x, tile, t1 - t0, t0)
+        out, obs = _blend_group(pre, gid, tid, head, tiles_x, tile, t1 - t0, t0, bf16)
         tile_out[t0:t1] = out
         observe.index_add_(0, gid, obs)
     return finalize_tile_planes(tile_out, count, visited), observe
@@ -238,14 +273,15 @@ def blend_tiles(
     tiles_x: int,
     tile: int = TILE,
     max_blocks: int = 0,
+    bf16: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Blend all channels. Returns the planes of `tiles_to_planes` on the
     padded canvas (callers crop to (H, W)) and the (N,) int32 `out_observe`.
 
     `max_blocks` > 0 leaves tiles past the 128-instance block budget at the
-    background defaults.
+    background defaults; `bf16` blends the bf16 stream.
     """
-    tile_out, observe = blend_tile_out(pre, binning, tiles_y, tiles_x, tile, max_blocks)
+    tile_out, observe = blend_tile_out(pre, binning, tiles_y, tiles_x, tile, max_blocks, bf16)
     planes = tiles_to_planes(tile_out, tiles_y, tiles_x, tile)
     planes["out_observe"] = observe
     return planes
@@ -280,6 +316,31 @@ def unpack_attrs(attrs: torch.Tensor) -> PackedGaussians:
                            attrs[:, 9], attrs[:, 10:13], attrs[:, 13])
 
 
+def bf16_rows(attrs: torch.Tensor) -> torch.Tensor:
+    """(N, ATTR) float32 packed rows → the kernels' (N, 16) bfloat16 rows of
+    the bf16 stream (csrc/blend_common.cuh): columns 0:4 hold the float32
+    mean2d's bytes, columns 4:16 the other 12 channels rounded to bfloat16."""
+    mean = attrs[:, 0:2].contiguous().view(torch.bfloat16)
+    return torch.cat([mean, attrs[:, 2:GRAD_COLS].to(torch.bfloat16)], dim=1).contiguous()
+
+
+def instance_attrs(rows: torch.Tensor, binning: TileBinning, tiles_x: int, tile: int) -> torch.Tensor:
+    """What the kernels read for each sorted instance from `bf16_rows`:
+    (I, ATTR) float32 in the packed layout, mean2d re-based to the
+    instance's tile and rounded to bfloat16, every other channel widened
+    (csrc/blend_common.cuh: load_row). Instances past the total (gauss_id N)
+    read a zero row in the last tile, as JAX's stream does."""
+    ext = torch.cat([rows, torch.zeros((1, rows.shape[1]), dtype=rows.dtype, device=rows.device)])
+    g = binning.gauss_id.long()
+    mean = ext[:, 0:4].contiguous().view(torch.float32)[g]
+    tid = binning.tile_id.clamp(max=binning.tile_start.shape[0] - 1)
+    ox = ((tid % tiles_x) * tile).to(torch.float32)
+    oy = (torch.div(tid, tiles_x, rounding_mode="floor") * tile).to(torch.float32)
+    rel = round_bf16(mean - torch.stack([ox, oy], dim=1))
+    pad = torch.zeros((g.shape[0], ATTR - GRAD_COLS), dtype=torch.float32, device=rows.device)
+    return torch.cat([rel, ext[g, 4:].to(torch.float32), pad], dim=1)
+
+
 def augment_cotangents(tile_out: torch.Tensor, g_tiles: torch.Tensor) -> torch.Tensor:
     """(T, P, OUT_CH) cotangents of the tile planes → the backward's input:
     ch10 = G_total = Σ_ch out·g over every channel but T_final (ch9), ch11 =
@@ -299,9 +360,11 @@ def blend_tiles_bwd(
     tiles_x: int,
     tile: int = TILE,
     max_blocks: int = 0,
+    bf16: bool = False,
 ) -> torch.Tensor:
     """Gradient rows of the blend, one per sorted instance: (I, ATTR) in the
-    packed layout, zero for instances outside the visited spans.
+    packed layout, zero for instances outside the visited spans; `bf16`
+    differentiates the blend of the bf16 stream.
 
     The closed form of hidegs_tpu/raster/pallas_vjp.py:9-20 and :102-171,
     front to back, with `g_aug` from `augment_cotangents`:
@@ -316,12 +379,14 @@ def blend_tiles_bwd(
     in the forward kernel. The `[T_incl ≥ 1e-4]` factor is the derivative of
     w; the Pallas kernel leaves it out (ROADMAP C3). Prefix sums run in
     float64 per tile group, as the forward's transmittance does."""
+    if bf16:
+        pre = bf16_attrs(pre)
     I = binning.gauss_id.shape[0]
     dev = g_aug.device
     rows = torch.zeros((I, ATTR), dtype=torch.float32, device=dev)
     _, count = visited_and_count(binning, max_blocks)
     for _, _, gid, tid, head, s0 in _tile_groups(binning, count):
-        ga = _group_alpha(pre, gid, tid, head, tiles_x, tile)
+        ga = _group_alpha(pre, gid, tid, head, tiles_x, tile, bf16)
         mask = (ga.T_incl >= T_EPS).to(torch.float32)
         w = ga.T_excl * ga.alpha * mask
         g = [g_aug[:, :, c][tid] for c in range(12)]
@@ -381,19 +446,22 @@ def pair_counts(
     tiles_x: int,
     tile: int = TILE,
     max_blocks: int = 0,
+    bf16: bool = False,
 ) -> Tuple[int, int, int]:
     """The (pixel, instance) pairs of a blend of this binning, for a
     kernel's lower bound: `live` pairs (instances reached before their
     tile went opaque, times the tile's pixels); of those, `kept` pairs
     with α ≥ 1/255; and of those, the `open` pairs whose pixel still had
     T ≥ 1e-4 before the instance, the pairs whose α a blend must use."""
+    if bf16:
+        pre = bf16_attrs(pre)
     dev = pre.mean2d.device
     live = torch.zeros((), dtype=torch.int64, device=dev)
     kept = torch.zeros((), dtype=torch.int64, device=dev)
     open_ = torch.zeros((), dtype=torch.int64, device=dev)
     _, count = visited_and_count(binning, max_blocks)
     for _, _, gid, tid, head, _ in _tile_groups(binning, count):
-        ga = _group_alpha(pre, gid, tid, head, tiles_x, tile)
+        ga = _group_alpha(pre, gid, tid, head, tiles_x, tile, bf16)
         reached = torch.any(ga.T_excl >= T_EPS, dim=1)
         live += reached.sum() * (tile * tile)
         kept += (ga.keep & reached[:, None]).sum()
@@ -426,16 +494,16 @@ def block_origins(tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.div(w, 2, rounding_mode="floor") * 8 + torch.div(k, 2, rounding_mode="floor") * 4)
 
 
-def block_keep(pre, gid, tid, tiles_x: int, tile: int) -> torch.Tensor:
+def block_keep(pre, gid, tid, tiles_x: int, tile: int, rel: bool = False) -> torch.Tensor:
     """(n, blocks) bool: the mask predicate for instances (gid, tid), op for
-    op as the kernels compute it in float32."""
+    op as the kernels compute it in float32 (`rel`: of the bf16 stream,
+    with `pre` from bf16_attrs)."""
     dev = gid.device
     x0, y0 = (o.to(dev) for o in block_origins(tile))
-    ox = ((tid % tiles_x) * tile)[:, None]
-    oy = (torch.div(tid, tiles_x, rounding_mode="floor") * tile)[:, None]
-    px_lo = ((x0[None, :] + ox).to(torch.float32) + 0.5)
-    py_lo = ((y0[None, :] + oy).to(torch.float32) + 0.5)
-    u, v = pre.mean2d[gid, 0:1], pre.mean2d[gid, 1:2]
+    mean2d, ox, oy = _instance_mean(pre, gid, tid, tiles_x, tile, rel)
+    px_lo = (x0[None, :].to(torch.float32) + 0.5) + ox[:, None]
+    py_lo = (y0[None, :].to(torch.float32) + 0.5) + oy[:, None]
+    u, v = mean2d[:, 0:1], mean2d[:, 1:2]
     ca, cb, cc = pre.conic[gid, 0:1], pre.conic[gid, 1:2], pre.conic[gid, 2:3]
     lo_x, hi_x = px_lo - u, (px_lo + (BLOCK_W - 1)) - u
     lo_y, hi_y = py_lo - v, (py_lo + (BLOCK_H - 1)) - v
@@ -459,29 +527,35 @@ def block_keep(pre, gid, tid, tiles_x: int, tile: int) -> torch.Tensor:
     return ~(q_min > budget)  # NaN keeps the block
 
 
-def block_masks(pre, binning: TileBinning, tiles_x: int, tile: int, count: torch.Tensor) -> torch.Tensor:
+def block_masks(pre, binning: TileBinning, tiles_x: int, tile: int, count: torch.Tensor,
+                bf16: bool = False) -> torch.Tensor:
     """(I,) int64 per sorted instance: bit b set iff the instance's α ≥
     1/255 level set can reach 8x4 block b of its tile (`block_origins`);
     0 outside the visited spans. `count` is `cuda_blend.visited_count`.
     For tests and counting: the kernels compute the same masks themselves."""
+    if bf16:
+        pre = bf16_attrs(pre)
     masks = torch.zeros((binning.gauss_id.shape[0],), dtype=torch.int64, device=binning.gauss_id.device)
     for _, _, gid, tid, _, s0 in _tile_groups(binning, count):
-        keep = block_keep(pre, gid, tid, tiles_x, tile).to(torch.int64)
+        keep = block_keep(pre, gid, tid, tiles_x, tile, bf16).to(torch.int64)
         bits = torch.ones((keep.shape[1],), dtype=torch.int64, device=keep.device) << torch.arange(
             keep.shape[1], device=keep.device)
         masks[s0:s0 + gid.shape[0]] = (keep * bits).sum(dim=1)
     return masks
 
 
-def block_pair_counts(pre, binning: TileBinning, tiles_x: int, tile: int, count: torch.Tensor) -> int:
+def block_pair_counts(pre, binning: TileBinning, tiles_x: int, tile: int, count: torch.Tensor,
+                      bf16: bool = False) -> int:
     """The (pixel, instance) pairs the kernels evaluate: for every instance
     reached before its tile went opaque (as in `pair_counts`), the pixels of
     the blocks its mask keeps. Warps whose pixels are all done skip further
     instances, so the kernels evaluate at most this many."""
+    if bf16:
+        pre = bf16_attrs(pre)
     total = 0
     for _, _, gid, tid, head, _ in _tile_groups(binning, count):
-        ga = _group_alpha(pre, gid, tid, head, tiles_x, tile)
+        ga = _group_alpha(pre, gid, tid, head, tiles_x, tile, bf16)
         reached = torch.any(ga.T_excl >= T_EPS, dim=1)
-        keep = block_keep(pre, gid, tid, tiles_x, tile)
+        keep = block_keep(pre, gid, tid, tiles_x, tile, bf16)
         total += int((keep & reached[:, None]).sum()) * BLOCK_W * BLOCK_H
     return total

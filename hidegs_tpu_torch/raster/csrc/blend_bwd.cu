@@ -69,6 +69,12 @@
 // per instance and touched warp. Bytes (a 64-byte row per instance in and
 // out, 64 bytes of cotangents per pixel) are small beside that.
 //
+// bf16 mode (BF16 = true, `hidegs_blend_bwd_bf16`): the rows are the
+// 32-byte bf16 rows of blend_common.cuh, widened and re-based to the tile by
+// load_row, with tile-local pixel centres, as in blend_fwd.cu. The gradient
+// rows stay float32 in the float32 layout (the rounding's gradient is the
+// identity, as in JAX), so the fold is the same either way.
+//
 // Built with -fmad=false and without --use_fast_math, like blend_fwd.cu, so
 // α, T and the cutoffs are bitwise the forward kernel's. Rounding of the
 // gradient terms: dα = T_excl·m·chg − S/(1−α) cancels, often by orders of
@@ -124,9 +130,9 @@ constexpr size_t bwd_smem_bytes() {
          sizeof(float) * kBatch * kWarps * kGrad + sizeof(unsigned) * kBatch + sizeof(int) * kBatch;
 }
 
-template <int TILE>
+template <int TILE, bool BF16>
 __global__ void __launch_bounds__(kThreads, 3)
-blend_bwd_kernel(const float4* __restrict__ gattr,
+blend_bwd_kernel(const void* __restrict__ gattr,
                  const int* __restrict__ gauss_id,
                  const int* __restrict__ tile_start,
                  const int* __restrict__ tile_count,
@@ -154,14 +160,16 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
   const int warp = tid >> 5;
   const int ox = (t % tiles_x) * TILE;
   const int oy = (t / tiles_x) * TILE;
+  const int pox = BF16 ? 0 : ox;  // pixel origin, as in blend_fwd.cu
+  const int poy = BF16 ? 0 : oy;
   const int slot = lane >> 1;  // the slot this lane holds after the reduction
   const bool writes_slot = !(lane & 1) && slot < kGrad;
 
   // this lane's pixel in the warp's first block, as in blend_fwd.cu
   const int x0 = L::block_x0(warp * PPT) + (lane & (kBlockW - 1));
   const int y0 = L::block_y0(warp * PPT) + lane / kBlockW;
-  const float px0 = pixel_centre(x0, ox);
-  const float py0 = pixel_centre(y0, oy);
+  const float px0 = pixel_centre(x0, pox);
+  const float py0 = pixel_centre(y0, poy);
   float T[PPT];
   double S[PPT], prefix[PPT];
 #pragma unroll
@@ -182,13 +190,14 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
     const int n = min(kBatch, count - b0);
     __syncthreads();  // the previous batch is fully consumed
     if (tid < n) {
-      const float4* row = gattr + 4 * (size_t)gauss_id[start + b0 + tid];
+      float4 row[4];
+      load_row<BF16>(gattr, gauss_id[start + b0 + tid], ox, oy, row);
 #pragma unroll
       for (int q = 0; q < 4; ++q) s_attr[tid][q] = row[q];
       s_slot[tid] = slot_s[start + b0 + tid];
     }
     __syncthreads();
-    stage_masks<TILE>(s_attr, s_mask, n, ox, oy);
+    stage_masks<TILE>(s_attr, s_mask, n, pox, poy);
     __syncthreads();
 
     for (int j = 0; j < n; ++j) {
@@ -273,15 +282,32 @@ blend_bwd_kernel(const float4* __restrict__ gattr,
   }
 }
 
-template <int TILE>
-int launch_bwd(const float4* a, const int* gid, const int* ts, const int* tc, int num_tiles,
+template <int TILE, bool BF16>
+int launch_bwd(const void* a, const int* gid, const int* ts, const int* tc, int num_tiles,
                int tiles_x, const int* slot, const float4* g, float* r, cudaStream_t s) {
   constexpr size_t bytes = bwd_smem_bytes<TILE>();
-  cudaError_t err = cudaFuncSetAttribute(blend_bwd_kernel<TILE>,
+  cudaError_t err = cudaFuncSetAttribute(blend_bwd_kernel<TILE, BF16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  blend_bwd_kernel<TILE><<<num_tiles, kThreads, bytes, s>>>(a, gid, ts, tc, tiles_x, slot, g, r);
+  blend_bwd_kernel<TILE, BF16><<<num_tiles, kThreads, bytes, s>>>(a, gid, ts, tc, tiles_x, slot, g, r);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BF16>
+int launch_bwd_tile(const void* gattr, const void* gauss_id, const void* tile_start,
+                    const void* tile_count, int num_tiles, int tiles_x, int tile, const void* slot_s,
+                    const void* g_aug, void* rows, void* stream) {
+  if (num_tiles <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* gid = static_cast<const int*>(gauss_id);
+  const int* ts = static_cast<const int*>(tile_start);
+  const int* tc = static_cast<const int*>(tile_count);
+  const int* slot = static_cast<const int*>(slot_s);
+  const float4* g = static_cast<const float4*>(g_aug);
+  float* r = static_cast<float*>(rows);
+  if (tile == 16) return launch_bwd<16, BF16>(gattr, gid, ts, tc, num_tiles, tiles_x, slot, g, r, s);
+  if (tile == 32) return launch_bwd<32, BF16>(gattr, gid, ts, tc, num_tiles, tiles_x, slot, g, r, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 constexpr int kFoldLanes = 4;  // lanes per gaussian, one float4 of its row each
@@ -332,7 +358,9 @@ fold_rows_kernel(const float4* __restrict__ rows_exp,
 // C entry points, loaded with ctypes. Both launch on `stream` and return
 // cudaGetLastError() (0 on success).
 //
-// hidegs_blend_bwd — gattr: (N, 16) float32 packed rows; gauss_id: (I,)
+// hidegs_blend_bwd — gattr: (N, 16) float32 packed rows (or, for
+// hidegs_blend_bwd_bf16, the (N, 8) 32-bit words of bf16 rows of
+// blend_common.cuh; the arguments are otherwise the same); gauss_id: (I,)
 // int32 sorted instance → gaussian; tile_start, tile_count: (num_tiles,)
 // int32 spans (count 0 for tiles not blended); slot_s: (I,) int32 sorted
 // instance → expansion slot, a permutation of [0, I); g_aug: (num_tiles,
@@ -343,18 +371,16 @@ extern "C" int hidegs_blend_bwd(const void* gattr, const void* gauss_id,
                                 const void* tile_start, const void* tile_count,
                                 int num_tiles, int tiles_x, int tile,
                                 const void* slot_s, const void* g_aug, void* rows, void* stream) {
-  if (num_tiles <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* a = static_cast<const float4*>(gattr);
-  const int* gid = static_cast<const int*>(gauss_id);
-  const int* ts = static_cast<const int*>(tile_start);
-  const int* tc = static_cast<const int*>(tile_count);
-  const int* slot = static_cast<const int*>(slot_s);
-  const float4* g = static_cast<const float4*>(g_aug);
-  float* r = static_cast<float*>(rows);
-  if (tile == 16) return launch_bwd<16>(a, gid, ts, tc, num_tiles, tiles_x, slot, g, r, s);
-  if (tile == 32) return launch_bwd<32>(a, gid, ts, tc, num_tiles, tiles_x, slot, g, r, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd_tile<false>(gattr, gauss_id, tile_start, tile_count, num_tiles, tiles_x, tile,
+                                slot_s, g_aug, rows, stream);
+}
+
+extern "C" int hidegs_blend_bwd_bf16(const void* gattr, const void* gauss_id,
+                                     const void* tile_start, const void* tile_count,
+                                     int num_tiles, int tiles_x, int tile,
+                                     const void* slot_s, const void* g_aug, void* rows, void* stream) {
+  return launch_bwd_tile<true>(gattr, gauss_id, tile_start, tile_count, num_tiles, tiles_x, tile,
+                               slot_s, g_aug, rows, stream);
 }
 
 // hidegs_fold_rows — rows_exp: (I, 16) float32 rows in expansion order;

@@ -28,9 +28,25 @@
 // thin, near-singular conic makes the terms large and cancel), and exp/log
 // rounding (kMaskMargin, the binning's margin, covers it). NaN keeps the
 // block. blend_plain.block_masks is the plain version, op for op.
+//
+// The bf16 attribute stream (RasterConfig.bf16_stream; the JAX package's
+// pallas_blend.expand_to_instances(bf16=True)). JAX rounds each instance's
+// 16 attributes to bfloat16 after re-basing mean2d to the origin of the
+// instance's tile, and its kernels then use tile-local pixel coordinates.
+// Here a gaussian has one row however many tiles it touches, so the row
+// cannot hold a tile-relative mean2d. The bf16 row is 32 bytes = 2 uint4:
+//   [0] mean_x mean_y (float32)  conic_a|conic_b  conic_c|opacity
+//   [1] r|g  b|invdepth  normal_x|normal_y  normal_z|distance
+// (bf16 pairs, the first in the low half of each 32-bit word). load_row
+// subtracts the tile origin from mean2d in float32, rounds the result to
+// bfloat16 (round to nearest even, as XLA's convert), widens every channel
+// to float32 and stages the usual 4 float4; the kernels then place pixels
+// at tile-local centres. That is JAX's function with JAX's rounding, and
+// all arithmetic stays float32.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace hidegs {
@@ -76,6 +92,32 @@ struct TileLayout {
 // (ox, oy): (x + 0.5 + ox, y + 0.5 + oy), exact in float32.
 __device__ __forceinline__ float pixel_centre(int local, int origin) {
   return (float)local + 0.5f + (float)origin;
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Stage gaussian g's row as 4 float4 in the float32 layout. With BF16 the
+// row is the 32-byte bf16 row above and mean2d comes out relative to the
+// tile origin (ox, oy), rounded to bfloat16.
+template <bool BF16>
+__device__ __forceinline__ void load_row(const void* gattr, int g, int ox, int oy, float4 (&dst)[4]) {
+  if (!BF16) {
+    const float4* row = static_cast<const float4*>(gattr) + 4 * (size_t)g;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[q] = row[q];
+  } else {
+    const uint4* row = static_cast<const uint4*>(gattr) + 2 * (size_t)g;
+    const uint4 u0 = row[0], u1 = row[1];
+    dst[0] = make_float4(round_bf16(__uint_as_float(u0.x) - (float)ox),
+                         round_bf16(__uint_as_float(u0.y) - (float)oy), bf16_lo(u0.z), bf16_hi(u0.z));
+    dst[1] = make_float4(bf16_lo(u0.w), bf16_hi(u0.w), bf16_lo(u1.x), bf16_hi(u1.x));
+    dst[2] = make_float4(bf16_lo(u1.y), bf16_hi(u1.y), bf16_lo(u1.z), bf16_hi(u1.z));
+    dst[3] = make_float4(bf16_lo(u1.w), bf16_hi(u1.w), 0.0f, 0.0f);
+  }
 }
 
 // power = -½(a dx² + c dy²) - b dx dy of row (a0, a1) at pixel (px, py).

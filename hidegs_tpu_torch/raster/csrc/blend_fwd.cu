@@ -50,6 +50,11 @@
 // instance) pairs of a tile's span end in a rejection, and the mask leaves
 // about a quarter of them to evaluate, for ~32 mask tests per instance.
 //
+// bf16 mode (BF16 = true, `hidegs_blend_fwd_bf16`): the rows are the
+// 32-byte bf16 rows of blend_common.cuh; load_row widens them and re-bases
+// mean2d to the tile, and the pixel centres are tile-local. The rest of the
+// kernel is the same code.
+//
 // Math stays float32 with the accurate expf/log1pf (no --use_fast_math),
 // apart from the float64 transmittance carry above.
 // This file is built with -fmad=false: nvcc would otherwise contract
@@ -65,9 +70,9 @@ using namespace hidegs;
 
 constexpr int kBatch = 256;  // instances staged per shared-memory batch
 
-template <int TILE>
+template <int TILE, bool BF16>
 __global__ void __launch_bounds__(kThreads, 3)
-blend_fwd_kernel(const float4* __restrict__ gattr,
+blend_fwd_kernel(const void* __restrict__ gattr,
                  const int* __restrict__ gauss_id,
                  const int* __restrict__ tile_start,
                  const int* __restrict__ tile_count,
@@ -90,13 +95,16 @@ blend_fwd_kernel(const float4* __restrict__ gattr,
   const int warp = tid >> 5;
   const int ox = (t % tiles_x) * TILE;
   const int oy = (t / tiles_x) * TILE;
+  // pixel origin: the tile's, or 0 where the bf16 rows are tile-relative
+  const int pox = BF16 ? 0 : ox;
+  const int poy = BF16 ? 0 : oy;
 
   // this lane's pixel in the warp's first block; block k is offset by
   // (k_dx, k_dy), and the centres stay exact in float32
   const int x0 = L::block_x0(warp * PPT) + (lane & (kBlockW - 1));
   const int y0 = L::block_y0(warp * PPT) + lane / kBlockW;
-  const float px0 = pixel_centre(x0, ox);
-  const float py0 = pixel_centre(y0, oy);
+  const float px0 = pixel_centre(x0, pox);
+  const float py0 = pixel_centre(y0, poy);
   float T[PPT];
   double S[PPT];
   float acc[PPT][9];
@@ -113,13 +121,14 @@ blend_fwd_kernel(const float4* __restrict__ gattr,
     const int n = min(kBatch, count - b0);
     __syncthreads();  // the previous batch is fully consumed
     if (tid < n) {
-      const float4* row = gattr + 4 * (size_t)gauss_id[start + b0 + tid];
+      float4 row[4];
+      load_row<BF16>(gattr, gauss_id[start + b0 + tid], ox, oy, row);
 #pragma unroll
       for (int q = 0; q < 4; ++q) s_attr[tid][q] = row[q];
     }
     s_obs[tid] = 0;
     __syncthreads();
-    stage_masks<TILE>(s_attr, s_mask, n, ox, oy);
+    stage_masks<TILE>(s_attr, s_mask, n, pox, poy);
     __syncthreads();
 
     for (int j = 0; warp_live && j < n; ++j) {
@@ -188,31 +197,47 @@ blend_fwd_kernel(const float4* __restrict__ gattr,
   }
 }
 
-}  // namespace
-
-// C entry point, loaded with ctypes. gattr: (N, 16) float32 packed rows;
-// gauss_id: (I,) int32 sorted instance → gaussian; tile_start, tile_count:
-// (num_tiles,) int32 spans; out: (num_tiles, tile², 16) float32; observe:
-// (I,) int32, zero-filled by the caller. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
-extern "C" int hidegs_blend_fwd(const void* gattr, const void* gauss_id,
-                                const void* tile_start, const void* tile_count,
-                                int num_tiles, int tiles_x, int tile,
-                                void* out, void* observe, void* stream) {
+template <bool BF16>
+int launch_fwd(const void* gattr, const void* gauss_id, const void* tile_start, const void* tile_count,
+               int num_tiles, int tiles_x, int tile, void* out, void* observe, void* stream) {
   if (num_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* a = static_cast<const float4*>(gattr);
   const int* gid = static_cast<const int*>(gauss_id);
   const int* ts = static_cast<const int*>(tile_start);
   const int* tc = static_cast<const int*>(tile_count);
   float4* o = static_cast<float4*>(out);
   int* obs = static_cast<int*>(observe);
   if (tile == 16) {
-    blend_fwd_kernel<16><<<num_tiles, kThreads, 0, s>>>(a, gid, ts, tc, tiles_x, o, obs);
+    blend_fwd_kernel<16, BF16><<<num_tiles, kThreads, 0, s>>>(gattr, gid, ts, tc, tiles_x, o, obs);
   } else if (tile == 32) {
-    blend_fwd_kernel<32><<<num_tiles, kThreads, 0, s>>>(a, gid, ts, tc, tiles_x, o, obs);
+    blend_fwd_kernel<32, BF16><<<num_tiles, kThreads, 0, s>>>(gattr, gid, ts, tc, tiles_x, o, obs);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entry points, loaded with ctypes. gattr: (N, 16) float32 packed rows
+// (hidegs_blend_fwd) or (N, 8) 32-bit words of bf16 rows
+// (hidegs_blend_fwd_bf16, see blend_common.cuh); gauss_id: (I,) int32
+// sorted instance → gaussian; tile_start, tile_count: (num_tiles,) int32
+// spans; out: (num_tiles, tile², 16) float32; observe: (I,) int32,
+// zero-filled by the caller. Launch on `stream` and return
+// cudaGetLastError() (0 on success).
+extern "C" int hidegs_blend_fwd(const void* gattr, const void* gauss_id,
+                                const void* tile_start, const void* tile_count,
+                                int num_tiles, int tiles_x, int tile,
+                                void* out, void* observe, void* stream) {
+  return launch_fwd<false>(gattr, gauss_id, tile_start, tile_count, num_tiles, tiles_x, tile, out,
+                           observe, stream);
+}
+
+extern "C" int hidegs_blend_fwd_bf16(const void* gattr, const void* gauss_id,
+                                     const void* tile_start, const void* tile_count,
+                                     int num_tiles, int tiles_x, int tile,
+                                     void* out, void* observe, void* stream) {
+  return launch_fwd<true>(gattr, gauss_id, tile_start, tile_count, num_tiles, tiles_x, tile, out,
+                          observe, stream);
 }

@@ -10,7 +10,14 @@
     rows, in a fixed order (no float atomics).
   * csrc/blend_common.cuh, included by both sources: the packed-row layout,
     the map from threads to pixels and the warp-block mask
-    (blend_plain.block_masks is its plain version).
+    (blend_plain.block_masks is its plain version), and the bf16 rows.
+
+Both blends take their rows in either of two modes, chosen by the rows'
+dtype: float32 (N, 16) packed rows (`hidegs_blend_fwd`, `hidegs_blend_bwd`),
+or the (N, 16) bfloat16 rows of the bf16 stream (blend_plain.bf16_rows;
+`hidegs_blend_fwd_bf16`, `hidegs_blend_bwd_bf16`), which the kernels re-base
+to each tile and widen as they stage them. A launch of either mode counts
+as a launch of that kernel.
 
 Each source is compiled by `nvcc` for sm_90a into build/kernels/ at first
 use (all sources at once, one process each), loaded with ctypes, and
@@ -137,13 +144,19 @@ def _check_spans(attrs, gauss_id, tile_start, tile_count, tiles_x, tile):
     if tile not in TILES:
         raise ValueError(f"tile must be one of {TILES}, got {tile}")
     T = tile_start.shape[0]
-    _check("attrs", attrs, torch.float32, (attrs.shape[0], ATTR), dev)
+    dtype = torch.bfloat16 if attrs.dtype == torch.bfloat16 else torch.float32
+    _check("attrs", attrs, dtype, (attrs.shape[0], ATTR), dev)
     _check("gauss_id", gauss_id, torch.int32, (gauss_id.shape[0],), dev)
     _check("tile_start", tile_start, torch.int32, (T,), dev)
     _check("tile_count", tile_count, torch.int32, (T,), dev)
     if T % tiles_x:
         raise ValueError(f"{T} tiles is not a multiple of tiles_x={tiles_x}")
     return dev, T
+
+
+def _symbol(name: str, attrs: torch.Tensor) -> str:
+    """The entry point of the rows' mode: `name`, or its bf16 variant."""
+    return f"{name}_bf16" if attrs.dtype == torch.bfloat16 else name
 
 
 def _stream(dev) -> int:
@@ -162,12 +175,12 @@ def launch_blend_fwd(
 ) -> None:
     """Launch the forward kernel once on the current stream. Writes `out`
     (T, P, 16) and the per-instance counts into `observe` (I,), which must
-    be zeroed."""
+    be zeroed. `attrs` is float32 packed rows or bfloat16 `bf16_rows`."""
     global LAUNCHES
     dev, T = _check_spans(attrs, gauss_id, tile_start, tile_count, tiles_x, tile)
     _check("out", out, torch.float32, (T, tile * tile, OUT_CH), dev)
     _check("observe", observe, torch.int32, gauss_id.shape, dev)
-    fn = _fn("blend_fwd", "hidegs_blend_fwd", 4, 3, 3)
+    fn = _fn("blend_fwd", _symbol("hidegs_blend_fwd", attrs), 4, 3, 3)
     with torch.cuda.device(dev):
         rc = fn(attrs.data_ptr(), gauss_id.data_ptr(), tile_start.data_ptr(),
                 tile_count.data_ptr(), T, tiles_x, tile, out.data_ptr(),
@@ -188,8 +201,9 @@ def launch_blend_bwd(
     g_aug: torch.Tensor,
     rows: torch.Tensor,
 ) -> None:
-    """Launch the backward kernel once on the current stream. `g_aug` (T, P,
-    16) holds the augmented cotangents (blend_plain.augment_cotangents);
+    """Launch the backward kernel once on the current stream (`attrs` as in
+    launch_blend_fwd). `g_aug` (T, P, 16) holds the augmented cotangents
+    (blend_plain.augment_cotangents);
     writes the gradient row of sorted instance k into row `slot_s[k]` of
     `rows` (I, 16), which must be zeroed. `slot_s` must be a permutation of
     [0, I) (TileBinning.slot_s is)."""
@@ -198,7 +212,7 @@ def launch_blend_bwd(
     _check("slot_s", slot_s, torch.int32, gauss_id.shape, dev)
     _check("g_aug", g_aug, torch.float32, (T, tile * tile, OUT_CH), dev)
     _check("rows", rows, torch.float32, (gauss_id.shape[0], ATTR), dev)
-    fn = _fn("blend_bwd", "hidegs_blend_bwd", 4, 3, 4)
+    fn = _fn("blend_bwd", _symbol("hidegs_blend_bwd", attrs), 4, 3, 4)
     with torch.cuda.device(dev):
         rc = fn(attrs.data_ptr(), gauss_id.data_ptr(), tile_start.data_ptr(),
                 tile_count.data_ptr(), T, tiles_x, tile, slot_s.data_ptr(),

@@ -6,13 +6,15 @@ into --output_path as PNGs, no metrics. A model directory written by the
 JAX package works as is.
 
     python -m hidegs_tpu_torch.render_cli --model_path <model> --source_path <scene> --output_path <dir> [--device cuda]
+    python -m hidegs_tpu_torch.render_cli --hierarchy <file.hier> --tau <px> --source_path <scene> --output_path <dir>
 
 Everything runs on `--device` (default cuda, which raises without a card).
 `--backend` takes the JAX package's names: "jnp" and "pallas" render with
 the port's "blend" backend (its CUDA kernel on the card, the plain blend on
 the CPU), all three computing the same function; "oracle" stays "oracle".
-The LOD hierarchy mode (`--hierarchy`) is not ported yet (ROADMAP A9) and
-raises.
+With `--hierarchy` every train camera is rendered from the LOD hierarchy in
+that `.hier` file, cut at pixel granularity `--tau` (0 = the exact leaf
+cut) by hier.interp.AdaptiveHierRenderer, instead of from a model's PLY.
 """
 from __future__ import annotations
 
@@ -36,12 +38,10 @@ def main(argv=None):
     ap.add_argument("--iteration", type=int, default=-1)
     ap.add_argument("--backend", default="jnp")
     ap.add_argument("--max_instances", type=int, default=1 << 20)
+    ap.add_argument("--tau", type=float, default=0.0, help="LOD target size in pixels (hierarchy mode)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
     model_cfg = extract_group(args, ModelConfig)
-    if model_cfg.hierarchy:
-        raise NotImplementedError(
-            "--hierarchy: the LOD hierarchy renderer is not ported to hidegs_tpu_torch yet (ROADMAP A9)")
     dev = resolve_device(args.device)
 
     from hidegs_tpu_torch.data.scene import load_scene
@@ -51,6 +51,23 @@ def main(argv=None):
     )
     cfg = RasterConfig(backend=port_backend(args.backend), max_instances=args.max_instances)
     os.makedirs(args.output_path, exist_ok=True)
+
+    if model_cfg.hierarchy:
+        from hidegs_tpu_torch.hier.interp import AdaptiveHierRenderer
+        from hidegs_tpu_torch.hier.io import read_hier
+
+        # τ-aware budgets: the buffers fit the cut, so coarse taus render
+        # with proportionally small streams
+        renderer = AdaptiveHierRenderer.from_hierarchy(read_hier(model_cfg.hierarchy), dev,
+                                                       backend=port_backend(args.backend))
+        for i in range(len(scene.train_cameras)):
+            cam = scene.train_cameras[i]
+            # --tau is in pixels (the reference's convention); 0 = exact leaf cut
+            with torch.no_grad():
+                out = renderer.render(cam.cam_params(dev), args.tau)
+            save_png(os.path.join(args.output_path, f"{i:05d}.png"), torch.clamp(out["render"], 0, 1))
+        print(f"rendered {len(scene.train_cameras)} hierarchy views → {args.output_path}")
+        return
 
     it = args.iteration
     root = os.path.join(model_cfg.model_path, "point_cloud")

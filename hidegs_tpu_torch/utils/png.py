@@ -7,7 +7,7 @@ serving path does not need it: `read_image` decodes the PNGs a scene holds
 as the inverse-depth maps, non-interlaced, every filter type) into the array
 `np.asarray(PIL.Image.open(path))` gives, and `write_png` encodes 8-bit RGB,
 8-bit grayscale and 16-bit grayscale (the arrays `PIL.Image.fromarray`
-saves as modes RGB, L and I;16).
+saves as modes RGB, L and I;16); `encode_png` gives the same file as bytes.
 Any other file (interlaced or palette PNGs, other bit depths, JPEG) goes to
 Pillow, imported only then; without Pillow that raises an ImportError naming
 the file.
@@ -96,7 +96,11 @@ def read_png(path: str) -> np.ndarray:
     same file. Raises _Unsupported for the files `read_image` hands to
     Pillow."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """`read_png` of a file's bytes; `path` names it in errors."""
     if not data.startswith(SIGNATURE):
         raise _Unsupported("not a PNG file")
     header, idat = None, []
@@ -156,10 +160,10 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
 
-def write_png(path: str, pixels: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG, an (H, W) uint8
-    array as 8-bit grayscale, or an (H, W) uint16 array as 16-bit grayscale
-    (filter type 0 on every row, zlib at Pillow's default level 6)."""
+def encode_png(pixels: np.ndarray) -> bytes:
+    """The PNG file of an (H, W, 3) uint8 array (8-bit RGB), an (H, W) uint8
+    array (8-bit grayscale) or an (H, W) uint16 array (16-bit grayscale),
+    as bytes (filter type 0 on every row, zlib at Pillow's default level 6)."""
     pixels = np.ascontiguousarray(pixels)
     if pixels.ndim == 3 and pixels.shape[2] == 3 and pixels.dtype == np.uint8:
         depth, colour, data = 8, 2, pixels
@@ -174,8 +178,16 @@ def write_png(path: str, pixels: np.ndarray) -> None:
     row_bytes = data.reshape(height, -1).view(np.uint8)
     rows = np.zeros((height, 1 + row_bytes.shape[1]), np.uint8)  # column 0: filter type 0
     rows[:, 1:] = row_bytes
+    return b"".join([
+        SIGNATURE,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, colour, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)),
+        _chunk(b"IEND", b""),
+    ])
+
+
+def write_png(path: str, pixels: np.ndarray) -> None:
+    """Write `encode_png(pixels)` to `path`."""
+    data = encode_png(pixels)
     with open(path, "wb") as f:
-        f.write(SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, colour, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(data)

@@ -469,3 +469,160 @@ def test_chunk_box_multi_view_step_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert float(metrics["step_ok"]) == 1.0 and float(metrics["mv_geo"]) > 0
     assert int(new_ts.step) == int(ts.step) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("scene", ["toy", "mask boundary"])
+def test_bf16_kernels_match_plain_bf16(cuda, tile, scene):
+    """The bf16 stream (blend_plain.bf16_rows) through both kernels against
+    the plain bf16 versions on the same rows, at the float32 gates: planes
+    at the blend tolerance with out_observe equal, per-gaussian gradients
+    within 1e-5 of the max, the fold bitwise; one launch of each."""
+    if scene == "toy":
+        pre, tb, ty, tx = _binned(cuda, tile)
+    else:
+        pre = make_blend_boundary_scene(height=64, width=96, seed=7, device=cuda)
+        ty, tx = tbin.tile_grid(64, 96, tile)
+        tb = tbin.bin_gaussians(pre, ty, tx, 1 << 16, tile)
+    attrs = blend_plain.pack_gaussian_attrs(pre)
+    rows = blend_plain.bf16_rows(attrs)
+    count = cuda_blend.visited_count(tb, 0)
+    before = (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+    tile_out, observe = cuda_blend.blend_tile_out(rows, tb, count, ty, tx, tile)
+    p_out, p_obs = blend_plain.blend_tile_out(blend_plain.unpack_attrs(attrs), tb, ty, tx, tile, 0, bf16=True)
+    torch.testing.assert_close(tile_out, p_out, **BLEND_TOL)
+    assert torch.equal(observe, p_obs)
+    f32_out, _ = cuda_blend.blend_tile_out(attrs, tb, count, ty, tx, tile)
+    assert not torch.equal(f32_out, tile_out)  # the rows really were rounded
+    g = torch.randn(tile_out.shape, generator=torch.Generator(device=cuda).manual_seed(tile), device=cuda)
+    g[..., 10:] = 0.0
+    g_aug = blend_plain.augment_cotangents(tile_out, g)
+    got = cuda_blend.grad_attrs(rows, tb, count, g_aug, tx, tile)
+    torch.cuda.synchronize()
+    assert (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    plain_rows = blend_plain.blend_tiles_bwd(blend_plain.unpack_attrs(attrs), tb, g_aug, ty, tx, tile, 0, bf16=True)
+    want = blend_plain.fold_rows(blend_plain.expansion_rows(plain_rows, tb.slot_s), tb.g_start)
+    _assert_grads_close(got, want, f"bf16 {scene} tile {tile}")
+    assert torch.equal(cuda_blend.grad_attrs(rows, tb, count, g_aug, tx, tile), got)
+
+
+def _blend_node(root):
+    """The BlendPackedBackward node of an autograd graph."""
+    seen, stack = set(), [root]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "BlendPackedBackward":
+            return node
+        stack.extend(fn for fn, _ in node.next_functions)
+    raise AssertionError("no BlendPackedBackward node in the graph")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+def test_bf16_stream_render_and_backward_run_the_bf16_kernels(cuda, tile, monkeypatch):
+    """RasterConfig(bf16_stream=True) through render() and its backward on
+    the card: one launch of each kernel; the blend node saves bf16_rows of
+    the packed rows; its planes and d_attrs hold against the plain bf16
+    versions on its own binning and cotangents, and are bitwise what the
+    launchers give."""
+    scene = make_toy_gaussians(300, seed=6, device=cuda)
+    cam = ring_camera(1, height=64, width=96, device=cuda)
+    leaves = [x.clone().requires_grad_(True) for x in scene]
+    kept, got = {}, {}
+    real = blend_autograd.blend_tiles
+
+    def keep(*args, **kwargs):
+        res = real(*args, **kwargs)
+        kept.update(args=args, planes=res)
+        return res
+
+    monkeypatch.setattr(blend_autograd, "blend_tiles", keep)
+    before = (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+    out = render(*leaves, cam, render_geo=True,
+                 config=RasterConfig(tile=tile, max_instances=1 << 14, bf16_stream=True))
+    node = _blend_node(out["render"].grad_fn)
+    node.register_prehook(lambda go: got.update(saved=[x.detach() for x in node.saved_tensors],
+                                                g=go[0].contiguous()))
+    node.register_hook(lambda gi, go: got.update(d_attrs=gi[0]))
+    (out["render"].square().mean() + 0.1 * out["rendered_normal"].abs().mean()).backward()
+    torch.cuda.synchronize()
+    assert (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    pre, tb, ty, tx, _, max_blocks, bf16 = kept["args"]
+    assert bf16
+    attrs = blend_plain.pack_gaussian_attrs(pre).detach()
+    rows, tile_out = got["saved"]
+    # bitwise: columns 0:4 carry the float32 mean2d's bytes, which may read as bf16 NaNs
+    assert rows.dtype == torch.bfloat16
+    assert torch.equal(rows.view(torch.int16), blend_plain.bf16_rows(attrs).view(torch.int16))
+    observe = kept["planes"]["out_observe"]
+    p_out, p_obs = blend_plain.blend_tile_out(blend_plain.unpack_attrs(attrs), tb, ty, tx, tile, max_blocks,
+                                              bf16=True)
+    torch.testing.assert_close(tile_out, p_out, **BLEND_TOL)
+    assert torch.equal(observe, p_obs)
+    count = cuda_blend.visited_count(tb, max_blocks)
+    k_out, k_obs = cuda_blend.blend_tile_out(rows, tb, count, ty, tx, tile)
+    assert torch.equal(k_out, tile_out) and torch.equal(k_obs, observe)
+    g_aug = blend_plain.augment_cotangents(tile_out, got["g"])
+    assert torch.equal(got["d_attrs"], cuda_blend.grad_attrs(rows, tb, count, g_aug, tx, tile))
+    plain_rows = blend_plain.blend_tiles_bwd(blend_plain.unpack_attrs(attrs), tb, g_aug, ty, tx, tile, max_blocks,
+                                             bf16=True)
+    want = blend_plain.fold_rows(blend_plain.expansion_rows(plain_rows, tb.slot_s), tb.g_start)
+    _assert_grads_close(got["d_attrs"], want, f"bf16 render() tile {tile}")
+
+
+@pytest.mark.cuda
+def test_lod_frame_kernel_holds_against_plain(cuda):
+    """One AdaptiveHierRenderer frame of a built hierarchy on the card: one
+    forward launch, and its tile planes against the plain blend on the
+    frame's own rows and binning; the same frame again bitwise equal."""
+    from hidegs_tpu_torch.hier.build import build_hierarchy
+    from hidegs_tpu_torch.hier.interp import AdaptiveHierRenderer
+
+    scene = make_toy_gaussians(2000, seed=5, device="cpu")
+    h = build_hierarchy(*(x.numpy() for x in (scene.means3d, scene.quats, scene.scales, scene.opacities,
+                                                scene.shs)), use_native=True)
+
+    r = AdaptiveHierRenderer.from_hierarchy(h, cuda)
+    cam = ring_camera(0, height=96, width=128, device=cuda)
+    kept = {}
+    real = blend_autograd.blend_tiles
+
+    def keep(*args, **kwargs):
+        res = real(*args, **kwargs)
+        kept.update(args=args, planes=res)
+        return res
+
+    blend_autograd.blend_tiles = keep
+    try:
+        before = cuda_blend.LAUNCHES
+        with torch.no_grad():
+            out = r.render(cam, 2.0)
+            again = r.render(cam, 2.0)
+        assert cuda_blend.LAUNCHES == before + 2 and int(out["overflow"]) == 0
+    finally:
+        blend_autograd.blend_tiles = real
+    pre, tb, ty, tx, tile, max_blocks, _ = kept["args"]
+    p = blend_plain.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
+    for key in PLANES:
+        torch.testing.assert_close(kept["planes"][key], p[key], **BLEND_TOL)
+    assert torch.equal(kept["planes"]["out_observe"], p["out_observe"])
+    for key in out:
+        assert torch.equal(out[key], again[key]), key
+
+
+def test_native_builder_builds_into_build_dir():
+    """The hierarchy builder's library is compiled from the port's copy of
+    hier_builder.cpp into build/hier/ of the checkout (no card needed)."""
+    from hidegs_tpu_torch.hier import build as tbuild
+
+    lib = tbuild.compile_native()
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    assert lib.parent == repo / "build" / "hier" and lib.exists()
+    assert tbuild.SRC == repo / "hidegs_tpu_torch" / "hier" / "native" / "hier_builder.cpp"
+    assert tbuild.native_available()

@@ -49,7 +49,41 @@ def test_import_leaves_jax_and_the_jax_package_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 38  # the render, training, serving and trainer slices
+    assert int(proc.stdout.split()[0]) >= 46  # the render, training, serving, trainer and LOD/viewer slices
+
+
+def test_the_scan_covers_the_hierarchy_and_the_viewers():
+    mods = _modules()
+    for name in ("hier.io", "hier.build", "hier.lod", "hier.interp", "hier.streaming",
+                 "viewer.network_gui", "viewer.http_viewer", "viewer.__main__"):
+        assert f"hidegs_tpu_torch.{name}" in mods, name
+
+
+def test_native_builder_never_resolves_a_path_of_the_jax_package(monkeypatch, tmp_path):
+    """The port's hierarchy builder compiles its own copy of
+    hier_builder.cpp into build/hier/ and loads that library, never the JAX
+    package's source or its libhier_builder.so."""
+    import ctypes
+
+    from hidegs_tpu_torch.hier import build as tbuild
+
+    jax_pkg = (REPO / "hidegs_tpu").resolve()
+    for path in (tbuild.SRC, tbuild.BUILD_DIR, tbuild.lib_path()):
+        assert jax_pkg not in path.resolve().parents, path
+    assert tbuild.SRC.read_bytes() == (jax_pkg / "hier" / "native" / "hier_builder.cpp").read_bytes()
+    loaded, commands = [], []
+    real_cdll, real_run = ctypes.CDLL, tbuild.subprocess.run
+    monkeypatch.setattr(tbuild.ctypes, "CDLL", lambda path, *a, **k: loaded.append(path) or real_cdll(path, *a, **k))
+    monkeypatch.setattr(tbuild.subprocess, "run", lambda cmd, **k: commands.append(cmd) or real_run(cmd, **k))
+    monkeypatch.setattr(tbuild, "BUILD_DIR", tmp_path / "build" / "hier")
+    monkeypatch.setattr(tbuild, "_lib", None)
+    h = tbuild.build_hierarchy(*tsyn.make_toy_gaussians(20, seed=3, device="cpu")[:1],
+                               np.tile(np.array([1, 0, 0, 0], np.float32), (20, 1)), np.full((20, 3), 0.1, np.float32),
+                               np.full(20, 0.5, np.float32), np.zeros((20, 16, 3), np.float32), use_native=True)
+    assert h.num_nodes == 39
+    assert loaded == [str(tmp_path / "build" / "hier" / tbuild.lib_path().name)]
+    assert len(commands) == 1 and all(jax_pkg not in pathlib.Path(a).resolve().parents
+                                      for a in commands[0] if a.startswith("/"))
 
 
 def test_sources_name_no_jax_import():
@@ -57,7 +91,7 @@ def test_sources_name_no_jax_import():
     sources = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
-    assert len(sources) >= 46
+    assert len(sources) >= 56
 
 
 def test_serving_path_needs_no_pillow(tmp_path):

@@ -207,9 +207,13 @@ def test_render_cli_matches_jax(model_dir):
 
 
 def test_render_cli_refuses_the_hierarchy(model_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="A9"):
-        trender_cli.main(["--model_path", model_dir["model"], "--source_path", model_dir["source"], "--hierarchy", "h.hier",
-                          "--output_path", str(tmp_path), "--device", "cpu"])
+    """With --hierarchy, render_cli renders that .hier file and not the
+    model's PLY (tests/test_torch_hier.py holds its PNGs against the JAX
+    package's), so a .hier file it cannot read is refused."""
+    with pytest.raises(FileNotFoundError):
+        trender_cli.main(["--model_path", model_dir["model"], "--source_path", model_dir["source"], "--hierarchy",
+                          str(tmp_path / "missing.hier"), "--output_path", str(tmp_path), "--device", "cpu"])
+    assert not any(tmp_path.glob("*.png"))
 
 
 def test_config_reads_jax_snapshots(model_dir):
