@@ -6,14 +6,19 @@
 Drives the port's paths at full width — rendering
 (`hidegs_tpu_torch.raster.api.render`, the hand-written CUDA forward blend),
 the LOD hierarchy (`hier.interp.AdaptiveHierRenderer`: cut select,
-interpolation, then the forward blend, once per frame), serving a trained
+interpolation, then the forward blend, once per frame), its
+post-optimizer (`train.hier_trainer.post_optimize`: a forward blend, a
+backward blend and a fold per step), serving a trained
 scene (`python -m hidegs_tpu_torch.evaluate` and `render_cli`, with and
 without `--hierarchy`, which reach the forward blend once per view), the
 viewers (`python -m hidegs_tpu_torch.viewer`'s HTTP and SIBR frontends),
 training (`hidegs_tpu_torch.train.loop.train_step`, which adds the CUDA
 backward blend and the gradient fold kernel), and the scene trainer
 (`python -m hidegs_tpu_torch.train`, two blends forward and backward per
-multi-view step) — and holds every kernel of those paths, and the bf16
+multi-view step), and the large-scene pipeline (`python -m
+hidegs_tpu_torch.pipeline`: chunking, a coarse model, the chunks in worker
+processes, merge, post-opt, the τ sweep) — and holds every kernel of those
+paths, and the bf16
 attribute-stream mode of both blends, against its plain PyTorch version.
 Phases (run in the order of `main`):
 
@@ -60,6 +65,21 @@ Phases (run in the order of `main`):
      the cut, budget and instances per view and tau, and ms per LOD frame
      (CUDA events, median of 10 after 2 warm-ups) with its four stages
      (count, select, interpolate, render) timed alone;
+ 6b. post-opt: phase 6a's hierarchy with every SH coefficient scaled by
+     0.7, `post_optimize` for 30 steps on the four views (targets: phase
+     4's leaf renders, clipped) at the τ=6 cut (budget 2^21, interpolated
+     parents), exposure trained, tile 32, an instance budget from a probe
+     with 1.12x slack; launch counts and every step's budget counters are
+     read around this run alone. Checks: one launch of each kernel per
+     step, finite losses, no overflow, the τ-cut PSNR (mean of the views)
+     above the perturbed start's; the last step's blend node held against
+     the plain versions on its own rows, binning and cotangents (forward
+     planes and observe at phase 4's gates, backward + fold with
+     `hold_backward`); two steps from one state bitwise equal; one step
+     under set_sync_debug_mode("error"); hierarchy_from_state written as
+     .hier and read back equal. Prints ms per step (CUDA events, median of
+     10 after 2 warm-ups) with its stages (select, forward, backward,
+     update), one step under the profiler, and the peak device memory;
   7. serve at full width: the port's write_synthetic_colmap_scene writes
      the four views as a COLMAP scene (the ground truth is the 8-bit image
      of the model), the model is written as point_cloud/iteration_30000/
@@ -148,17 +168,36 @@ Phases (run in the order of `main`):
      `hold_backward`; two multi-view steps from one state and
      generator bitwise equal, a step with the chunk box under
      torch.cuda.set_sync_debug_mode("error"), a multi-view and a
-     single-view step timed, and a multi-view step under the profiler.
+     single-view step timed, and a multi-view step under the profiler;
+ 14. pipeline: the JAX package's large-scene layout (the r5 record,
+     benchmarks/largescene_run.py) at reduced depth:
+     make_uav_gaussians(60,000, 96 structures, seed 7, extent 24) as a
+     COLMAP scene from an 8x6 nadir grid at altitude 16 (48 views,
+     256x256), then `pipeline.main` with 9 chunks (chunk size 18, at least
+     4 cameras), capacity 65536, 200 coarse, 200 chunk and 100 post-opt
+     iterations, 3 chunk workers on the card, τ 0/3/6/15. Seconds and
+     parent-process launches per stage are read around each stage (the
+     workers' launches are theirs). Checks: 9 chunks, finite chunk, merged
+     and post-optimized hierarchies, the workers run the port on the
+     card with the coarse scaffold and the chunk-box cull, one launch of
+     each kernel per coarse and post-opt step and one
+     forward per (τ, view) of the eval and nothing else in the parent,
+     `hier.cli merge` bitwise merged.hier, `hier.cli create --cameras` on
+     chunk 0, ChunkStreamer over the chunks, the mean cut not rising with
+     τ. Prints the seconds per stage, the merged size, PSNR and cut per τ,
+     the steps each chunk's finite-step gate skipped, and ms per post-opt
+     step.
 
 Prints a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 In the kernels line, `ms`, `plain_ms`, `bound_ms` and `library_ms` come from
 the render cell (phase 5: blend_fwd) and the train path (phase 11:
 blend_bwd, fold_rows); `launches` is the train path's count (phase 8), as
 in earlier slices; `launches_by_path` holds the count of every path (render,
-serve, train, trainer, hierarchy with render_cli --hierarchy, viewer);
+serve, train, trainer, hierarchy with render_cli --hierarchy, viewer,
+post_opt, pipeline);
 `max_abs_err` is the largest error of the kernel's full-width holds in
-phases 4 and 6a (forward), 10 (backward, fold) and 13 (all three, on both
-nodes of a multi-view step). Each blend entry has a `bf16` object from
+phases 4 and 6a (forward), 10 (backward, fold), 13 (all three, on both
+nodes of a multi-view step) and 6b (all three, the post-opt step). Each blend entry has a `bf16` object from
 phase 10a: the bf16 mode's `ms` (median of its two turns), the float32
 kernel's time in the same turns (`f32_ms_in_turns`), `plain_ms`,
 `bound_ms`, `bound_by`, `max_abs_err` against the plain bf16 version, and
@@ -1636,7 +1675,7 @@ def phase_trainer(scene, cams, cfg):
     return dict(ts=ts, batch=held["batch"], tcfg=held["tcfg"], launches=launches, window=window)
 
 
-def hold_node_forward(g, what):
+def hold_node_forward(g, what, tag="trainer-hold"):
     """The forward kernel of one blend node against the plain blend on the
     node's own packed rows and binning, at phase 4's gates: the tile planes
     the node saved (and its backward read) within atol 3e-4 / rtol 1e-3 of
@@ -1655,7 +1694,7 @@ def hold_node_forward(g, what):
     N = attrs.shape[0]
     n_diff = int((k_obs != p_obs).sum())
     check(n_diff <= N // 1000, f"{what}: out_observe differs on {n_diff} of {N} gaussians (> 0.1%)")
-    print(f"[trainer-hold] {what}: forward kernel vs plain blend on the node's rows and binning: max abs err "
+    print(f"[{tag}] {what}: forward kernel vs plain blend on the node's rows and binning: max abs err "
           f"{err:.3e} (atol 3e-4 / rtol 1e-3 holds), out_observe differs on {n_diff} of {N} gaussians; the saved "
           f"planes are bitwise the kernel's")
     return err
@@ -2177,6 +2216,356 @@ def bf16_departures(attrs, tb, g16, g32, g_tiles, top=4):
           f"{[f'{x:.2e}' for x in g_tiles.abs().amax(dim=(0, 1))[:10].tolist()]}")
 
 
+POST_OPT_ITERS = 30  # post-optimization steps at full width
+POST_OPT_TAU = 6.0  # the pixel granularity of the cut the steps train
+POST_OPT_SH_SCALE = 0.7  # the start state: the hierarchy with every SH coefficient scaled
+POST_OPT_BUDGET = 1 << 21  # post_optimize's default budget for 2,020,479 points
+
+
+def phase_post_opt(h, cams, targets):
+    """The hierarchy post-optimizer at full width: phase 6a's hierarchy with
+    every SH coefficient scaled by POST_OPT_SH_SCALE, `post_optimize` for
+    POST_OPT_ITERS steps on the four views (targets: phase 4's leaf
+    renders, clipped) at the τ=6 cut, exposure trained as the pipeline runs
+    it, tile 32, an instance budget from a probe of the τ-cut frames
+    (`pipeline.lod_sweep`, the pipeline's LOD evaluation) with 1.12x
+    slack. Launch counts and every step's budget counters are read around
+    that run. Then: the τ-cut PSNR against the perturbed start; the
+    last step's blend node held against the plain versions; two steps from
+    one state bitwise equal; one step under set_sync_debug_mode("error");
+    the optimized hierarchy written as .hier and read back equal; ms per
+    step with its stages, the device busy share and the peak memory."""
+    import dataclasses
+
+    from hidegs_tpu_torch.hier import io as hio
+    from hidegs_tpu_torch.hier.lod import tau_to_target_size
+    from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
+    from hidegs_tpu_torch.pipeline import lod_sweep
+    from hidegs_tpu_torch.raster.api import RasterConfig, round_budget
+    from hidegs_tpu_torch.train import hier_trainer as ht
+    from hidegs_tpu_torch.train import loop as tl
+
+    dev = targets[0].device
+    target = tau_to_target_size(POST_OPT_TAU, float(cams[0].fx))
+    start = h._replace(shs=(h.shs * POST_OPT_SH_SCALE).astype(np.float32))
+    probe_cfg = RasterConfig(tile=32, max_instances=1 << 24)
+    (before,) = lod_sweep(start, cams, targets, [POST_OPT_TAU], probe_cfg)
+    psnr_before, cut_sizes, inst = before["psnr"], before["cuts"], before["instances"]
+    check(before["overflow"] == 0, "post-opt: the probe of the τ-cut frames overflowed")
+    cfg = RasterConfig(tile=32, max_instances=round_budget(int(max(inst) * 1.12)))
+    print(f"[post-opt] hierarchy {h.num_points} points / {h.num_nodes} nodes, SH x{POST_OPT_SH_SCALE}; τ={POST_OPT_TAU:g} "
+          f"cut per view {cut_sizes} (budget {POST_OPT_BUDGET}), instances {inst} → max_instances {cfg.max_instances}")
+
+    losses, counters, last = [], [], {}
+
+    def keep_step(step):
+        def call(ts, cut, cam, gt, lrs, rcfg, **kwargs):
+            last.update(ts=ts, cut=cut, cam=cam, gt=gt, lrs=lrs, kwargs=kwargs)
+            new, m = step(ts, cut, cam, gt, lrs, rcfg, **kwargs)
+            losses.append(m["loss"])
+            return new, m
+        return call
+
+    def keep_counters(render):
+        def call(*args, **kwargs):
+            out = render(*args, **kwargs)
+            counters.append(torch.stack([out[k].to(torch.int64) for k in ("overflow", "block_overflow",
+                                                                         "visible_overflow")]))
+            return out
+        return call
+
+    torch.cuda.reset_peak_memory_stats()
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with patched(ht, "hier_train_step", keep_step), patched(ht, "render", keep_counters):
+        ts = ht.post_optimize(start, cams, targets, iterations=POST_OPT_ITERS, target_size=target,
+                              raster_cfg=cfg, log_every=10, optimize_exposure=True, device=dev)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = read_counts()
+    losses = torch.stack(losses).tolist()
+    counters = torch.stack(counters).sum(0).tolist()
+    print(f"[post-opt] launches on the post-opt path: {launches} for {POST_OPT_ITERS} steps; losses "
+          f"{losses[0]:.4f} → {losses[-1]:.4f}; budget counters (overflow, block, visible) summed {counters}; "
+          f"{1e3 * wall / POST_OPT_ITERS:.1f} ms per step on the host clock, peak device memory {peak_gb:.2f} GiB")
+    check(launches == {k: POST_OPT_ITERS for k in ("blend_fwd", "blend_bwd", "fold_rows")},
+          f"post-opt launches {launches}, expected one of each kernel per step ({POST_OPT_ITERS})")
+    check(len(losses) == POST_OPT_ITERS and all(np.isfinite(losses)), f"post-opt: losses {losses}")
+    check(counters == [0, 0, 0], f"post-opt: a step overflowed its budgets {counters}")
+
+    h_opt = ht.hierarchy_from_state(ts, start)
+    (after,) = lod_sweep(h_opt, cams, targets, [POST_OPT_TAU], cfg)
+    psnr_after = after["psnr"]
+    check(after["overflow"] == 0 and after["cuts"] == cut_sizes,
+          "post-opt: the optimized hierarchy's cuts differ or overflow")
+    print(f"[post-opt] τ={POST_OPT_TAU:g} cut PSNR, mean of the four views against the leaf renders: perturbed start "
+          f"{psnr_before:.4f} dB, after {POST_OPT_ITERS} steps {psnr_after:.4f} dB")
+    check(psnr_after > psnr_before, f"post-opt: the τ-cut PSNR did not rise ({psnr_before:.4f} → {psnr_after:.4f})")
+
+    # the last step's blend node against the plain versions
+    s_ts, cut, cam, gt, lrs, kw = (last[k] for k in ("ts", "cut", "cam", "gt", "lrs", "kwargs"))
+    loss, inputs = ht.hier_step_forward(s_ts, cut, cam, gt, cfg, image_idx=kw["image_idx"],
+                                        use_exposure=kw["use_exposure"])
+    node = find_node(loss.grad_fn, "BlendPackedBackward")
+    got = {}
+    handles = keep_backward_inputs(node, got)
+    tl.step_backward(loss, inputs)
+    for hd in handles:
+        hd.remove()
+    ty, tx, tile, max_blocks, _ = got["args"]
+    fwd_err = hold_node_forward(got, "post-opt, last step", tag="post-opt-hold")
+    held = hold_backward(got["attrs"], got["tb"], got["count"], got["tile_out"], got["g_tiles"], ty, tx, tile,
+                         max_blocks, "post-opt, last step")
+    check(torch.equal(got["d_attrs"], held["got"]), "post-opt: the node's d_attrs are not bitwise the launchers'")
+    print(f"[post-opt-hold] last step ({int(got['tb'].num_instances)} instances, {got['attrs'].shape[0]} interpolated "
+          f"rows): backward + fold kernels vs blend_tiles_bwd + plain fold: {hold_report(held)}")
+    del got, node, loss, inputs
+
+    def leaves(x):
+        return list(x.params) + list(x.opt.m) + list(x.opt.v) + [x.opt.step, x.step, x.exposure, x.exposure_m,
+                                                                 x.exposure_v]
+
+    a, ma = ht.hier_train_step(s_ts, cut, cam, gt, lrs, cfg, **kw)
+    b, mb = ht.hier_train_step(s_ts, cut, cam, gt, lrs, cfg, **kw)
+    for i, (x, y) in enumerate(zip(leaves(a), leaves(b))):
+        check(torch.equal(x, y), f"post-opt: two steps from one state differ in leaf {i}")
+    check(torch.equal(ma["loss"], mb["loss"]), "post-opt: two steps from one state differ in the loss")
+    print("[post-opt-hold] two steps from one state: params, moments, row steps, exposure and its moments bitwise equal")
+    del a, b
+
+    def step(state):
+        c = ht.select_cut(state, cam, target, POST_OPT_BUDGET)
+        return ht.hier_train_step(state, c, cam, gt, lr_tree(state.step, LRConfig(), 1.0), cfg, **kw)
+
+    warm, _ = step(ts)
+    sync(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stepped, m = step(warm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bool(torch.isfinite(m["loss"])) and int(stepped.step) == POST_OPT_ITERS + 2, "post-opt: unsynced step")
+    print(f"[post-opt-hold] a step (select_cut, learning rates, forward, backward, Adam, exposure Adam) ran under "
+          f"set_sync_debug_mode('error'): no host sync; {int(m['n_visible'])} visible rows")
+    del warm, stepped
+
+    work = ROOT / "build" / "post_opt_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    hio.write_hier(str(work / "opt.hier"), h_opt)
+    back = hio.read_hier(str(work / "opt.hier"))
+    for name in hio.Hierarchy._fields:
+        check(np.array_equal(getattr(back, name), getattr(h_opt, name)), f"post-opt: .hier read back differs in {name}")
+    check(all(np.isfinite(getattr(back, f)).all() for f in ("pos", "rot", "scale", "alpha", "shs")),
+          "post-opt: the optimized hierarchy is not finite")
+    shutil.rmtree(work, ignore_errors=True)
+    print("[post-opt] hierarchy_from_state written as .hier and read back equal, finite")
+
+    i = kw["image_idx"]
+    step_ms = time_ms(lambda: step(ts))
+
+    def stages():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        c = ht.select_cut(ts, cam, target, POST_OPT_BUDGET)
+        ev[1].record()
+        loss, inputs = ht.hier_step_forward(ts, c, cam, gt, cfg, image_idx=i, use_exposure=True)
+        ev[2].record()
+        grads = tl.step_backward(loss, inputs)
+        ev[3].record()
+        ht.hier_step_update(ts, c, grads, lrs, use_exposure=True, optimize_exposure=True)
+        ev[4].record()
+        ev[4].synchronize()
+        return [ev[k].elapsed_time(ev[k + 1]) for k in range(4)]
+
+    for _ in range(WARMUP):
+        stages()
+    split = [statistics.median(x) for x in zip(*(stages() for _ in range(ITERS)))]
+    print(f"[post-opt-times] post-opt step (select_cut, learning rates, hier_train_step) {step_ms:.3f} ms (CUDA events, "
+          f"median of {ITERS} after {WARMUP} warm-ups); stages: select {split[0]:.3f} ms, forward (interpolate + "
+          f"render + loss) {split[1]:.3f} ms, backward {split[2]:.3f} ms, update (visible mask, Adam, exposure Adam) "
+          f"{split[3]:.3f} ms; peak device memory of the run {peak_gb:.2f} GiB")
+    profile_device(lambda: step(ts), "post-opt-breakdown")
+    return dict(launches=launches, fwd_err=fwd_err, err=held["err"], fold_err=held["fold_err"], step_ms=step_ms,
+                split=split, psnr=(psnr_before, psnr_after))
+
+
+PIPE_SCENE = dict(n_ground=60_000, n_structs=96, seed=7, extent_xy=24.0)  # benchmarks/largescene_run.py:21-40
+PIPE_GRID, PIPE_RES, PIPE_ALTITUDE = (8, 6), 256, 16.0
+PIPE_CHUNKS = 9
+PIPE_TAUS = (0.0, 3.0, 6.0, 15.0)
+PIPE_COARSE, PIPE_ITERS, PIPE_POST = 200, 200, 100  # the JAX r5 record ran 1,200 / 5,000 / 1,200
+PIPE_EVAL_VIEWS = 8  # evaluate_lod's max_views
+PIPE_ARGS = ["--chunk_size", "18", "--min_n_cams", "4", "--capacity", "65536", "--max_instances", "524288",
+             "--resolution", "1", "--coarse_iterations", str(PIPE_COARSE), "--iterations", str(PIPE_ITERS),
+             "--post_opt_iterations", str(PIPE_POST), "--workers", "3",
+             "--eval_taus", *(f"{t:g}" for t in PIPE_TAUS)]
+
+
+def phase_pipeline(dev):
+    """The large-scene pipeline at the JAX package's r5 layout, depth cut:
+    make_uav_gaussians(60,000 ground, 96 structures, seed 7, extent 24)
+    written as a COLMAP scene from an 8x6 nadir grid at altitude 16 (48
+    views, 256x256, tile 32, point_stride 2, jitter 0.02), then
+    `pipeline.main` (what `python -m hidegs_tpu_torch.pipeline` runs) with
+    PIPE_ARGS and --device: chunking, a coarse model (the scaffold, so the
+    chunk-box cull is on), the chunks in three worker processes (their
+    output to one log each), merge, post-opt, the τ sweep. Seconds and
+    parent-process launches per stage are read around each stage. Then the
+    hierarchy tools on the result: `hier.cli merge` bitwise merged.hier,
+    `hier.cli create --cameras` on chunk 0's model, and ChunkStreamer over
+    the chunks."""
+    import types
+
+    from hidegs_tpu_torch import pipeline
+    from hidegs_tpu_torch.data.synthetic import make_uav_gaussians, nadir_grid_camera, write_synthetic_colmap_scene
+    from hidegs_tpu_torch.hier import cli as hier_cli
+    from hidegs_tpu_torch.hier import io as hio
+    from hidegs_tpu_torch.hier.streaming import ChunkStreamer
+    from hidegs_tpu_torch.raster import cuda_blend
+    from hidegs_tpu_torch.raster.api import RasterConfig, round_budget
+
+    # the chunk workers share the card with this process: hand back what
+    # the earlier phases' caching allocator holds
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "pipeline_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    src, out, logs = work / "scene", work / "out", work / "logs"
+    logs.mkdir(parents=True)
+    t0 = time.perf_counter()
+    scene = make_uav_gaussians(**PIPE_SCENE, device=dev)
+    nx, ny = PIPE_GRID
+    cams = [nadir_grid_camera(ix, iy, nx, ny, extent_xy=PIPE_SCENE["extent_xy"], altitude=PIPE_ALTITUDE,
+                              height=PIPE_RES, width=PIPE_RES, device=dev) for iy in range(ny) for ix in range(nx)]
+    write_synthetic_colmap_scene(str(src), scene, cams, point_stride=2, jitter_points=0.02,
+                                 render_config=RasterConfig(tile=32, max_instances=round_budget(1 << 20),
+                                                            depth_sort_bits=-1))
+    print(f"[pipeline] wrote the scene: {scene.means3d.shape[0]} gaussians, {len(cams)} views {PIPE_RES}x{PIPE_RES} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    del scene, cams
+
+    seconds, launches, commands = {}, {}, []
+
+    def counts():
+        return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+
+    def stage(name):
+        def wrap(fn):
+            def call(*args, **kwargs):
+                sync(dev)
+                before, t = counts(), time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    sync(dev)
+                    seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+                    prev = launches.get(name, (0, 0, 0))
+                    launches[name] = tuple(p + b - a for p, a, b in zip(prev, before, counts()))
+            return call
+        return wrap
+
+    def popen(cmd, **kwargs):
+        i = cmd.index("--chunk")
+        commands.append(cmd)
+        with open(logs / f"chunk_{cmd[i + 1]}_{cmd[i + 2]}.log", "ab") as log:
+            return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, **kwargs)
+
+    argv = ["--source_path", str(src), "--output_path", str(out), *PIPE_ARGS, "--device", str(dev)]
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for obj, name, key in ((pipeline.chunking, "compute_chunks", "chunking"),
+                               (pipeline.chunking, "write_chunks", "chunking"), (pipeline, "train", "coarse"),
+                               (pipeline, "_fanout_chunks", "chunk fan-out"), (pipeline, "merge_hierarchies", "merge"),
+                               (pipeline, "post_optimize", "post-opt"), (pipeline, "evaluate_lod", "eval")):
+            stack.enter_context(patched(obj, name, stage(key)))
+        stack.enter_context(patched(pipeline, "subprocess", lambda _: types.SimpleNamespace(Popen=popen)))
+        try:
+            pipeline.main(argv)
+        except BaseException:
+            for log in sorted(logs.glob("*.log")):
+                print(f"[pipeline] {log.name}, last lines:\n" + "\n".join(log.read_text().splitlines()[-15:]))
+            raise
+    wall = time.perf_counter() - t0
+    total = read_counts()
+
+    meta = json.loads((out / "pipeline.json").read_text())
+    chunks = meta["chunks"]
+    check(len(chunks) == PIPE_CHUNKS, f"pipeline: {len(chunks)} chunks, expected {PIPE_CHUNKS}")
+    check(len(commands) >= PIPE_CHUNKS and all(c[1:3] == ["-m", "hidegs_tpu_torch.pipeline"]
+                                               and c[c.index("--device") + 1] == str(dev) for c in commands),
+          f"pipeline: the chunk workers' command lines {commands}")
+
+    def finite(h):
+        return all(np.isfinite(getattr(h, f)).all() for f in ("pos", "rot", "scale", "alpha", "shs"))
+
+    skipped, sizes, trained = {}, {}, {}
+    for i, j in chunks:
+        name = f"chunk_{i}_{j}"
+        h = hio.read_hier(str(out / "chunks" / name / "hierarchy.hier"))
+        check(finite(h), f"pipeline: {name}'s hierarchy is not finite")
+        sizes[name] = h.num_points
+        text = (logs / f"{name}.log").read_text()
+        found = re.findall(r"run summary: (\d+) steps skipped by the finite-step gate", text)
+        skipped[name] = int(found[-1]) if found else 0
+        cfg = json.loads((out / "chunks" / name / "trained" / "cfg_args.json").read_text())
+        check(cfg["pipeline"]["chunk_box_cull"] is True
+              and cfg["model"]["scaffold_file"].endswith(f"iteration_{PIPE_COARSE}"),
+              f"pipeline: {name} trained without the coarse scaffold and the chunk-box cull")
+        # the trainer's log line at the last iteration: alive rows, seconds of its train loop
+        last = re.findall(rf"\[{PIPE_ITERS}/{PIPE_ITERS}\] loss=\S+ photo=\S+ alive=(\d+) \(([\d.]+)s\)", text)
+        trained[name] = (int(last[-1][0]), float(last[-1][1])) if last else None
+    merged = hio.read_hier(str(out / "merged.hier"))
+    check(finite(merged) and finite(hio.read_hier(str(out / "merged_opt.hier"))),
+          "pipeline: merged.hier or merged_opt.hier is not finite")
+    check(merged.num_points == meta["num_points"] and merged.num_nodes == meta["num_nodes"], "pipeline: pipeline.json")
+
+    hier_cli.main(["merge", "--chunks", str(out / "chunks"), "--out", str(work / "cli_merged.hier")])
+    check((work / "cli_merged.hier").read_bytes() == (out / "merged.hier").read_bytes(),
+          "pipeline: hier.cli merge is not bitwise merged.hier")
+    c0 = out / "chunks" / f"chunk_{chunks[0][0]}_{chunks[0][1]}"
+    os.symlink(src / "images", c0 / "images")  # the chunk's views, for load_scene
+    ply = c0 / "trained" / "point_cloud" / f"iteration_{PIPE_ITERS}" / "point_cloud.ply"
+    (work / "create").mkdir()
+    hier_cli.main(["create", "--ply", str(ply), "--out", str(work / "create" / "hierarchy.hier"), "--cameras",
+                   str(c0), "--device", str(dev)])
+    created = hio.read_hier(str(work / "create" / "hierarchy.hier"))
+    anchors = hio.read_anchors(str(work / "create" / "anchors.bin"))
+    check(created.num_points > 0 and finite(created) and len(anchors) > 0, "pipeline: hier.cli create")
+    streamer = ChunkStreamer(str(out / "chunks"), device=dev)
+    check(len(streamer.chunks) == PIPE_CHUNKS and streamer.get(0).num_points > 0, "pipeline: ChunkStreamer")
+
+    rows = meta["lod_eval"]
+    cuts = [r["mean_cut"] for r in rows]
+    check([r["tau"] for r in rows] == list(PIPE_TAUS) and all(np.isfinite(r["psnr"]) for r in rows),
+          f"pipeline: lod_eval {rows}")
+    check(all(a >= b for a, b in zip(cuts, cuts[1:])), f"pipeline: the mean cut rises with τ: {cuts}")
+    n_eval = len(PIPE_TAUS) * PIPE_EVAL_VIEWS
+    want = {"coarse": (PIPE_COARSE,) * 3, "post-opt": (PIPE_POST,) * 3, "eval": (n_eval, 0, 0)}
+    for key, expect in want.items():
+        check(launches.get(key) == expect, f"pipeline: {key} launched {launches.get(key)}, expected {expect}")
+    by_stage = [sum(v[k] for v in launches.values()) for k in range(3)]
+    check(list(total.values()) == by_stage and by_stage == [sum(v[k] for v in want.values()) for k in range(3)],
+          f"pipeline: {total} launches in the parent process, {launches} by stage; expected only {want}")
+
+    print(f"[pipeline] {len(chunks)} chunks {chunks}; chunk hierarchy points {sizes}; merged {merged.num_points} "
+          f"points, {merged.num_nodes} nodes")
+    print(f"[pipeline] seconds per stage: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; pipeline.main {wall:.2f} s (pipeline.json: {meta['seconds']:.2f} s)")
+    print(f"[pipeline] τ sweep (evaluate_lod, {PIPE_EVAL_VIEWS} views): " + ", ".join(
+        f"τ={r['tau']:g}: PSNR {r['psnr']:.4f} dB, mean cut {r['mean_cut']:.0f}" for r in rows))
+    print(f"[pipeline] steps skipped by the finite-step gate per chunk: {skipped}")
+    print(f"[pipeline] each worker's train loop (alive rows, seconds of {PIPE_ITERS} iterations, its log): {trained}")
+    print(f"[pipeline] launches in the parent process per stage (fwd, bwd, fold): {launches}; post-opt "
+          f"{1e3 * seconds['post-opt'] / PIPE_POST:.2f} ms per step ({PIPE_POST} steps, host clock, the state's "
+          f"upload included); hier.cli merge bitwise merged.hier; hier.cli create --cameras: {created.num_points} "
+          f"points, {len(anchors)} anchors; ChunkStreamer read {len(streamer.chunks)} chunks")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=total, seconds=seconds, lod=rows)
+
+
 def phase_viewer(scene, cams, max_instances):
     """Both viewers serve one full-width frame of the render scene over
     localhost, through the render function `python -m
@@ -2285,10 +2674,12 @@ def main() -> int:
     pre, tb, err = phase_hold_full_width(scene, cams, cfg, outs)
     times = phase_times(scene, cams[0], cfg, pre, tb)
     phase_breakdown(scene, cams[0], cfg, pre, tb)
+    leaf_renders = [torch.clamp(out["render"], 0, 1) for out in outs]
     del outs
     hier, hier_path = build_scene_hierarchy(scene)
     lod = phase_hierarchy(scene, cams, hier)
-    del hier
+    post_opt = phase_post_opt(hier, cams, leaf_renders)
+    del hier, leaf_renders
     serve = phase_serve(scene, cams, cfg, hier_path)
     shutil.rmtree(hier_path.parent, ignore_errors=True)
     viewer = phase_viewer(scene, cams, serve["cli_budget"])
@@ -2299,13 +2690,17 @@ def main() -> int:
     del pre, tb
     ttimes = phase_train_times(train, held)
     trainer_run = phase_trainer(scene, cams, cfg)
+    trainer_run_launches = trainer_run["launches"]
     del train
     trainer_hold = phase_trainer_hold(trainer_run)
+    del trainer_run, scene
+    pipe = phase_pipeline(dev)
     launches = train_launches
     by_path = {name: {"render": render_launches[name], "serve": serve["launches"][name],
-                      "train": train_launches[name], "trainer": trainer_run["launches"][name],
+                      "train": train_launches[name], "trainer": trainer_run_launches[name],
                       "hierarchy": lod["launches"][name] + serve["hier_launches"][name],
-                      "viewer": viewer["launches"][name]}
+                      "viewer": viewer["launches"][name], "post_opt": post_opt["launches"][name],
+                      "pipeline": pipe["launches"][name]}
                for name in launches}
     kernels = [{
         "name": "blend_fwd",
@@ -2314,7 +2709,7 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_blend.py:326",
         "launches": launches["blend_fwd"],
         "launches_by_path": by_path["blend_fwd"],
-        "max_abs_err": max(err, trainer_hold["fwd_err"], lod["err"]),
+        "max_abs_err": max(err, trainer_hold["fwd_err"], lod["err"], post_opt["fwd_err"]),
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
@@ -2328,7 +2723,7 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_vjp.py:61",
         "launches": launches["blend_bwd"],
         "launches_by_path": by_path["blend_bwd"],
-        "max_abs_err": max(held["err"], trainer_hold["err"]),
+        "max_abs_err": max(held["err"], trainer_hold["err"], post_opt["err"]),
         "ms": ttimes["bwd"]["ms"],
         "plain_ms": ttimes["bwd"]["plain_ms"],
         "bound_ms": ttimes["bwd"]["bound_ms"],
@@ -2343,7 +2738,7 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_vjp.py:455",
         "launches": launches["fold_rows"],
         "launches_by_path": by_path["fold_rows"],
-        "max_abs_err": max(held["fold_err"], trainer_hold["fold_err"]),
+        "max_abs_err": max(held["fold_err"], trainer_hold["fold_err"], post_opt["fold_err"]),
         "ms": ttimes["fold"]["ms"],
         "plain_ms": ttimes["fold"]["plain_ms"],
         "bound_ms": ttimes["fold"]["bound_ms"],

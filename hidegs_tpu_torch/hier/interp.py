@@ -72,16 +72,20 @@ def interpolate_cut(
 ) -> InterpolatedGaussians:
     """The (B [+ skybox],) rendering arrays of one LOD cut.
 
-    Invalid budget slots get opacity 0 (render culls them). Skybox points
-    are the LAST `skybox_count` gaussians (the reference keeps them at the
-    tail, render_post:300-313). `attrs` is `pack_attributes` of the five
-    arrays, built here when not given.
+    Invalid budget slots get opacity 0 (render culls them) and gather row
+    (slot mod P), where the JAX package clamps them all to row P - 1: the
+    gathers' backward sums each run of equal indices in one thread, and a
+    million padding slots on one row cost ~0.8 s per gather on an H100.
+    Skybox points are the LAST `skybox_count` gaussians (the reference keeps
+    them at the tail, render_post:300-313). `attrs` is `pack_attributes` of
+    the five arrays, built here when not given.
     """
     P = means3d.shape[0]
     if attrs is None:
         attrs = pack_attributes(means3d, scales, quats, opacities, shs)
-    ri = torch.clamp(cut.render_indices, max=P - 1).long()
-    pi = torch.clamp(cut.parent_indices, max=P - 1).long()
+    spread = torch.arange(cut.valid.shape[0], device=cut.valid.device) % P
+    ri = torch.where(cut.valid, torch.clamp(cut.render_indices, max=P - 1).long(), spread)
+    pi = torch.where(cut.valid, torch.clamp(cut.parent_indices, max=P - 1).long(), spread)
     t = cut.ts[:, None]
     row_c = attrs[ri]
     row_p = attrs[pi]

@@ -16,7 +16,9 @@ within the rounding bound of a float32 sum, k·2^-24·Σ|row| for k rows, and
 bitwise against the scalar fold it replaced (tools/csrc/fold_rows_scalar.cu,
 fed by a scatter of sorted-instance rows into expansion order). The
 multi-view step (two blends forward and backward) is bitwise reproducible
-and makes no host synchronisation with the chunk box set.
+and makes no host synchronisation with the chunk box set. The post-opt
+step of the hierarchy (train/hier_trainer.py) holds the same way, and
+the pipeline runs on the card end to end.
 """
 import pathlib
 
@@ -626,3 +628,148 @@ def test_native_builder_builds_into_build_dir():
     assert lib.parent == repo / "build" / "hier" and lib.exists()
     assert tbuild.SRC == repo / "hidegs_tpu_torch" / "hier" / "native" / "hier_builder.cpp"
     assert tbuild.native_available()
+
+
+def _post_opt_problem(dev, n=2000, h=96, w=128):
+    """The hierarchy of a toy scene (native builder) with its SH scaled by
+    0.7, three views of the scene on `dev` as targets, the post-opt state
+    and a cut target that interpolates (tau 2 px)."""
+    from hidegs_tpu_torch.hier.build import build_hierarchy
+    from hidegs_tpu_torch.hier.lod import tau_to_target_size
+    from hidegs_tpu_torch.train import hier_trainer as ht
+
+    scene = make_toy_gaussians(n, seed=5, device="cpu")
+    hier = build_hierarchy(*(x.numpy() for x in (scene.means3d, scene.quats, scene.scales, scene.opacities,
+                                                   scene.shs)), use_native=True)
+    rcfg = RasterConfig(tile=16, max_instances=1 << 16)
+    cams = [ring_camera(i, n_cams=3, height=h, width=w, device=dev) for i in range(3)]
+    with torch.no_grad():
+        gts = [torch.clamp(render(*(x.to(dev) for x in scene), c, config=rcfg)["render"], 0, 1) for c in cams]
+    ts = ht.state_from_hierarchy(hier._replace(shs=hier.shs * 0.7), num_images=3, device=dev)
+    return ts, cams, gts, rcfg, tau_to_target_size(2.0, float(cams[0].fx)), 1 << 13
+
+
+@pytest.mark.cuda
+def test_post_opt_step_kernels_hold_against_plain(cuda):
+    """One post-opt step (exposure on): one launch of each kernel; the
+    blend node's forward planes against the plain blend and its backward +
+    fold against the plain backward, on the node's own rows, binning and
+    cotangents; the whole step against the "plain" backend: loss at rtol
+    1e-3, Adam's first moments normalised at 1e-3."""
+    import dataclasses
+
+    from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
+    from hidegs_tpu_torch.train import hier_trainer as ht
+
+    ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
+    cut = ht.select_cut(ts, cams[0], target, budget)
+    assert bool(((cut.ts > 0) & (cut.ts < 1) & cut.valid).any())
+    before = _counts()
+    loss, inputs = ht.hier_step_forward(ts, cut, cams[0], gts[0], rcfg, image_idx=0, use_exposure=True)
+    node = _blend_node(loss.grad_fn)
+    got = {}
+    node.register_prehook(lambda go: got.update(saved=[x.detach() for x in node.saved_tensors],
+                                                g=go[0].contiguous()))
+    node.register_hook(lambda gi, go: got.update(d_attrs=gi[0]))
+    torch.autograd.grad(loss, inputs)
+    torch.cuda.synchronize()
+    assert tuple(x - y for x, y in zip(_counts(), before)) == (1, 1, 1)
+    attrs, tile_out = got["saved"]
+    ty, tx, tile, max_blocks, _ = node.args
+    p_out, p_obs = blend_plain.blend_tile_out(blend_plain.unpack_attrs(attrs), node.binning, ty, tx, tile, max_blocks)
+    torch.testing.assert_close(tile_out, p_out, **BLEND_TOL)
+    g_aug = blend_plain.augment_cotangents(tile_out, got["g"])
+    assert torch.equal(got["d_attrs"], cuda_blend.grad_attrs(attrs, node.binning, node.count, g_aug, tx, tile))
+    rows = blend_plain.blend_tiles_bwd(blend_plain.unpack_attrs(attrs), node.binning, g_aug, ty, tx, tile, max_blocks)
+    want = blend_plain.fold_rows(blend_plain.expansion_rows(rows, node.binning.slot_s), node.binning.g_start)
+    _assert_grads_close(got["d_attrs"], want, "post-opt step")
+
+    lrs = lr_tree(ts.step, LRConfig(), 1.0)
+    kw = dict(image_idx=0, use_exposure=True, optimize_exposure=True)
+    k, mk = ht.hier_train_step(ts, cut, cams[0], gts[0], lrs, rcfg, **kw)
+    p, mp = ht.hier_train_step(ts, cut, cams[0], gts[0], lrs, dataclasses.replace(rcfg, backend="plain"), **kw)
+    torch.testing.assert_close(mk["loss"], mp["loss"], rtol=1e-3, atol=0)
+    assert int(mk["n_visible"]) == int(mp["n_visible"]) > 0
+    for a, b in zip(k.opt.m, p.opt.m):
+        scale = float(b.abs().max()) + 1e-30
+        assert float((a - b).abs().max()) / scale <= STEP_GRAD_TOL
+
+
+@pytest.mark.cuda
+def test_post_opt_step_is_bitwise_deterministic(cuda):
+    """Two post-opt steps from one state: params, moments, per-row step
+    counts and exposure bitwise equal (the parents' gradients are summed by
+    the sorted index_put_ of the interpolation's gathers)."""
+    from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
+    from hidegs_tpu_torch.train import hier_trainer as ht
+
+    ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
+    cut = ht.select_cut(ts, cams[1], target, budget)
+    lrs = lr_tree(ts.step, LRConfig(), 1.0)
+    kw = dict(image_idx=1, use_exposure=True, optimize_exposure=True)
+    a, ma = ht.hier_train_step(ts, cut, cams[1], gts[1], lrs, rcfg, **kw)
+    b, mb = ht.hier_train_step(ts, cut, cams[1], gts[1], lrs, rcfg, **kw)
+    for x, y in zip(list(a.params) + list(a.opt.m) + list(a.opt.v) + [a.opt.step, a.exposure, a.exposure_m],
+                    list(b.params) + list(b.opt.m) + list(b.opt.v) + [b.opt.step, b.exposure, b.exposure_m]):
+        assert torch.equal(x, y)
+    assert torch.equal(ma["loss"], mb["loss"]) and float(ma["loss"]) > 0
+
+
+@pytest.mark.cuda
+def test_post_opt_step_makes_no_host_sync(cuda):
+    """select_cut, the learning rates and a post-opt step with exposure and
+    frozen anchors under torch.cuda.set_sync_debug_mode("error")."""
+    from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
+    from hidegs_tpu_torch.train import hier_trainer as ht
+
+    ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
+    frozen = torch.zeros(ts.params.xyz.shape[0], dtype=torch.bool, device=cuda)
+    frozen[::7] = True
+    kw = dict(frozen=frozen, image_idx=2, use_exposure=True, optimize_exposure=True)
+
+    def step(state):
+        cut = ht.select_cut(state, cams[2], target, budget)
+        return ht.hier_train_step(state, cut, cams[2], gts[2], lr_tree(state.step, LRConfig(), 1.0), rcfg, **kw)
+
+    ts, _ = step(ts)  # builds the kernels and the loss constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, m = step(ts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(new.step) == 2 and bool(torch.isfinite(m["loss"]))
+    assert torch.equal(new.params.xyz[frozen], ts.params.xyz[frozen])
+
+
+@pytest.mark.cuda
+def test_pipeline_runs_on_the_card(cuda, tmp_path):
+    """run_pipeline on the two-cluster scene on the card (3 chunk and 3
+    post-opt iterations, eval at tau 0 and 3): two chunks, finite merged
+    and post-optimized hierarchies; one backward and fold per train and
+    post-opt step, and one forward more per (tau, view) of the eval."""
+    import json
+    import os
+
+    import numpy as np
+
+    from hidegs_tpu_torch import pipeline
+    from hidegs_tpu_torch.hier import io as hio
+    from torch_scenes import write_two_cluster_scene
+
+    src = write_two_cluster_scene(tmp_path / "scene")
+    out = str(tmp_path / "out")
+    before = _counts()
+    pipeline.run_pipeline(src, out, chunk_size=14.0, min_n_cams=3, iterations=3, post_opt_iterations=3,
+                          capacity=256, max_instances=1 << 12, add_far_cams=False, log_every=1000,
+                          eval_taus=(0.0, 3.0), device="cuda")
+    torch.cuda.synchronize()
+    fwd, bwd, fold = (x - y for x, y in zip(_counts(), before))
+    meta = json.load(open(os.path.join(out, "pipeline.json")))
+    assert len(meta["chunks"]) == 2 and len(meta["lod_eval"]) == 2
+    n_eval = 2 * 8  # two taus, eight of the ten views
+    assert bwd == fold == 3 * 2 + 3 and fwd == bwd + n_eval, (fwd, bwd, fold)
+    for name in ("merged.hier", "merged_opt.hier"):
+        h = hio.read_hier(os.path.join(out, name))
+        assert all(np.isfinite(getattr(h, f)).all() for f in ("pos", "rot", "scale", "alpha", "shs"))
+    assert all(np.isfinite(r["psnr"]) and r["mean_cut"] > 0 for r in meta["lod_eval"])

