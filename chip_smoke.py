@@ -15,9 +15,13 @@ viewers (`python -m hidegs_tpu_torch.viewer`'s HTTP and SIBR frontends),
 training (`hidegs_tpu_torch.train.loop.train_step`, which adds the CUDA
 backward blend and the gradient fold kernel), and the scene trainer
 (`python -m hidegs_tpu_torch.train`, two blends forward and backward per
-multi-view step), and the large-scene pipeline (`python -m
+multi-view step), the large-scene pipeline (`python -m
 hidegs_tpu_torch.pipeline`: chunking, a coarse model, the chunks in worker
-processes, merge, post-opt, the τ sweep) — and holds every kernel of those
+processes, merge, post-opt, the τ sweep), and the view-parallel trainer
+(`parallel.sharded.make_dp_train_step`: four views a step, a forward
+blend, a backward blend and a fold per view, the gradients summed by one
+collective; one rank, a one-rank NCCL group, two gloo ranks on the card,
+and `python -m hidegs_tpu_torch.parallel`) — and holds every kernel of those
 paths, and the bf16
 attribute-stream mode of both blends, against its plain PyTorch version.
 Phases (run in the order of `main`):
@@ -186,7 +190,29 @@ Phases (run in the order of `main`):
      chunk 0, ChunkStreamer over the chunks, the mean cut not rising with
      τ. Prints the seconds per stage, the merged size, PSNR and cut per τ,
      the steps each chunk's finite-step gate skipped, and ms per post-opt
-     step.
+     step;
+ 15. view-parallel (parallel/sharded.py:make_dp_train_step) on phase 8's
+     train cell, four views a step: (a) one rank, 10 steps with no process
+     group and 10 in a one-rank NCCL group, float32 and on the bf16 wire;
+     launch counts read around the no-group runs: 4 of each kernel per
+     step. Checks: finite losses, mean PSNR up; each NCCL run bitwise its
+     no-group run; the bf16 wire's first step within rtol 1e-4 of float32's
+     loss and its xyz update at cosine > 0.99; two steps from one state
+     bitwise equal; a V = 1 step on view 0 bitwise train_step's; one NCCL
+     step under set_sync_debug_mode("error"); the four blend nodes of a step
+     held against the plain versions (forward with hold_node_forward,
+     backward and fold with hold_backward). Prints ms per step (no group,
+     NCCL), the local forward + backward alone, the gradient all-reduce
+     alone in float32 and bf16 with its bytes, the masked Adam update, one
+     step under the profiler and the peak memory. (d) one step under
+     utils.profiling.trace: the trace must name the three kernels and the
+     annotated range. (b) two ranks on the card: whether NCCL takes them
+     (a two-rank NCCL probe), then gloo on CUDA tensors, 3 steps on a
+     (2, 1) mesh (two views a rank) and on a (1, 2) mesh (rows split, all
+     views), each against (a)'s float32 run at tests/test_torch_train.py's
+     tolerances, the ranks bitwise equal (digests of the whole state). (c)
+     `python -m hidegs_tpu_torch.parallel --nproc 1 --backend nccl` and
+     `--nproc 4 --backend gloo --device cuda` pass their asserts.
 
 Prints a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 In the kernels line, `ms`, `plain_ms`, `bound_ms` and `library_ms` come from
@@ -194,10 +220,11 @@ the render cell (phase 5: blend_fwd) and the train path (phase 11:
 blend_bwd, fold_rows); `launches` is the train path's count (phase 8), as
 in earlier slices; `launches_by_path` holds the count of every path (render,
 serve, train, trainer, hierarchy with render_cli --hierarchy, viewer,
-post_opt, pipeline);
+post_opt, pipeline, view_parallel);
 `max_abs_err` is the largest error of the kernel's full-width holds in
 phases 4 and 6a (forward), 10 (backward, fold), 13 (all three, on both
-nodes of a multi-view step) and 6b (all three, the post-opt step). Each blend entry has a `bf16` object from
+nodes of a multi-view step), 6b (all three, the post-opt step) and 15
+(all three, the four nodes of a view-parallel step). Each blend entry has a `bf16` object from
 phase 10a: the bf16 mode's `ms` (median of its two turns), the float32
 kernel's time in the same turns (`f32_ms_in_turns`), `plain_ms`,
 `bound_ms`, `bound_by`, `max_abs_err` against the plain bf16 version, and
@@ -1160,15 +1187,15 @@ def train_leaves(ts):
             + [ts.opt.step, g.alive, g.grad_max, g.grad_abs_max, g.max_radii2d, ts.exposure, ts.step])
 
 
-def phase_train(scene, cams, cfg):
-    """The training path at full width; launch counts read around it."""
+def train_cell(scene, cams, cfg):
+    """The train cell (phases 8 and 15): the four rendered views as
+    targets, the trainable state, the TrainConfig and the batches."""
     import dataclasses
 
     from hidegs_tpu_torch.raster.api import render, round_budget
     from hidegs_tpu_torch.train import loop as tl
 
     dev = scene.means3d.device
-    t0 = time.perf_counter()
     with torch.no_grad():
         targets = [render(*scene, cam, active_sh_degree=3, config=cfg)["render"] for cam in cams]
     # the reference's cameras_extent: 1.1 x the largest camera distance from
@@ -1191,6 +1218,19 @@ def phase_train(scene, cams, cfg):
     # of the visible instances, so a round that moves that range reorders
     # rows it never touched
     pcfg = dataclasses.replace(rcfg, depth_sort_bits=0)
+    return dict(targets=targets, extent=extent, capacity=capacity, ts=ts, rcfg=rcfg, tcfg=tcfg, batches=batches,
+                pcfg=pcfg)
+
+
+def phase_train(scene, cams, cfg):
+    """The training path at full width; launch counts read around it."""
+    from hidegs_tpu_torch.train import loop as tl
+
+    t0 = time.perf_counter()
+    cell = train_cell(scene, cams, cfg)
+    targets, extent, capacity, ts = cell["targets"], cell["extent"], cell["capacity"], cell["ts"]
+    rcfg, tcfg, batches, pcfg = cell["rcfg"], cell["tcfg"], cell["batches"], cell["pcfg"]
+    del cell
     psnr0, views0 = mean_psnr(ts, cams, targets, pcfg)
     alive0 = int(ts.gaussians.alive.sum())
     print(f"[train] capacity {capacity}, alive {alive0}, extent {extent:.3f}, max_instances "
@@ -1771,6 +1811,299 @@ def phase_trainer_hold(trainer_run):
     profile_device(lambda: tl.train_step(ts, batch, tcfg), "trainer-mv-breakdown")
     return dict(fwd_err=fwd_err, err=max(h["err"] for h in errs), fold_err=max(h["fold_err"] for h in errs),
                 mv_ms=mv_ms, sv_ms=sv_ms)
+
+DP_STEPS = 10  # view-parallel steps (V = 4) per run at full width (phase 15)
+DP_RANK_STEPS = 3  # steps of each two-rank run on the card
+DP_LEAF_TOL = 1e-2  # tests/test_torch_train.py: parameters within 1e-2·lr on the elements with a gradient
+DP_WIRE_M_TOL = 5e-3  # tests/test_torch_train.py: the first step's Adam m within 5e-3 of its max
+
+
+def nccl_pair_probe(rank, world, init_method):
+    """A rank of a two-rank NCCL group on card 0 (phase 15 asks whether
+    NCCL takes two ranks on one card)."""
+    from hidegs_tpu_torch.parallel import distributed as pdist
+
+    pdist.initialize_distributed(backend="nccl", device=torch.device("cuda", 0), init_method=init_method,
+                                 world_size=world, rank=rank)
+    try:
+        x = torch.ones(4, device="cuda")
+        torch.distributed.all_reduce(x)
+        torch.cuda.synchronize()
+    finally:
+        pdist.shutdown_distributed()
+
+
+def leaf_lr(tcfg, spatial_lr_scale):
+    lr = tcfg.lr
+    return {"xyz": lr.position_lr_init * spatial_lr_scale, "sh_dc": lr.feature_lr,
+            "sh_rest": lr.feature_lr / lr.feature_rest_div, "scaling": lr.scaling_lr,
+            "rotation": lr.rotation_lr, "opacity": lr.opacity_lr}
+
+
+def hold_params(got, kept, start, tcfg, what):
+    """tests/test_torch_train.py's parameter check after len(kept) steps:
+    within DP_LEAF_TOL·lr of the reference on the elements whose gradient
+    (Adam's m) stood above 1e-1 of its leaf's largest on every reference
+    step, unmoved where the reference had none. `got`: numpy params;
+    `kept`: the reference's states after each step; `start`: its state
+    before them. Returns the largest departure in units of lr."""
+    lrs = leaf_lr(tcfg, float(start.gaussians.spatial_lr_scale))
+    worst = 0.0
+    for f, lr in lrs.items():
+        ms = [getattr(k.opt.m, f).abs() for k in kept]
+        signal = torch.stack([m > 1e-1 * m.max() for m in ms]).all(0)
+        still = torch.stack([m == 0 for m in ms]).all(0)
+        want = getattr(kept[-1].gaussians.params, f)
+        g = torch.as_tensor(got[f], device=want.device)
+        if bool(signal.any()):
+            d = float((g[signal] - want[signal]).abs().max()) / lr
+            worst = max(worst, d)
+            check(d <= DP_LEAF_TOL, f"{what}: param {f} departs {d:.3e} lr on the elements with a gradient")
+        first = getattr(start.gaussians.params, f)
+        check(torch.equal(g[still], first[still]), f"{what}: param {f} moved where no step had a gradient")
+    return worst
+
+
+def phase_view_parallel(scene, cams, cfg):
+    """15. The view-parallel trainer (parallel/sharded.py) on the train cell."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from hidegs_tpu_torch.model.adam import masked_adam_update
+    from hidegs_tpu_torch.model.schedules import lr_tree
+    from hidegs_tpu_torch.parallel import distributed as pdist
+    from hidegs_tpu_torch.parallel import dryrun, sharded
+    from hidegs_tpu_torch.parallel.mesh import make_mesh
+    from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.utils import profiling
+
+    dev = scene.means3d.device
+    t0 = time.perf_counter()
+    cell = train_cell(scene, cams, cfg)
+    ts0, tcfg, views, targets, pcfg = cell["ts"], cell["tcfg"], cell["batches"], cell["targets"], cell["pcfg"]
+    del cell
+    V = len(views)
+    batch = sharded.stack_view_batches(views)
+    work = ROOT / "build" / "dp_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    psnr0, _ = mean_psnr(ts0, cams, targets, pcfg)
+    print(f"[dp] train cell: capacity {ts0.gaussians.capacity}, V = {V} views of {cams[0].width}x{cams[0].height} "
+          f"a step, mean PSNR before {psnr0:.4f} dB (set-up {time.perf_counter() - t0:.1f} s)")
+
+    # (a) one rank: no process group, then a one-rank NCCL group
+    runs = {}
+    for wire in (None, torch.bfloat16):
+        step, _ = sharded.make_dp_train_step(tcfg, None, grad_reduce_dtype=wire)
+        reset_counts()
+        ts, kept, losses = ts0, [], []
+        for k in range(DP_STEPS):
+            ts, m = step(ts, batch)
+            losses.append(m["loss"])
+            if k < DP_RANK_STEPS:
+                kept.append(ts)
+        launches = read_counts()
+        losses = [float(x) for x in losses]
+        name = "f32" if wire is None else "bf16"
+        print(f"[dp] no group, {name} wire: {DP_STEPS} steps, losses {', '.join(f'{x:.5f}' for x in losses)}; "
+              f"launches {launches}")
+        check(launches == {k: V * DP_STEPS for k in launches},
+              f"view-parallel {name}: launches {launches}, expected {V} of each kernel per step")
+        check(all(np.isfinite(losses)), f"view-parallel {name}: non-finite losses {losses}")
+        runs[name] = dict(ts=ts, kept=kept, losses=losses, launches=launches)
+    psnr1, views1 = mean_psnr(runs["f32"]["ts"], cams, targets, pcfg)
+    print(f"[dp] mean PSNR {psnr0:.4f} -> {psnr1:.4f} dB after {DP_STEPS} steps "
+          f"(views {', '.join(f'{v:.3f}' for v in views1)})")
+    check(psnr1 > psnr0, f"view-parallel: mean PSNR did not rise ({psnr0:.4f} -> {psnr1:.4f})")
+    a1, b1 = runs["f32"]["kept"][0], runs["bf16"]["kept"][0]
+    np.testing.assert_allclose(runs["bf16"]["losses"][0], runs["f32"]["losses"][0], rtol=1e-4)
+    da, db = a1.gaussians.params.xyz - ts0.gaussians.params.xyz, b1.gaussians.params.xyz - ts0.gaussians.params.xyz
+    moved = (da.abs().amax(1) > 0) | (db.abs().amax(1) > 0)
+    cos = float((da[moved] * db[moved]).sum() / (da[moved].norm() * db[moved].norm() + 1e-12))
+    m_dep = float((a1.opt.m.xyz - b1.opt.m.xyz).abs().max() / a1.opt.m.xyz.abs().max())
+    print(f"[dp] bf16 wire vs float32, first step: loss {runs['bf16']['losses'][0]:.7f} vs "
+          f"{runs['f32']['losses'][0]:.7f} (rtol 1e-4 holds), xyz update cosine {cos:.6f} over {int(moved.sum())} "
+          f"rows (> 0.99), Adam m of xyz departs {m_dep:.3e} of its max (in (0, {DP_WIRE_M_TOL}))")
+    check(cos > 0.99, f"bf16 wire: first update cosine {cos}")
+    check(0 < m_dep < DP_WIRE_M_TOL, f"bf16 wire: the first step's Adam m of xyz departs {m_dep:.3e} of its max "
+          f"from the float32 wire's (want above 0, the wire rounded, and below {DP_WIRE_M_TOL})")
+
+    step32, _ = sharded.make_dp_train_step(tcfg, None)
+    a, ma = step32(ts0, batch)
+    b, mb = step32(ts0, batch)
+    for i, (x, y) in enumerate(zip(train_leaves(a), train_leaves(b))):
+        check(torch.equal(x, y), f"two view-parallel steps from one state differ in leaf {i}")
+    check(torch.equal(ma["loss"], mb["loss"]), "two view-parallel steps from one state differ in the loss")
+    one = sharded.stack_view_batches(views[:1])
+    a, ma = step32(ts0, one)
+    b, mb = tl.train_step(ts0, views[0], tcfg)
+    check(float(mb["step_ok"]) == 1.0, "the single-view step is not finite")
+    for i, (x, y) in enumerate(zip(train_leaves(a), train_leaves(b))):
+        check(torch.equal(x, y), f"a V = 1 view-parallel step differs from train_step in leaf {i}")
+    print("[dp] two steps from one state bitwise equal; a V = 1 step on view 0 bitwise train_step's")
+    del a, b, ma, mb
+
+    pdist.initialize_distributed(backend="nccl", device=dev, init_method=dryrun.file_init_method(str(work)),
+                                 world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, device_type="cuda")
+        for wire in (None, torch.bfloat16):
+            name = "f32" if wire is None else "bf16"
+            step, place = sharded.make_dp_train_step(tcfg, mesh, grad_reduce_dtype=wire)
+            ts, b = place(ts0, batch)
+            losses = []
+            for _ in range(DP_STEPS):
+                ts, m = step(ts, b)
+                losses.append(float(m["loss"]))
+            check(losses == runs[name]["losses"], f"one-rank NCCL {name}: losses differ from the no-group run")
+            for i, (x, y) in enumerate(zip(train_leaves(ts), train_leaves(runs[name]["ts"]))):
+                check(torch.equal(x, y), f"one-rank NCCL {name}: leaf {i} differs from the no-group run")
+            print(f"[dp] one-rank NCCL group, {name} wire: {DP_STEPS} steps bitwise the no-group run")
+        step, place = sharded.make_dp_train_step(tcfg, mesh)
+        ts, b = place(runs["f32"]["ts"], batch)
+        sync(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ts, m = step(ts, b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(bool(torch.isfinite(m["loss"])), "the NCCL step under sync debug: non-finite loss")
+        print("[dp] a one-rank NCCL step ran under set_sync_debug_mode('error'): no host sync")
+        grp = mesh.get_group(0)
+        flat_len = sum(p.numel() for p in ts.gaussians.params) + len(m)
+        times = {}
+        for wdt in (torch.float32, torch.bfloat16):
+            buf = torch.zeros(flat_len, dtype=wdt, device=dev)
+            times[wdt] = (time_ms(lambda: dist.all_reduce(buf, group=grp)), buf.numel() * buf.element_size())
+        nccl_ms = time_ms(lambda: step(ts, b))
+    finally:
+        pdist.shutdown_distributed()
+    ar32, ar16 = times[torch.float32], times[torch.bfloat16]
+
+    # the last step's four blend nodes, held against the plain versions
+    got = []
+
+    def hooking(compute_losses):
+        def hooked(*args, **kwargs):
+            total, aux = compute_losses(*args, **kwargs)
+            for node in find_nodes(total.grad_fn, "BlendPackedBackward"):
+                got.append({})
+                keep_backward_inputs(node, got[-1])
+            return total, aux
+
+        return hooked
+
+    with patched(sharded, "compute_losses", hooking):
+        step32(runs["f32"]["ts"], batch)
+    check(len(got) == V, f"view-parallel hold: {len(got)} blend nodes in a V = {V} step")
+    fwd_err, holds = 0.0, []
+    for j, g in enumerate(got):
+        check(bool(g), f"view-parallel hold: view {j}'s blend backward did not run")
+        ty, tx, tile, max_blocks, _bf16 = g["args"]
+        fwd_err = max(fwd_err, hold_node_forward(g, f"view-parallel step, view {j}", tag="dp-hold"))
+        h = hold_backward(g["attrs"], g["tb"], g["count"], g["tile_out"], g["g_tiles"], ty, tx, tile, max_blocks,
+                          f"view-parallel step, view {j}")
+        check(torch.equal(g["d_attrs"], h["got"]), "view-parallel hold: a node's d_attrs are not the launchers'")
+        holds.append(h)
+        print(f"[dp-hold] view {j}: backward + fold kernels vs blend_tiles_bwd + plain fold: {hold_report(h)}")
+    hold = dict(fwd_err=fwd_err, err=max(h["err"] for h in holds), fold_err=max(h["fold_err"] for h in holds))
+    del got, holds
+
+    # times
+    ts = runs["f32"]["ts"]
+    step_ms = time_ms(lambda: step32(ts, batch))
+
+    def local_fwd_bwd():
+        out = None
+        for view in views:
+            loss, _aux, inputs = tl.step_forward(ts, view, tcfg)
+            out = tl.step_backward(loss / V, inputs)
+        return out
+
+    fb_ms = time_ms(local_fwd_bwd)
+    grads = type(ts.gaussians.params)(*local_fwd_bwd()[:len(ts.gaussians.params)])
+    visible = ts.gaussians.alive
+    lrs = lr_tree(ts.step, tcfg.lr, ts.gaussians.spatial_lr_scale)
+    upd_ms = time_ms(lambda: masked_adam_update(ts.gaussians.params, grads, ts.opt, lrs, visible))  # alive rows
+    del grads
+    torch.cuda.reset_peak_memory_stats(dev)
+    step32(ts, batch)
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[dp-times] view-parallel step, V = {V} at {cams[0].width}x{cams[0].height}, CUDA events, median of "
+          f"{ITERS} after {WARMUP} warm-ups: no group {step_ms:.3f} ms, one-rank NCCL group {nccl_ms:.3f} ms; "
+          f"local forward + backward of the {V} views {fb_ms:.3f} ms; the gradient all-reduce alone (one-rank "
+          f"NCCL) {ar32[0]:.3f} ms for {ar32[1]:,} bytes (float32), {ar16[0]:.3f} ms for {ar16[1]:,} bytes "
+          f"(bf16); the masked Adam update {upd_ms:.3f} ms; peak memory {peak / 2**30:.2f} GiB")
+    profile_device(lambda: step32(ts, batch), "dp-breakdown")
+
+    # (d) the trace
+    tdir = work / "trace"
+    with profiling.trace(str(tdir), device=dev):
+        with profiling.annotate("dp_step", device=dev):
+            step32(ts, batch)
+    tfile = tdir / profiling.TRACE_FILE
+    names = {e.get("name", "") for e in json.loads(tfile.read_text())["traceEvents"]}
+    for want in ("blend_fwd_kernel", "blend_bwd_kernel", "fold_rows_kernel", "dp_step"):
+        check(any(want in n for n in names), f"the trace of a view-parallel step names no {want}")
+    print(f"[dp-trace] utils.profiling.trace of one V = {V} step: {tfile.stat().st_size:,} bytes, names the three "
+          f"kernels and the 'dp_step' range")
+    shutil.rmtree(tdir, ignore_errors=True)
+
+    # (b) two ranks on the card
+    t0 = time.perf_counter()
+    try:
+        dryrun.launch(nccl_pair_probe, 2, (dryrun.file_init_method(str(work / "nccl_pair")),), 120,
+                      str(work / "nccl_pair_logs"))
+        why = "NCCL took two ranks on one card, but the runs below use gloo as planned"
+    except RuntimeError as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if "Duplicate GPU" in ln]
+        why = ("NCCL refuses two ranks on one card: " + lines[0][:200] if lines else
+               "NCCL did not form a two-rank group on one card: " + str(e).strip().splitlines()[0][:200])
+    print(f"[dp-ranks] backend gloo (CUDA tensors): {why} ({time.perf_counter() - t0:.1f} s to find out)")
+    rank_runs = [dict(name="replicated", data=2, model=1, steps=DP_RANK_STEPS, save_steps=[DP_RANK_STEPS],
+                      save="params"),
+                 dict(name="sharded", data=1, model=2, shard=True, steps=DP_RANK_STEPS, save_steps=[DP_RANK_STEPS],
+                      save="params")]
+    job = work / "job.pt"
+    t0 = time.perf_counter()
+    dryrun.save_dp_job(str(job), ts0, views, tcfg, rank_runs)
+    logs = dryrun.launch(dryrun.dp_worker, 2, (dryrun.file_init_method(str(work / "ranks")), "gloo", "cuda",
+                                               str(job), str(work)), 900, str(work / "rank_logs"))
+    wall = time.perf_counter() - t0
+    res = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    rank_ms = {}
+    for run in rank_runs:
+        n = run["name"]
+        r0, r1 = res[0][n], res[1][n]
+        check(np.array_equal(r0["digest"], r1["digest"]) and r0["losses"] == r1["losses"],
+              f"two ranks, {n}: the ranks' states differ")
+        np.testing.assert_allclose(r0["losses"], runs["f32"]["losses"][:DP_RANK_STEPS], rtol=1e-3)
+        dep = hold_params(r0["states"][DP_RANK_STEPS], runs["f32"]["kept"], ts0, tcfg, f"two ranks, {n}")
+        rank_ms[n] = 1e3 * float(np.median(r0["seconds"]))
+        print(f"[dp-ranks] {n} ({run['data']}x{run['model']} mesh, {V // run['data']} views a rank): losses "
+              f"{', '.join(f'{x:.5f}' for x in r0['losses'])} (the V = {V} run's within rtol 1e-3), params within "
+              f"{dep:.3e} lr of it (tol {DP_LEAF_TOL}), the two ranks' states bitwise equal; "
+              f"{rank_ms[n]:.1f} ms per step (median of {len(r0['seconds'])}, host clock)")
+    print(f"[dp-ranks] two-rank runs: {wall:.1f} s with the job file and the spawn")
+    del res
+
+    # (c) the schedule leg
+    for args in (["--nproc", "1", "--backend", "nccl"], ["--nproc", "4", "--backend", "gloo", "--device", "cuda"]):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "hidegs_tpu_torch.parallel", *args], cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+        ok_lines = [ln for ln in r.stdout.splitlines() if ln.startswith("dryrun_") and ln.endswith(" ok")]
+        check(r.returncode == 0 and len(ok_lines) == 3,
+              f"python -m hidegs_tpu_torch.parallel {' '.join(args)}: rc {r.returncode}\n{r.stdout[-3000:]}"
+              f"\n{r.stderr[-3000:]}")
+        print(f"[dp-dryrun] {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+        for ln in ok_lines:
+            print(f"[dp-dryrun]   {ln}")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=runs["f32"]["launches"], step_ms=step_ms, nccl_ms=nccl_ms, rank_ms=rank_ms, **hold)
+
 
 LOD_TAUS = (0.0, 3.0, 6.0, 15.0)  # pixel granularities of the hierarchy phase
 LOD_HOLD_TAU = 6.0  # the τ whose frame the forward kernel is held on
@@ -2693,14 +3026,16 @@ def main() -> int:
     trainer_run_launches = trainer_run["launches"]
     del train
     trainer_hold = phase_trainer_hold(trainer_run)
-    del trainer_run, scene
+    del trainer_run
     pipe = phase_pipeline(dev)
+    vp = phase_view_parallel(scene, cams, cfg)
+    del scene
     launches = train_launches
     by_path = {name: {"render": render_launches[name], "serve": serve["launches"][name],
                       "train": train_launches[name], "trainer": trainer_run_launches[name],
                       "hierarchy": lod["launches"][name] + serve["hier_launches"][name],
                       "viewer": viewer["launches"][name], "post_opt": post_opt["launches"][name],
-                      "pipeline": pipe["launches"][name]}
+                      "pipeline": pipe["launches"][name], "view_parallel": vp["launches"][name]}
                for name in launches}
     kernels = [{
         "name": "blend_fwd",
@@ -2709,7 +3044,7 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_blend.py:326",
         "launches": launches["blend_fwd"],
         "launches_by_path": by_path["blend_fwd"],
-        "max_abs_err": max(err, trainer_hold["fwd_err"], lod["err"], post_opt["fwd_err"]),
+        "max_abs_err": max(err, trainer_hold["fwd_err"], lod["err"], post_opt["fwd_err"], vp["fwd_err"]),
         "ms": times["ms"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
@@ -2723,7 +3058,7 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_vjp.py:61",
         "launches": launches["blend_bwd"],
         "launches_by_path": by_path["blend_bwd"],
-        "max_abs_err": max(held["err"], trainer_hold["err"], post_opt["err"]),
+        "max_abs_err": max(held["err"], trainer_hold["err"], post_opt["err"], vp["err"]),
         "ms": ttimes["bwd"]["ms"],
         "plain_ms": ttimes["bwd"]["plain_ms"],
         "bound_ms": ttimes["bwd"]["bound_ms"],
@@ -2738,7 +3073,7 @@ def main() -> int:
         "replaces": "hidegs_tpu/raster/pallas_vjp.py:455",
         "launches": launches["fold_rows"],
         "launches_by_path": by_path["fold_rows"],
-        "max_abs_err": max(held["fold_err"], trainer_hold["fold_err"], post_opt["fold_err"]),
+        "max_abs_err": max(held["fold_err"], trainer_hold["fold_err"], post_opt["fold_err"], vp["fold_err"]),
         "ms": ttimes["fold"]["ms"],
         "plain_ms": ttimes["fold"]["plain_ms"],
         "bound_ms": ttimes["fold"]["bound_ms"],

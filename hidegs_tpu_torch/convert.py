@@ -22,7 +22,7 @@ from hidegs_tpu_torch.device import DeviceLike, resolve_device
 from hidegs_tpu_torch.model.adam import AdamState
 from hidegs_tpu_torch.model.gaussians import GaussianParams, GaussianState
 from hidegs_tpu_torch.train import lpips
-from hidegs_tpu_torch.train.loop import TrainState
+from hidegs_tpu_torch.train.loop import TrainState, ViewBatch
 from hidegs_tpu_torch.utils.ply import load_gaussian_arrays
 
 RenderInputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -182,3 +182,30 @@ def lpips_params_from_jax(params: Dict[str, np.ndarray], device: DeviceLike = "c
     if missing:
         raise KeyError(f"LPIPS parameters lack {missing}")
     return lpips.params_to_device({k: np.asarray(params[k]) for k in need}, device)
+
+
+def stacked_views_from_jax(
+    R, t, fx, fy, cx, cy,
+    height: int,
+    width: int,
+    image,
+    image_idx,
+    device: DeviceLike = "cuda",
+) -> ViewBatch:
+    """A stacked ViewBatch (parallel.sharded.stack_view_batches) from the
+    numpy leaves of the JAX package's stacked one
+    (hidegs_tpu/parallel/sharded.py:stack_view_batches): each leaf has a
+    leading view axis V; the views share `height` and `width`."""
+    dev = resolve_device(device)
+    cam = CameraParams(R=_tensor(R, dev), t=_tensor(t, dev), fx=_tensor(fx, dev), fy=_tensor(fy, dev),
+                       cx=_tensor(cx, dev), cy=_tensor(cy, dev), height=int(height), width=int(width))
+    return ViewBatch(cam=cam, image=_tensor(image, dev),
+                     image_idx=torch.tensor(np.asarray(image_idx, np.int64), device=dev))
+
+
+def pixel_samples_from_jax(uvs, device: DeviceLike = "cuda") -> torch.Tensor:
+    """The (V, n, 2) multi-view pixel samples of a view-parallel step from
+    the JAX package's per-view draws (numpy, in view order): the `uv` of
+    parallel.sharded's step."""
+    return _tensor(np.stack([np.asarray(u, np.float32) for u in uvs]), resolve_device(device))
+

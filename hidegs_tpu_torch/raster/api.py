@@ -18,7 +18,7 @@ Backends (`RasterConfig.backend`):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -60,6 +60,12 @@ class RasterConfig:
     # in the JAX package, whose "jnp" backend ignores it as "plain" and
     # "oracle" do here.
     bf16_stream: bool = False
+    # optional callable applied to the capacity-sized PreprocessedGaussians
+    # before compaction and binning; returns the rows the rest of the render
+    # uses. A gaussian-sharded step (parallel/sharded.py) gathers the model
+    # group's preprocessed rows here, so that each rank preprocesses only
+    # its own rows (docs/SHARDING.md). None = no-op.
+    pre_constraint: Optional[Callable] = None
 
     def __post_init__(self):
         if self.backend in _RENAMED:
@@ -121,6 +127,8 @@ def render(
         box_exempt=box_exempt,
         screen_bounds=(tiles_x * config.tile, tiles_y * config.tile),
     )
+    if config.pre_constraint is not None:
+        pre = config.pre_constraint(pre)
 
     if config.backend == "oracle":
         out = render_oracle(pre, cam, background=background, render_geo=render_geo)

@@ -108,6 +108,7 @@ class TrainState(NamedTuple):
     step: torch.Tensor  # () int32, on the device
     generator: torch.Generator  # CPU generator of the densify draws
     mv_generator: torch.Generator  # generator of the multi-view pixel draws, on the state's device
+    rows_split: int = 1  # model ranks the row fields are split over (parallel.sharded.shard_rows)
 
 
 class ViewBatch(NamedTuple):
@@ -191,10 +192,14 @@ def compute_losses(
     mean2d_offset: torch.Tensor,
     use_exposure: bool,
     uv: Optional[torch.Tensor] = None,
+    scale_rows: Optional[torch.Tensor] = None,
 ):
     """The loss stack. Returns (total, aux dict of tensors). `uv`: the
     multi-view pixel samples (`sample_pixels`), needed when the batch has a
-    multi-view part."""
+    multi-view part. `scale_rows`: the (C, 3) scales the scale
+    regularization reads, row for row with the render's visibility; by
+    default `gaussians.scales`. A gaussian-sharded step whose render gathers
+    the preprocessed rows (parallel/sharded.py) passes the gathered scales."""
     render_geo = cfg.single_view_weight > 0 or batch.multi_view is not None
     box_kw = {}
     if cfg.chunk_box is not None:
@@ -236,7 +241,7 @@ def compute_losses(
 
     if cfg.lambda_freq > 0 or cfg.lambda_scale > 0:
         freq_loss, _, _ = frequency_regularization(
-            img, gt, gaussians.scales, out["visibility"], step,
+            img, gt, gaussians.scales if scale_rows is None else scale_rows, out["visibility"], step,
             lambda_freq=cfg.lambda_freq, lambda_scale=cfg.lambda_scale,
             warmup_iterations=cfg.freq_warmup,
         )

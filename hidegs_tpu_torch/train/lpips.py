@@ -23,6 +23,7 @@ between the two packages (ROADMAP C6); carried across with
 from __future__ import annotations
 
 import functools
+import os
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -129,3 +130,90 @@ def random_lpips_params(seed: int = 0, device: DeviceLike = "cuda") -> Params:
     for j, (ch, _) in enumerate(VGG16_BLOCKS):
         arrays[f"lin{j}_w"] = np.ones((1, ch, 1, 1)) / ch
     return params_to_device(arrays, device)
+
+
+def params_from_torch_modules(conv_modules, lin_weights=None) -> Dict[str, np.ndarray]:
+    """Map torch Conv2d modules (in VGG16 feature order) + optional LPIPS
+    1x1 linear-head weights to this module's parameter dict, as numpy
+    arrays (`params_to_device` puts them on a device).
+
+    `conv_modules`: the 13 VGG16 Conv2d layers in forward order.
+    `lin_weights`: 5 arrays of shape (1, C, 1, 1) (the lpips package's
+    `net.lins[j].model[-1].weight`); uniform 1/C heads when omitted.
+    """
+    n_convs = sum(n for _, n in VGG16_BLOCKS)
+    if len(conv_modules) != n_convs:
+        raise ValueError(f"expected {n_convs} convs, got {len(conv_modules)}")
+    params: Dict[str, np.ndarray] = {}
+    for i, m in enumerate(conv_modules):
+        params[f"conv{i}_w"] = np.asarray(m.weight.detach().cpu().numpy(), np.float32)
+        params[f"conv{i}_b"] = np.asarray(m.bias.detach().cpu().numpy(), np.float32)
+    for j, (ch, _) in enumerate(VGG16_BLOCKS):
+        if lin_weights is not None:
+            w = np.asarray(lin_weights[j], np.float32).reshape(1, ch, 1, 1)
+        else:
+            w = np.full((1, ch, 1, 1), 1.0 / ch, np.float32)
+        params[f"lin{j}_w"] = w
+    return params
+
+
+def cached_vgg16_convs() -> List[torch.nn.Conv2d]:
+    """torchvision's ImageNet VGG16 conv layers (IMAGENET1K_V1, the trunk
+    both sources use), loaded from torch.hub's cache. Nothing here fetches
+    weights: a missing file raises FileNotFoundError naming it."""
+    from torchvision.models import VGG16_Weights, vgg16
+
+    path = os.path.join(torch.hub.get_dir(), "checkpoints", os.path.basename(VGG16_Weights.IMAGENET1K_V1.url))
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{path}: torchvision's VGG16 ImageNet weights are not in torch.hub's cache; "
+                                "put the file there (this conversion fetches nothing)")
+    net = vgg16(weights=None)
+    net.load_state_dict(torch.load(path, map_location="cpu"))
+    return [m for m in net.features if isinstance(m, torch.nn.Conv2d)]
+
+
+def convert_torch_weights(out_npz: str, source: str = "lpips") -> Dict[str, np.ndarray]:
+    """Convert pretrained torch weights to the .npz `load_lpips` reads (the
+    JAX package's format, so either package loads it).
+
+    Run where the needed packages are installed and torchvision's VGG16
+    ImageNet weights are in torch.hub's cache (none of them is a
+    dependency of this repository, and nothing here fetches weights):
+      * source="lpips": the `lpips` pip package's calibrated VGG LPIPS
+        (its linear heads, which the package ships, on torchvision's
+        trunk), the reference's exact metric
+        (lpipsPyTorch/modules/lpips.py:8-36);
+      * source="torchvision": torchvision's ImageNet VGG16 trunk with
+        uniform heads (uncalibrated).
+    """
+    if source == "lpips":
+        import lpips as lpips_pkg
+
+        convs = cached_vgg16_convs()
+        # pnet_rand: a trunk of random weights in place of the fetched one
+        # (the convs above take its place); the heads load from the package
+        net = lpips_pkg.LPIPS(net="vgg", pnet_rand=True)
+        lins = [lin.model[-1].weight.detach().cpu().numpy() for lin in net.lins]
+        params = params_from_torch_modules(convs, lins)
+    elif source == "torchvision":
+        params = params_from_torch_modules(cached_vgg16_convs())
+    else:
+        raise ValueError(f"unknown source {source!r}")
+    np.savez(out_npz, **params)
+    return params
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description=convert_torch_weights.__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--out", required=True, help="output .npz path")
+    p.add_argument("--source", default="lpips", choices=["lpips", "torchvision"])
+    a = p.parse_args(argv)
+    params = convert_torch_weights(a.out, a.source)
+    print(f"wrote {len(params)} arrays to {a.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -773,3 +773,127 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
         h = hio.read_hier(os.path.join(out, name))
         assert all(np.isfinite(getattr(h, f)).all() for f in ("pos", "rot", "scale", "alpha", "shs"))
     assert all(np.isfinite(r["psnr"]) and r["mean_cut"] > 0 for r in meta["lod_eval"])
+
+
+# ---------------------------------------------------------------------------
+# the view-parallel step (parallel/sharded.py) on the card
+
+
+def _dp_problem(dev, n=2000, hw=128, views=4):
+    from hidegs_tpu_torch.model.gaussians import init_from_points
+    from hidegs_tpu_torch.train import loop as tl
+
+    scene = make_toy_gaussians(n, seed=0, device=dev)
+    cams = [ring_camera(i, n_cams=views, height=hw, width=hw, device=dev) for i in range(views)]
+    rcfg = RasterConfig(max_instances=1 << 17)
+    with torch.no_grad():
+        vs = [tl.ViewBatch(cam=c, image=render(*scene, c, config=rcfg)["render"], image_idx=torch.tensor(i, device=dev))
+              for i, c in enumerate(cams)]
+    state = init_from_points(scene.means3d, torch.full((n, 3), 0.5, device=dev), capacity=2048)
+    cfg = tl.TrainConfig(iterations=100, raster=rcfg, freq_warmup=0, single_view_from=0)
+    return tl.init_train_state(state, views), vs, cfg
+
+
+def _dp_leaves(ts):
+    g = ts.gaussians
+    return list(g.params) + list(ts.opt.m) + list(ts.opt.v) + [ts.opt.step, g.grad_max, g.max_radii2d, ts.step]
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_step_is_bitwise_the_step_without_group(cuda, tmp_path):
+    """Three V = 4 steps in a one-rank NCCL group, float32 and on the bf16
+    wire, bitwise the steps with no group; four launches of each kernel a
+    step; the bf16 wire's first step within rtol 1e-4 of float32's loss and
+    its update at cosine > 0.99 (tests/test_parallel.py's bf16 check)."""
+    from hidegs_tpu_torch.parallel import distributed as pdist
+    from hidegs_tpu_torch.parallel import dryrun, sharded
+    from hidegs_tpu_torch.parallel.mesh import make_mesh
+
+    ts0, views, cfg = _dp_problem(cuda)
+    batch = sharded.stack_view_batches(views)
+    alone = {}
+    for wire in (None, torch.bfloat16):
+        step, _ = sharded.make_dp_train_step(cfg, None, grad_reduce_dtype=wire)
+        before = (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+        ts, out = ts0, []
+        for _ in range(3):
+            ts, m = step(ts, batch)
+            out.append((ts, float(m["loss"])))
+        torch.cuda.synchronize()
+        after = (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+        assert [a - b for a, b in zip(after, before)] == [12, 12, 12]
+        alone[wire] = out
+    pdist.initialize_distributed(backend="nccl", device=cuda, init_method=dryrun.file_init_method(str(tmp_path)),
+                                 world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, device_type="cuda")
+        for wire in (None, torch.bfloat16):
+            step, place = sharded.make_dp_train_step(cfg, mesh, grad_reduce_dtype=wire)
+            ts, b = place(ts0, batch)
+            for want, want_loss in alone[wire]:
+                ts, m = step(ts, b)
+                assert float(m["loss"]) == want_loss
+                assert all(torch.equal(x, y) for x, y in zip(_dp_leaves(ts), _dp_leaves(want)))
+    finally:
+        pdist.shutdown_distributed()
+    (a, la), (b, lb) = alone[None][0], alone[torch.bfloat16][0]
+    assert abs(lb - la) <= 1e-4 * abs(la)
+    da = a.gaussians.params.xyz - ts0.gaussians.params.xyz
+    db = b.gaussians.params.xyz - ts0.gaussians.params.xyz
+    moved = (da.abs().amax(1) > 0) | (db.abs().amax(1) > 0)
+    cos = float((da[moved] * db[moved]).sum() / (da[moved].norm() * db[moved].norm()))
+    assert cos > 0.99, cos
+    assert not torch.equal(a.opt.m.xyz, b.opt.m.xyz)
+
+
+def _two_gloo_ranks(dev, runs, tmp_path):
+    from hidegs_tpu_torch.parallel import dryrun
+
+    ts0, views, cfg = _dp_problem(dev)
+    job = tmp_path / "job.pt"
+    dryrun.save_dp_job(str(job), ts0, views, cfg, runs)
+    dryrun.launch(dryrun.dp_worker, 2, (dryrun.file_init_method(str(tmp_path / "rdv")), "gloo", "cuda", str(job),
+                                        str(tmp_path)), 600, str(tmp_path / "logs"))
+    return ts0, views, cfg, [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_match_one_rank(cuda, tmp_path):
+    """Two ranks on one card over gloo (NCCL takes one card per rank), two
+    views each: the ranks bitwise equal, the losses within rtol 1e-5 and
+    the parameters within 1e-5 of the one-process V = 4 run (the gradient
+    sum's order differs)."""
+    from hidegs_tpu_torch.parallel import sharded
+
+    runs = [dict(name="dp", data=2, model=1, steps=3, save_steps=[3])]
+    ts0, views, cfg, res = _two_gloo_ranks(cuda, runs, tmp_path)
+    assert (res[0]["dp"]["digest"] == res[1]["dp"]["digest"]).all()
+    step, _ = sharded.make_dp_train_step(cfg, None)
+    ts, losses = ts0, []
+    for _ in range(3):
+        ts, m = step(ts, sharded.stack_view_batches(views))
+        losses.append(float(m["loss"]))
+    got = res[0]["dp"]
+    torch.testing.assert_close(torch.tensor(got["losses"]), torch.tensor(losses), rtol=1e-5, atol=0)
+    for f in sharded.PARAM_FIELDS:
+        torch.testing.assert_close(torch.as_tensor(got["states"][3]["gaussians"]["params"][f]),
+                                   getattr(ts.gaussians.params, f).cpu(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sharded_rows_on_the_card_equal_the_replicated_run(cuda, tmp_path):
+    """Two gloo ranks on a (1, 2) mesh: the rows split over "model", with
+    the rows gathered before the render and with the preprocessed rows
+    gathered inside it, against the same mesh replicated: the first step's
+    gradients (Adam's m) equal, not doubled."""
+    runs = [dict(name="repl", data=1, model=2, steps=2, save_steps=[1]),
+            dict(name="shard", data=1, model=2, shard=True, steps=2, save_steps=[1]),
+            dict(name="pre", data=1, model=2, shard=True, replicate_preprocessed=True, steps=2, save_steps=[1])]
+    _, _, _, res = _two_gloo_ranks(cuda, runs, tmp_path)
+    repl, shard, pre = (res[0][n]["states"][1]["m"] for n in ("repl", "shard", "pre"))
+    for f in repl:
+        want = torch.as_tensor(repl[f])
+        assert torch.equal(torch.as_tensor(shard[f]), want), f
+        torch.testing.assert_close(torch.as_tensor(pre[f]), want, rtol=0, atol=1e-6 * float(want.abs().max()) + 1e-30)
+    for n in ("repl", "shard", "pre"):
+        assert (res[0][n]["digest"] == res[1][n]["digest"]).all(), n

@@ -49,8 +49,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # the render, training, serving, trainer, LOD/viewer and pipeline slices
-    assert int(proc.stdout.split()[0]) >= 61
+    # the render, training, serving, trainer, LOD/viewer, pipeline and
+    # multi-GPU slices
+    assert int(proc.stdout.split()[0]) >= 68
 
 
 def test_the_scan_covers_the_hierarchy_and_the_viewers():
@@ -71,6 +72,39 @@ def test_the_scan_covers_the_pipeline_slice():
     assert len(PIPELINE_SLICE) == 15
     for name in PIPELINE_SLICE:
         assert f"hidegs_tpu_torch.{name}" in mods, name
+
+
+PARALLEL_SLICE = ("parallel.mesh", "parallel.distributed", "parallel.bands", "parallel.sharded",
+                  "parallel.dryrun", "parallel.__main__", "utils.profiling")
+
+
+def test_the_scan_covers_the_parallel_slice():
+    mods = _modules()
+    for name in PARALLEL_SLICE:
+        assert f"hidegs_tpu_torch.{name}" in mods, name
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """`python -m hidegs_tpu_torch.parallel` and the process group run on
+    the card unless the caller asks for the CPU; NCCL is never swapped for
+    gloo."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from hidegs_tpu_torch.parallel import distributed as pdist
+    from hidegs_tpu_torch.parallel import dryrun
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--nproc", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pdist.initialize_distributed(init_method=dryrun.file_init_method(str(tmp_path)), world_size=1, rank=0)
+    assert pdist.default_backend("cuda") == "nccl" and pdist.default_backend("cpu") == "gloo"
+    launched = []
+    monkeypatch.setattr(dryrun, "launch", lambda *a, **k: launched.append(a) or "")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="one card per rank"):
+        dryrun.main(["--nproc", "2"])
+    dryrun.main(["--nproc", "2", "--backend", "gloo"])
+    assert launched[0][2][1:3] == ("gloo", "cuda")
 
 
 def test_chunk_workers_run_the_port_on_the_parents_device(monkeypatch, tmp_path):
