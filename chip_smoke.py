@@ -13,7 +13,9 @@ scene (`python -m hidegs_tpu_torch.evaluate` and `render_cli`, with and
 without `--hierarchy`, which reach the forward blend once per view), the
 viewers (`python -m hidegs_tpu_torch.viewer`'s HTTP and SIBR frontends),
 training (`hidegs_tpu_torch.train.loop.train_step`, which adds the CUDA
-backward blend and the gradient fold kernel), and the scene trainer
+backward blend and the gradient fold kernel, eager and compiled into one
+CUDA graph per static key by `train.compiled.CompiledTrainStep`), and the
+scene trainer
 (`python -m hidegs_tpu_torch.train`, two blends forward and backward per
 multi-view step), the large-scene pipeline (`python -m
 hidegs_tpu_torch.pipeline`: chunking, a coarse model, the chunks in worker
@@ -147,23 +149,39 @@ Phases (run in the order of `main`):
      against the scalar fold path it replaced (the sorted rows scattered by
      blend_plain.expansion_rows, then the scalar fold) in turns and
      bitwise, and one step under torch.profiler;
+ 11a. the compiled train step (train/compiled.py: one CUDA graph per
+     static key, replayed) beside the eager one from the train cell's
+     fresh state: 30 single-view steps, 30 multi-view steps (each view with
+     its row neighbour as the source, the same injected samples for both),
+     5 steps each with use_exposure, a row budget below the capacity and
+     visible-row compaction, all five keys in one CompiledTrainStep.
+     Checks: after every step the states and the metrics bitwise equal;
+     every replay under set_sync_debug_mode("error"); per replay the
+     graph's 1 or 2 launches of each kernel, the warm-up's once per
+     capture. Prints ms per step of both modes (CUDA events, median of 10
+     after 2 warm-ups), host ms per replay, warm-up and capture seconds
+     and the graph pool's growth per key, an eager step's peak allocation,
+     and a single- and a multi-view step of each mode under the profiler;
  12. trainer at full width: the four views written as a COLMAP scene
      (write_synthetic_colmap_scene, point_stride 4: 252,560 sparse points;
      every view must have a neighbour), then `trainer.main` (`python -m
-     hidegs_tpu_torch.train`) for 60 iterations on the card: automatic
-     capacity, no eval split, freq warm-up 0, the single-view term from 0,
-     the multi-view terms (differentiable source) from iteration 21, one
-     densify round at 30, checkpoints at 1 and 60. Launch counts are read
-     around the trainer's train steps alone: one of each kernel per
-     single-view step, two per multi-view step (100 each). Checks: finite
-     losses, no step skipped by the finite-step gate, at least a fifth of
-     the multi-view steps with valid samples (a pair that overlaps), the
-     final state on the card, `evaluate.main` reads both checkpoints and
-     the PSNR rises.
+     hidegs_tpu_torch.train`) for 60 iterations on the card, on the
+     compiled step: automatic capacity, no eval split, freq warm-up 0, the
+     single-view term from 0, the multi-view terms (differentiable source)
+     from iteration 21, one densify round at 30, checkpoints at 1 and 60.
+     Launch counts are read around the trainer's train steps alone: one
+     replayed launch of each kernel per single-view step, two per
+     multi-view step (100 each), and a capture's warm-up step once more.
+     Checks: finite losses, no step skipped by the finite-step gate, at
+     least a fifth of the multi-view steps with valid samples (a pair that
+     overlaps), the final state on the card, `evaluate.main` reads both
+     checkpoints and the PSNR rises. Then the same run on the eager step
+     (loop.train_step handed to the trainer), for its times in this call.
      Prints ms per trainer iteration of the single-view window (2-20) and
-     the multi-view window (31-60), host clock synchronised at the ends of
-     each run of counted iterations (saves, the densify round and the
-     iterations before a counter fetch left out), and the init times;
+     the multi-view window (31-60) of both runs, host clock synchronised at
+     the ends of each run of counted iterations (saves, the densify round
+     and the iterations before a counter fetch left out), each capture's
+     cost, and the init times;
  13. trainer hold, on the trained state and the view pair of the last
      multi-view iteration with valid samples: both BlendPacked nodes of
      the step (reference and source render) held against the plain
@@ -172,7 +190,8 @@ Phases (run in the order of `main`):
      `hold_backward`; two multi-view steps from one state and
      generator bitwise equal, a step with the chunk box under
      torch.cuda.set_sync_debug_mode("error"), a multi-view and a
-     single-view step timed, and a multi-view step under the profiler;
+     single-view step timed eager and compiled, and a multi-view step of
+     each under the profiler;
  14. pipeline: the JAX package's large-scene layout (the r5 record,
      benchmarks/largescene_run.py) at reduced depth:
      make_uav_gaussians(60,000, 96 structures, seed 7, extent 24) as a
@@ -219,8 +238,10 @@ In the kernels line, `ms`, `plain_ms`, `bound_ms` and `library_ms` come from
 the render cell (phase 5: blend_fwd) and the train path (phase 11:
 blend_bwd, fold_rows); `launches` is the train path's count (phase 8), as
 in earlier slices; `launches_by_path` holds the count of every path (render,
-serve, train, trainer, hierarchy with render_cli --hierarchy, viewer,
-post_opt, pipeline, view_parallel);
+serve, train, train_compiled (phase 11a: replays and warm-ups), trainer,
+hierarchy with render_cli --hierarchy, viewer, post_opt, pipeline,
+view_parallel); a replay of a captured step counts the launches its graph
+recorded (train/compiled.py:REPLAY_LAUNCHES);
 `max_abs_err` is the largest error of the kernel's full-width holds in
 phases 4 and 6a (forward), 10 (backward, fold), 13 (all three, on both
 nodes of a multi-view step), 6b (all three, the post-opt step) and 15
@@ -373,16 +394,32 @@ def time_per_launch_ms(fn, launches=20, warmup=WARMUP, iters=ITERS):
 
 def reset_counts():
     from hidegs_tpu_torch.raster import cuda_blend
+    from hidegs_tpu_torch.train import compiled
 
     cuda_blend.LAUNCHES = cuda_blend.BWD_LAUNCHES = cuda_blend.FOLD_LAUNCHES = 0
+    compiled.REPLAY_LAUNCHES.update(dict.fromkeys(compiled.REPLAY_LAUNCHES, 0))
+
+
+def direct_counts():
+    """The launchers' own counts (kernel by kernel), which a graph replay
+    does not reach."""
+    from hidegs_tpu_torch.raster import cuda_blend
+
+    return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+
+
+def replay_counts():
+    """The launches graph replays of the compiled train step made."""
+    from hidegs_tpu_torch.train import compiled
+
+    return tuple(compiled.REPLAY_LAUNCHES[k] for k in compiled.KERNELS)
 
 
 def read_counts():
-    from hidegs_tpu_torch.raster import cuda_blend
-
+    """Every launch since reset_counts: the launchers' and the replays'."""
     torch.cuda.synchronize()
-    return {"blend_fwd": cuda_blend.LAUNCHES, "blend_bwd": cuda_blend.BWD_LAUNCHES,
-            "fold_rows": cuda_blend.FOLD_LAUNCHES}
+    return dict(zip(("blend_fwd", "blend_bwd", "fold_rows"),
+                    (a + b for a, b in zip(direct_counts(), replay_counts()))))
 
 
 def profile_device(fn, label):
@@ -406,12 +443,13 @@ def profile_device(fn, label):
     busy_ms = sum(ms for _, ms in by_name.values())
     if busy_ms == 0.0:
         print(f"[{label}] profiler saw no device time: device busy share not measured")
-        return
+        return None
     n_ops = sum(n for n, _ in by_name.values())
     print(f"[{label}] one run under the profiler: host wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) in {n_ops} device ops")
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[{label}]   {ms:8.3f} ms  x{n:<4d} {name[:100]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, ops=n_ops)
 
 
 def phase_environment():
@@ -1535,6 +1573,157 @@ def phase_train_times(train, held):
                 fold=dict(fold, library_ms=fold_library_ms))
 
 
+COMPILED_STEPS = 30  # single- and multi-view steps of each mode in the compiled phase (11a)
+COMPILED_SHORT = 5  # steps of the exposure, row-budget and compaction variants
+
+
+def first_difference(a, b):
+    """None when the tensors of two train states are bitwise equal, else
+    the first that differs: (index, its shape, max abs difference)."""
+    from hidegs_tpu_torch.train import compiled
+
+    for n, (x, y) in enumerate(zip(compiled._tensors(a), compiled._tensors(b), strict=True)):
+        if not torch.equal(x, y):
+            return n, tuple(x.shape), max_abs_err(x.float(), y.float())
+    return None
+
+
+def phase_compiled(scene, cams, cfg):
+    """11a. The compiled train step (train/compiled.py) beside the eager
+    one, from the same fresh train-cell state: COMPILED_STEPS single-view
+    steps, COMPILED_STEPS multi-view steps (each view with its row
+    neighbour as the source, both modes fed the same injected samples),
+    and COMPILED_SHORT steps each with use_exposure, a row budget below
+    the capacity, and visible-row compaction (max_visible). One
+    CompiledTrainStep holds every key, so their graphs share one pool.
+    Gates: after every step the two states and the metrics bitwise equal;
+    every replay (all but each variant's first call, which warms up and
+    captures) under set_sync_debug_mode("error"); launches exact: the
+    graph's recorded launches (1 or 2 of each kernel) per replay, the
+    warm-up's once per capture. Prints ms per step of both modes (CUDA
+    events, median of 10 after 2 warm-ups), the host ms per replay, each
+    key's warm-up and capture seconds and the graph pool's growth, the
+    peak memory of both modes, and one step of each mode under the
+    profiler."""
+    import dataclasses
+
+    from hidegs_tpu_torch.raster.api import round_budget
+    from hidegs_tpu_torch.train import compiled
+    from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.train.geometric import MultiViewBatch, sample_pixels
+
+    dev = scene.means3d.device
+    cell = train_cell(scene, cams, cfg)
+    ts0, tcfg, batches = cell["ts"], cell["tcfg"], cell["batches"]
+    del cell
+    N = scene.means3d.shape[0]
+    mv_cfg = dataclasses.replace(tcfg, multi_view_from=0)
+    gray = [b.image.mean(0) for b in batches]
+
+    def mv_batch(i):
+        j = i ^ 1  # the view beside it on its grid row
+        return batches[i]._replace(multi_view=MultiViewBatch(src_image_gray=gray[j], src_cam=batches[j].cam))
+
+    # the compaction budget: the trainer's rule (+25%, quarter-octave) over
+    # the views' visible rows
+    peak = max(int(tl.train_step(ts0, b, tcfg)[1]["num_visible"]) for b in batches)
+    ccfg = dataclasses.replace(tcfg, raster=dataclasses.replace(tcfg.raster, max_visible=round_budget(int(peak * 1.25))))
+    row_budget = -(-N // 4096) * 4096
+    variants = [
+        ("single-view", tcfg, False, 0, [batches[k % 4] for k in range(COMPILED_STEPS)]),
+        ("multi-view", mv_cfg, False, 0, [mv_batch(k % 4) for k in range(COMPILED_STEPS)]),
+        ("exposure", tcfg, True, 0, [batches[k % 4] for k in range(COMPILED_SHORT)]),
+        ("row budget", tcfg, False, row_budget, [batches[k % 4] for k in range(COMPILED_SHORT)]),
+        ("compaction", ccfg, False, 0, [batches[k % 4] for k in range(COMPILED_SHORT)]),
+    ]
+    print(f"[compiled] train cell: capacity {ts0.gaussians.capacity}, {N} alive rows; row budget {row_budget}; "
+          f"compaction budget {ccfg.raster.max_visible} (peak visible {peak}); {COMPILED_STEPS} single- and "
+          f"multi-view steps, {COMPILED_SHORT} of each other variant")
+    step = compiled.CompiledTrainStep()
+    launches = dict.fromkeys(("blend_fwd", "blend_bwd", "fold_rows"), 0)
+    results = {}
+    for name, vcfg, use_exposure, rb, vbatches in variants:
+        eager = comp = ts0
+        per_step = 2 if vbatches[0].multi_view is not None else 1
+        gen = torch.Generator(device=dev).manual_seed(7)
+        diverged, mv_valid = None, 0
+        for k, batch in enumerate(vbatches):
+            uv = None
+            if batch.multi_view is not None:
+                uv = sample_pixels(gen, vcfg.multi_view_sample_num, batch.cam.height, batch.cam.width,
+                                   vcfg.multi_view_patch_half)
+            eager, em = tl.train_step(eager, batch, vcfg, use_exposure, rb, uv=uv)
+            sync(dev)
+            direct, replayed, n_captures = direct_counts(), replay_counts(), len(step.captures)
+            if k > 0:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                comp, cm = step(comp, batch, vcfg, use_exposure, rb, uv=uv)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sync(dev)
+            d = tuple(b - a for a, b in zip(direct, direct_counts()))
+            r = tuple(b - a for a, b in zip(replayed, replay_counts()))
+            captured = len(step.captures) > n_captures
+            check(captured == (k == 0), f"compiled {name} step {k}: captured {captured}")
+            check(r == (per_step,) * 3 and d == ((per_step,) * 3 if captured else (0, 0, 0)),
+                  f"compiled {name} step {k}: replayed launches {r}, the launchers' {d}")
+            for j, key in enumerate(launches):
+                launches[key] += d[j] + r[j]
+            bad = [m for m in em if not torch.equal(em[m], cm[m])]
+            diff = first_difference(comp, eager)
+            if (bad or diff) and diverged is None:
+                diverged = (k, bad, diff)
+            mv_valid += int(batch.multi_view is not None and float(cm["mv_geo"]) > 0)
+            check(float(cm["step_ok"]) == 1.0 and bool(torch.isfinite(cm["total"])), f"compiled {name} step {k}")
+        check(diverged is None, f"compiled {name}: the compiled and eager states part at step {diverged[0] if diverged else None}: "
+                                f"metrics {diverged[1] if diverged else None}, state tensor {diverged[2] if diverged else None}")
+        info = step.captures[-1]
+        print(f"[compiled] {name}: {len(vbatches)} steps, compiled and eager states and metrics bitwise equal after "
+              f"every step; replays made no host sync; {per_step} of each kernel's launches per replay"
+              + (f"; {mv_valid} steps with valid multi-view samples" if per_step == 2 else "")
+              + f"; warm-up {info['warmup_s']:.3f} s, capture {info['capture_s']:.3f} s, graph pool +"
+              f"{info['pool_reserved_bytes'] / 2**30:.3f} GiB reserved")
+
+        # times of both modes from the same state, the batch of step 0
+        batch = vbatches[0]
+        uv = None if batch.multi_view is None else sample_pixels(gen, vcfg.multi_view_sample_num, batch.cam.height,
+                                                                 batch.cam.width, vcfg.multi_view_patch_half)
+        eager_ms = time_ms(lambda: tl.train_step(ts0, batch, vcfg, use_exposure, rb, uv=uv))
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        tl.train_step(ts0, batch, vcfg, use_exposure, rb, uv=uv)
+        sync(dev)
+        eager_peak = torch.cuda.max_memory_allocated(dev) - base
+        compiled_ms = time_ms(lambda: step(comp, batch, vcfg, use_exposure, rb, uv=uv))
+        host = []
+        for _ in range(ITERS):
+            sync(dev)
+            t0 = time.perf_counter()
+            step(comp, batch, vcfg, use_exposure, rb, uv=uv)
+            host.append(1e3 * (time.perf_counter() - t0))
+        sync(dev)
+        results[name] = dict(eager_ms=eager_ms, compiled_ms=compiled_ms, host_ms=statistics.median(host),
+                             capture_s=info["capture_s"], warmup_s=info["warmup_s"],
+                             pool_gib=info["pool_reserved_bytes"] / 2**30, eager_peak_gib=eager_peak / 2**30)
+        print(f"[compiled] {name}: ms per step (CUDA events, median of {ITERS} after {WARMUP}) eager {eager_ms:.3f}, "
+              f"compiled {compiled_ms:.3f} ({eager_ms / compiled_ms:.2f}x); host ms per replay (copy-in and "
+              f"launch, median of {ITERS}) {statistics.median(host):.3f}; an eager step allocates "
+              f"{eager_peak / 2**30:.3f} GiB at its peak above what was allocated before it (the new state "
+              f"included); a replay allocates nothing: its memory is the graph pool")
+        if name in ("single-view", "multi-view"):
+            for mode, fn in (("eager", lambda: tl.train_step(ts0, batch, vcfg, use_exposure, rb, uv=uv)),
+                             ("compiled", lambda: step(comp, batch, vcfg, use_exposure, rb, uv=uv))):
+                results[name][f"{mode}_profile"] = profile_device(fn, f"compiled-{name}-{mode}")
+        del eager, comp
+    pool = sum(c["pool_reserved_bytes"] for c in step.captures) / 2**30
+    print(f"[compiled] {len(step.captures)} captures, {step.replays} replays in one CompiledTrainStep; the graph "
+          f"pool grew by {pool:.3f} GiB over its captures (reserved after each capture less before it); "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.3f} GiB reserved by this process; launches on the compiled "
+          f"path (replays and warm-ups of the gated steps): {launches}")
+    return dict(launches=launches, results=results, pool_gib=pool)
+
+
 def trainer_timing_plan(n_iters, check_every):
     """Which trainer iterations each timed window counts, and where the
     host clock is read (after a synchronise) at the start of a train step.
@@ -1567,17 +1756,92 @@ def window_ms(counted, stamps_at):
     return 1e3 * total / len(counted), runs
 
 
+# the per-step metrics the trainer phase reads (cloned after each step: the
+# compiled step's metrics live until its next replay)
+TRAINER_KEYS = ("total", "photo", "single_view", "mv_ncc", "mv_geo", "step_ok", "overflow", "block_overflow",
+                "visible_overflow")
+
+
+def run_trainer(args, dev, stamp_its, eager=False):
+    """`trainer.main(args)` (what `python -m hidegs_tpu_torch.train` runs)
+    with each train step watched: the host clock (synchronised) at the
+    iterations in `stamp_its`, the launches of each step, split into the
+    launchers' own (the eager step, a capture's warm-up) and the replays',
+    whether it captured a graph, and its metrics. On the card the trainer
+    runs the compiled step; `eager=True` hands it `loop.train_step`
+    instead, for the comparison of one run with the other."""
+    from hidegs_tpu_torch.data import scene as scene_io
+    from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.train import trainer
+
+    stamps, steps, timers, made = {}, [], {}, []
+
+    def timed(key):
+        def wrap(fn):
+            def call(*args, **kwargs):
+                sync(dev)
+                t = time.perf_counter()
+                res = fn(*args, **kwargs)
+                sync(dev)
+                timers[key] = time.perf_counter() - t
+                return res
+            return call
+        return wrap
+
+    def spy_step(step_fn):
+        def call(ts, batch, tcfg, *args, **kwargs):
+            it = len(steps) + 1
+            if it in stamp_its or it == 1:
+                sync(dev)
+                stamps[it] = time.perf_counter()
+            direct, replayed = direct_counts(), replay_counts()
+            n_captures = len(getattr(step_fn, "captures", ()))
+            ts, metrics = step_fn(ts, batch, tcfg, *args, **kwargs)
+            if it == 1:
+                sync(dev)
+                timers["first_step"] = time.perf_counter() - stamps[1]
+            steps.append(dict(direct=tuple(b - a for a, b in zip(direct, direct_counts())),
+                              replayed=tuple(b - a for a, b in zip(replayed, replay_counts())),
+                              captured=len(getattr(step_fn, "captures", ())) > n_captures,
+                              metrics={k: metrics[k].clone() for k in TRAINER_KEYS if k in metrics},
+                              mv=batch.multi_view is not None, batch=batch, tcfg=tcfg))
+            return ts, metrics
+        return call
+
+    def step_factory(compiled_step):
+        def make():
+            made.append(tl.train_step if eager else compiled_step())
+            return spy_step(made[-1])
+        return make
+
+    with contextlib.ExitStack() as stack:
+        for obj, name, wrapper in ((scene_io, "load_scene", timed("load_scene")),
+                                   (trainer, "init_gaussians_from_scene", timed("init")),
+                                   (trainer, "CompiledTrainStep", step_factory)):
+            stack.enter_context(patched(obj, name, wrapper))
+        reset_counts()
+        t0 = time.perf_counter()
+        ts = trainer.main(args)
+        sync(dev)
+        t_main = time.perf_counter() - t0
+        launches = read_counts()
+    check(len(made) == 1 and len(steps) == TRAINER_ITERS,
+          f"trainer: {len(steps)} train steps of {len(made)} step functions, expected {TRAINER_ITERS} of one")
+    return dict(ts=ts, steps=steps, stamps=stamps, timers=timers, t_main=t_main, launches=launches,
+                captures=getattr(made[0], "captures", []))
+
+
 def phase_trainer(scene, cams, cfg):
     """The trainer at full width, as a user runs it: the render cell's four
     views written as a COLMAP scene, then `trainer.main` (what `python -m
     hidegs_tpu_torch.train` runs) for TRAINER_ITERS iterations with the
-    multi-view terms from TRAINER_MV_FROM on, then `evaluate.main` on the
-    first and the last checkpoint. Launch counts are read around each of
-    the trainer's train steps alone."""
+    multi-view terms from TRAINER_MV_FROM on, on the compiled step; then
+    `evaluate.main` on the first and the last checkpoint; then the same
+    run on the eager step, for the times of both in one call. Launch counts
+    are read around each of the trainer's train steps alone."""
     from hidegs_tpu_torch import evaluate
     from hidegs_tpu_torch.data import scene as scene_io
     from hidegs_tpu_torch.data.synthetic import write_synthetic_colmap_scene
-    from hidegs_tpu_torch.raster import cuda_blend
     from hidegs_tpu_torch.raster.api import RasterConfig
     from hidegs_tpu_torch.train import trainer
 
@@ -1598,90 +1862,57 @@ def phase_trainer(scene, cams, cfg):
     del loaded
 
     counted, stamp_its = trainer_timing_plan(TRAINER_ITERS, trainer.OVERFLOW_CHECK_EVERY)
-    stamps, steps, timers = {}, [], {}
 
-    def counts():
-        return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+    def args_for(model_dir):
+        return ["--source_path", str(src), "--model_path", str(model_dir), "--iterations", str(TRAINER_ITERS),
+                "--freq_warmup_iterations", "0", "--single_view_weight_from_iter", "0",
+                "--multi_view_weight_from_iter", str(TRAINER_MV_FROM), "--densify_from_iter", "1",
+                "--densify_until_iter", str(TRAINER_DENSIFY_AT), "--densification_interval", str(TRAINER_DENSIFY_AT),
+                "--save_iterations", *map(str, TRAINER_SAVES), "--device", str(dev)]
 
-    def timed(key):
-        def wrap(fn):
-            def call(*args, **kwargs):
-                sync(dev)
-                t = time.perf_counter()
-                res = fn(*args, **kwargs)
-                sync(dev)
-                timers[key] = time.perf_counter() - t
-                return res
-            return call
-        return wrap
-
-    def spy_step(train_step):
-        def call(ts, batch, tcfg, *args, **kwargs):
-            it = len(steps) + 1
-            if it in stamp_its or it == 1:
-                sync(dev)
-                stamps[it] = time.perf_counter()
-            before = counts()
-            res = train_step(ts, batch, tcfg, *args, **kwargs)
-            if it == 1:
-                sync(dev)
-                timers["first_step"] = time.perf_counter() - stamps[1]
-            steps.append(dict(launches=tuple(b - a for a, b in zip(before, counts())), metrics=res[1],
-                              mv=batch.multi_view is not None, batch=batch, tcfg=tcfg))
-            return res
-        return call
-
-    args = ["--source_path", str(src), "--model_path", str(model), "--iterations", str(TRAINER_ITERS),
-            "--freq_warmup_iterations", "0", "--single_view_weight_from_iter", "0",
-            "--multi_view_weight_from_iter", str(TRAINER_MV_FROM), "--densify_from_iter", "1",
-            "--densify_until_iter", str(TRAINER_DENSIFY_AT), "--densification_interval", str(TRAINER_DENSIFY_AT),
-            "--save_iterations", *map(str, TRAINER_SAVES), "--device", str(dev)]
-    with contextlib.ExitStack() as stack:
-        for obj, name, wrapper in ((scene_io, "load_scene", timed("load_scene")),
-                                   (trainer, "init_gaussians_from_scene", timed("init")),
-                                   (trainer, "train_step", spy_step)):
-            stack.enter_context(patched(obj, name, wrapper))
-        reset_counts()
-        t0 = time.perf_counter()
-        ts = trainer.main(args)
-        sync(dev)
-        t_main = time.perf_counter() - t0
-        launches = read_counts()
-    check(len(steps) == TRAINER_ITERS, f"trainer: {len(steps)} train steps, expected {TRAINER_ITERS}")
+    run = run_trainer(args_for(model), dev, stamp_its)
+    steps, launches, timers = run["steps"], run["launches"], run["timers"]
     mv = [s["mv"] for s in steps]
     check(mv == [False] * (TRAINER_MV_FROM - 1) + [True] * (TRAINER_ITERS - TRAINER_MV_FROM + 1),
           f"trainer: multi-view steps at {[i + 1 for i, m in enumerate(mv) if m]}")
     for i, s in enumerate(steps):
         want = (2, 2, 2) if s["mv"] else (1, 1, 1)
-        check(s["launches"] == want, f"trainer iteration {i + 1}: launches {s['launches']}, expected {want}")
-    in_steps = {k: sum(s["launches"][j] for s in steps) for j, k in enumerate(launches)}
+        check(s["replayed"] == want and s["direct"] == (want if s["captured"] else (0, 0, 0)),
+              f"trainer iteration {i + 1}: replayed launches {s['replayed']}, the launchers' {s['direct']} "
+              f"(captured: {s['captured']}), expected {want} replayed and the warm-up's on a capture")
+    names = list(launches)
+    in_steps = {k: sum(s["replayed"][j] for s in steps) for j, k in enumerate(names)}
+    warmups = {k: sum(s["direct"][j] for s in steps) for j, k in enumerate(names)}
     want = (TRAINER_MV_FROM - 1) + 2 * (TRAINER_ITERS - TRAINER_MV_FROM + 1)
-    check(in_steps == {k: want for k in launches}, f"trainer: launches in the train steps {in_steps}, expected {want}")
-    keys = ("total", "photo", "single_view", "mv_ncc", "mv_geo", "step_ok", "overflow", "block_overflow",
-            "visible_overflow")
+    check(in_steps == {k: want for k in names}, f"trainer: replayed launches in the train steps {in_steps}, "
+                                                f"expected {want}")
     vals = torch.stack([torch.stack([s["metrics"].get(k, torch.zeros((), device=dev)).to(torch.float64)
-                                     for k in keys]) for s in steps]).cpu().numpy()
+                                     for k in TRAINER_KEYS]) for s in steps]).cpu().numpy()
     check(bool(np.isfinite(vals).all()), "trainer: a non-finite loss or metric")
-    check(bool((vals[:, keys.index("step_ok")] == 1.0).all()), "trainer: a step was skipped by the finite-step gate")
-    overflow = vals[:, keys.index("overflow"):].sum()
-    others = {k: launches[k] - in_steps[k] for k in launches}
-    print(f"[trainer] {TRAINER_ITERS} iterations in {t_main:.2f} s host wall (trainer.main: load, init, train, "
-          f"2 checkpoint saves); launches on the trainer path {launches}: in the train steps {in_steps} "
-          f"({TRAINER_MV_FROM - 1} single-view steps x 1 + {TRAINER_ITERS - TRAINER_MV_FROM + 1} multi-view steps "
-          f"x 2), outside them (probe and save renders) {others}; budget overflow summed over steps {overflow:.0f}")
+    check(bool((vals[:, TRAINER_KEYS.index("step_ok")] == 1.0).all()),
+          "trainer: a step was skipped by the finite-step gate")
+    overflow = vals[:, TRAINER_KEYS.index("overflow"):].sum()
+    others = {k: launches[k] - in_steps[k] - warmups[k] for k in names}
+    captured_at = [i + 1 for i, s in enumerate(steps) if s["captured"]]
+    print(f"[trainer] {TRAINER_ITERS} iterations on the compiled step in {run['t_main']:.2f} s host wall "
+          f"(trainer.main: load, init, train, 2 checkpoint saves); launches on the trainer path {launches}: replayed "
+          f"in the train steps {in_steps} ({TRAINER_MV_FROM - 1} single-view steps x 1 + "
+          f"{TRAINER_ITERS - TRAINER_MV_FROM + 1} multi-view steps x 2), the captures' warm-up steps {warmups}, "
+          f"outside the steps (probe and save renders) {others}; budget overflow summed over steps {overflow:.0f}")
+    for c, it in zip(run["captures"], captured_at):
+        print(f"[trainer] capture at iteration {it}: {'multi-view' if c['multi_view'] else 'single-view'}, row "
+              f"budget {c['row_budget']}, max_instances {c['max_instances']}, max_visible {c['max_visible']}: "
+              f"warm-up {c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s, graph pool "
+              f"{c['pool_reserved_bytes'] / 2**30:.3f} GiB reserved")
     for i in (0, TRAINER_MV_FROM - 2, TRAINER_MV_FROM - 1, TRAINER_DENSIFY_AT - 1, TRAINER_ITERS - 1):
-        print(f"[trainer] iteration {i + 1}: " + ", ".join(f"{k} {vals[i, j]:.6g}" for j, k in enumerate(keys[:5])))
+        print(f"[trainer] iteration {i + 1}: " + ", ".join(f"{k} {vals[i, j]:.6g}"
+                                                          for j, k in enumerate(TRAINER_KEYS[:5])))
     print(f"[trainer] init: load_scene {timers['load_scene']:.3f} s, init_gaussians_from_scene (KNN init) "
-          f"{timers['init']:.3f} s, first train step {timers['first_step']:.3f} s (host clock, synchronised)")
-    window = {}
-    for name, its in counted.items():
-        ms, runs = window_ms(its, stamps)
-        window[name] = ms
-        print(f"[trainer] ms per trainer iteration, {name} window: {ms:.3f} over {len(its)} iterations (runs "
-              f"{', '.join(f'{a}-{b}' for a, b in runs)}; host clock synchronised at each run's ends; left out: "
-              f"saves {TRAINER_SAVES}, densify @{TRAINER_DENSIFY_AT}, the iterations before a counter fetch)")
+          f"{timers['init']:.3f} s, first train step (warm-up, capture, replay) {timers['first_step']:.3f} s "
+          f"(host clock, synchronised)")
 
     # the final state lies on the card
+    ts = run["ts"]
     leaves = train_leaves(ts) + [ts.gaussians.protected, ts.gaussians.active_sh_degree, ts.exposure_m,
                                  ts.exposure_v]
     check(all(x.device == dev for x in leaves) and ts.mv_generator.device == dev,
@@ -1700,17 +1931,38 @@ def phase_trainer(scene, cams, cfg):
     # the grid's views overlap across x on one row only (the image's
     # footprint is 15.6 scene units wide, 8.8 high, the cameras 18 apart):
     # a pair without overlap has no valid sample, and both terms are 0
-    geo = vals[:, keys.index("mv_geo")]
+    geo = vals[:, TRAINER_KEYS.index("mv_geo")]
     overlapping = [i for i, s in enumerate(steps) if s["mv"] and geo[i] > 0]
     n_mv = TRAINER_ITERS - TRAINER_MV_FROM + 1
     check(len(overlapping) >= TRAINER_MIN_OVERLAP_SHARE * n_mv,
           f"trainer: {len(overlapping)} of {n_mv} multi-view steps had a valid sample "
           f"(at least {TRAINER_MIN_OVERLAP_SHARE} of them expected)")
-    ncc = vals[overlapping, keys.index("mv_ncc")]
+    ncc = vals[overlapping, TRAINER_KEYS.index("mv_ncc")]
     print(f"[trainer] multi-view steps whose pair overlaps (valid samples, mv_geo > 0): {len(overlapping)} of "
           f"{n_mv} (iterations {[i + 1 for i in overlapping]}); over them mv_ncc "
           f"{ncc.min():.4f}-{ncc.max():.4f}, mv_geo {geo[overlapping].min():.4f}-{geo[overlapping].max():.4f}")
     held = steps[overlapping[-1]]
+    stamps = run["stamps"]
+    del run, steps
+
+    # the same run on the eager step: the times of both in one call
+    eager = run_trainer(args_for(work / "model_eager"), dev, stamp_its, eager=True)
+    for i, s in enumerate(eager["steps"]):
+        want = (2, 2, 2) if s["mv"] else (1, 1, 1)
+        check(s["direct"] == want and s["replayed"] == (0, 0, 0),
+              f"eager trainer iteration {i + 1}: launches {s['direct']}, expected {want}")
+    check(all(bool(torch.isfinite(s["metrics"]["total"])) for s in eager["steps"]), "eager trainer: a non-finite loss")
+    window = {}
+    for name, its in counted.items():
+        ms, runs = window_ms(its, stamps)
+        eager_ms, _ = window_ms(its, eager["stamps"])
+        window[name] = dict(compiled_ms=ms, eager_ms=eager_ms)
+        inside = [it for it in captured_at if it in its]
+        print(f"[trainer] ms per trainer iteration, {name} window: compiled step {ms:.3f}, eager step "
+              f"{eager_ms:.3f} (the eager run in the same call) over {len(its)} iterations (runs "
+              f"{', '.join(f'{a}-{b}' for a, b in runs)}; host clock synchronised at each run's ends; left out: "
+              f"saves {TRAINER_SAVES}, densify @{TRAINER_DENSIFY_AT}, the iterations before a counter fetch; "
+              f"captures inside the window: {inside or 'none'})")
     shutil.rmtree(work, ignore_errors=True)
     return dict(ts=ts, batch=held["batch"], tcfg=held["tcfg"], launches=launches, window=window)
 
@@ -1750,6 +2002,7 @@ def phase_trainer_hold(trainer_run):
     and a single-view step, and one multi-view step under the profiler."""
     import dataclasses
 
+    from hidegs_tpu_torch.train import compiled
     from hidegs_tpu_torch.train import loop as tl
 
     ts, batch, tcfg = trainer_run["ts"], trainer_run["batch"], trainer_run["tcfg"]
@@ -1806,11 +2059,19 @@ def phase_trainer_hold(trainer_run):
     single = tl.ViewBatch(**{**batch._asdict(), "multi_view": None})
     mv_ms = time_ms(lambda: tl.train_step(ts, batch, tcfg))
     sv_ms = time_ms(lambda: tl.train_step(ts, single, tcfg))
+    step = compiled.CompiledTrainStep()
+    state, _ = step(ts, batch, tcfg)  # the trained state copied in; `ts` stays as it is
+    mv_compiled_ms = time_ms(lambda: step(state, batch, tcfg))
+    state, _ = step(state, single, tcfg)
+    sv_compiled_ms = time_ms(lambda: step(state, single, tcfg))
     print(f"[trainer-times] train step on the trained state (full capacity rows, CUDA events, median of {ITERS}): "
-          f"multi-view {mv_ms:.3f} ms, single-view {sv_ms:.3f} ms")
+          f"multi-view {mv_ms:.3f} ms eager, {mv_compiled_ms:.3f} ms compiled; single-view {sv_ms:.3f} ms eager, "
+          f"{sv_compiled_ms:.3f} ms compiled")
     profile_device(lambda: tl.train_step(ts, batch, tcfg), "trainer-mv-breakdown")
+    profile_device(lambda: step(state, batch, tcfg), "trainer-mv-compiled-breakdown")
+    del step, state
     return dict(fwd_err=fwd_err, err=max(h["err"] for h in errs), fold_err=max(h["fold_err"] for h in errs),
-                mv_ms=mv_ms, sv_ms=sv_ms)
+                mv_ms=mv_ms, sv_ms=sv_ms, mv_compiled_ms=mv_compiled_ms, sv_compiled_ms=sv_compiled_ms)
 
 DP_STEPS = 10  # view-parallel steps (V = 4) per run at full width (phase 15)
 DP_RANK_STEPS = 3  # steps of each two-rank run on the card
@@ -2757,8 +3018,8 @@ def phase_pipeline(dev):
     from hidegs_tpu_torch.hier import cli as hier_cli
     from hidegs_tpu_torch.hier import io as hio
     from hidegs_tpu_torch.hier.streaming import ChunkStreamer
-    from hidegs_tpu_torch.raster import cuda_blend
     from hidegs_tpu_torch.raster.api import RasterConfig, round_budget
+    from hidegs_tpu_torch.train import compiled
 
     # the chunk workers share the card with this process: hand back what
     # the earlier phases' caching allocator holds
@@ -2779,10 +3040,10 @@ def phase_pipeline(dev):
           f"({time.perf_counter() - t0:.2f} s)")
     del scene, cams
 
-    seconds, launches, commands = {}, {}, []
+    seconds, launches, replayed, commands, captures = {}, {}, {}, [], []
 
     def counts():
-        return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+        return direct_counts() + replay_counts()
 
     def stage(name):
         def wrap(fn):
@@ -2794,10 +3055,19 @@ def phase_pipeline(dev):
                 finally:
                     sync(dev)
                     seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
+                    delta = [b - a for a, b in zip(before, counts())]
                     prev = launches.get(name, (0, 0, 0))
-                    launches[name] = tuple(p + b - a for p, a, b in zip(prev, before, counts()))
+                    launches[name] = tuple(p + d + r for p, d, r in zip(prev, delta[:3], delta[3:]))
+                    replayed[name] = tuple(p + r for p, r in zip(replayed.get(name, (0, 0, 0)), delta[3:]))
             return call
         return wrap
+
+    def record_capture(capture):
+        def call(self, *args, **kwargs):
+            g = capture(self, *args, **kwargs)
+            captures.append(self.captures[-1])
+            return g
+        return call
 
     def popen(cmd, **kwargs):
         i = cmd.index("--chunk")
@@ -2815,6 +3085,7 @@ def phase_pipeline(dev):
                                (pipeline, "post_optimize", "post-opt"), (pipeline, "evaluate_lod", "eval")):
             stack.enter_context(patched(obj, name, stage(key)))
         stack.enter_context(patched(pipeline, "subprocess", lambda _: types.SimpleNamespace(Popen=popen)))
+        stack.enter_context(patched(compiled.CompiledTrainStep, "_capture", record_capture))
         try:
             pipeline.main(argv)
         except BaseException:
@@ -2876,7 +3147,13 @@ def phase_pipeline(dev):
           f"pipeline: lod_eval {rows}")
     check(all(a >= b for a, b in zip(cuts, cuts[1:])), f"pipeline: the mean cut rises with τ: {cuts}")
     n_eval = len(PIPE_TAUS) * PIPE_EVAL_VIEWS
-    want = {"coarse": (PIPE_COARSE,) * 3, "post-opt": (PIPE_POST,) * 3, "eval": (n_eval, 0, 0)}
+    # the coarse model trains on the compiled step: one replayed launch of
+    # each kernel per step, and each capture's warm-up step launches them
+    # once more
+    warm = tuple(sum(c["warmup_launches"][k] for c in captures) for k in ("blend_fwd", "blend_bwd", "fold_rows"))
+    check(replayed.get("coarse") == (PIPE_COARSE,) * 3 and all(c["launches"] == c["warmup_launches"] for c in captures),
+          f"pipeline: the coarse stage replayed {replayed.get('coarse')} launches, expected {PIPE_COARSE} of each")
+    want = {"coarse": tuple(PIPE_COARSE + w for w in warm), "post-opt": (PIPE_POST,) * 3, "eval": (n_eval, 0, 0)}
     for key, expect in want.items():
         check(launches.get(key) == expect, f"pipeline: {key} launched {launches.get(key)}, expected {expect}")
     by_stage = [sum(v[k] for v in launches.values()) for k in range(3)]
@@ -2891,6 +3168,10 @@ def phase_pipeline(dev):
         f"τ={r['tau']:g}: PSNR {r['psnr']:.4f} dB, mean cut {r['mean_cut']:.0f}" for r in rows))
     print(f"[pipeline] steps skipped by the finite-step gate per chunk: {skipped}")
     print(f"[pipeline] each worker's train loop (alive rows, seconds of {PIPE_ITERS} iterations, its log): {trained}")
+    print(f"[pipeline] the coarse model on the compiled step: {len(captures)} captures ("
+          + ", ".join(f"{c['max_instances']} instances, row budget {c['row_budget']}: warm-up {c['warmup_s']:.3f} s, "
+                      f"capture {c['capture_s']:.3f} s" for c in captures)
+          + f"), {PIPE_COARSE} replays, warm-up launches {warm}")
     print(f"[pipeline] launches in the parent process per stage (fwd, bwd, fold): {launches}; post-opt "
           f"{1e3 * seconds['post-opt'] / PIPE_POST:.2f} ms per step ({PIPE_POST} steps, host clock, the state's "
           f"upload included); hier.cli merge bitwise merged.hier; hier.cli create --cameras: {created.num_points} "
@@ -3022,6 +3303,7 @@ def main() -> int:
     bf16 = phase_bf16(scene, cams, cfg, train)
     del pre, tb
     ttimes = phase_train_times(train, held)
+    comp = phase_compiled(scene, cams, cfg)
     trainer_run = phase_trainer(scene, cams, cfg)
     trainer_run_launches = trainer_run["launches"]
     del train
@@ -3032,7 +3314,8 @@ def main() -> int:
     del scene
     launches = train_launches
     by_path = {name: {"render": render_launches[name], "serve": serve["launches"][name],
-                      "train": train_launches[name], "trainer": trainer_run_launches[name],
+                      "train": train_launches[name], "train_compiled": comp["launches"][name],
+                      "trainer": trainer_run_launches[name],
                       "hierarchy": lod["launches"][name] + serve["hier_launches"][name],
                       "viewer": viewer["launches"][name], "post_opt": post_opt["launches"][name],
                       "pipeline": pipe["launches"][name], "view_parallel": vp["launches"][name]}

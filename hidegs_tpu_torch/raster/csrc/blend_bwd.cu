@@ -85,6 +85,8 @@
 // up to 4.5e-2 x their column's median |grad|; rounded as here, by at most
 // 1.1e-4 x. The 14 sums only accumulate, so they use explicit fmaf.
 
+#include <atomic>
+
 #include "blend_common.cuh"
 
 namespace {
@@ -282,12 +284,30 @@ blend_bwd_kernel(const void* __restrict__ gattr,
   }
 }
 
+// The kernel's dynamic shared memory is past the 48 KB default, which
+// cudaFuncSetAttribute lifts. The attribute belongs to the function on a
+// device, so it is set once per (instance, device), at the instance's first
+// launch there, not before every launch: a launch may be recorded into a
+// CUDA graph, where only the launch itself belongs.
+template <int TILE, bool BF16>
+cudaError_t allow_bwd_smem(int bytes) {
+  static std::atomic<unsigned long long> done{0};  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  const unsigned long long bit = 1ull << dev;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(blend_bwd_kernel<TILE, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_acq_rel);
+  return err;
+}
+
 template <int TILE, bool BF16>
 int launch_bwd(const void* a, const int* gid, const int* ts, const int* tc, int num_tiles,
                int tiles_x, const int* slot, const float4* g, float* r, cudaStream_t s) {
   constexpr size_t bytes = bwd_smem_bytes<TILE>();
-  cudaError_t err = cudaFuncSetAttribute(blend_bwd_kernel<TILE, BF16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const cudaError_t err = allow_bwd_smem<TILE, BF16>((int)bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   blend_bwd_kernel<TILE, BF16><<<num_tiles, kThreads, bytes, s>>>(a, gid, ts, tc, tiles_x, slot, g, r);
   return static_cast<int>(cudaGetLastError());

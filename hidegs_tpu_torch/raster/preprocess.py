@@ -135,27 +135,54 @@ def preprocess_gaussians(
     )
 
 
+class _PermuteRows(torch.autograd.Function):
+    """x[min(vidx, N - 1)], whose backward writes each slot's cotangent to
+    its own row and drops the padding slots (vidx = N): the JAX package's
+    `_permute_rows`, a gather whose transpose is a unique-index scatter.
+    Autograd's backward of the plain gather would sum every padding slot
+    into row N - 1."""
+
+    @staticmethod
+    def forward(ctx, x, vidx):
+        ctx.save_for_backward(vidx)
+        ctx.num_rows = x.shape[0]
+        return x[torch.clamp(vidx, max=x.shape[0] - 1).long()]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (vidx,) = ctx.saved_tensors
+        gx = ct.new_zeros((ctx.num_rows + 1,) + ct.shape[1:])
+        gx[vidx.long()] = ct  # padding slots land in row N, which drops
+        return gx[:ctx.num_rows], None
+
+
 def compact_visible(pre: PreprocessedGaussians, budget: int):
     """Pack the VISIBLE rows of `pre` into a (budget, ...) prefix buffer so the
     N-row streams after preprocessing scale with the visible count.
 
-    Rows past `budget` are dropped (highest row indices first) and counted in
-    `overflow`. Returns (pre_compact, vidx, num_visible, overflow): padding
-    slots carry visible=False / opacity=0 / radius=0, and vidx maps each slot
-    to its original row (N on padding slots).
+    Static shapes, as in the JAX package: each visible row's slot is the
+    exclusive cumsum of the mask, and one int32 scatter builds the slot →
+    row map; nothing is read back to the host, so the step that runs it
+    can be captured. Rows past `budget` are dropped (highest row indices
+    first) and counted in `overflow`. Returns (pre_compact, vidx,
+    num_visible, overflow): padding slots carry visible=False / opacity=0 /
+    radius=0, and vidx maps each slot to its original row (N on padding
+    slots).
     """
     N = pre.visible.shape[0]
     dev = pre.visible.device
-    vis_rows = torch.nonzero(pre.visible).squeeze(1).to(torch.int32)
-    num_visible = torch.sum(pre.visible.to(torch.int32))
-    vidx = torch.full((budget,), N, dtype=torch.int32, device=dev)
-    k = min(budget, vis_rows.shape[0])
-    vidx[:k] = vis_rows[:k]
+    visi = pre.visible.to(torch.int32)
+    pos = torch.cumsum(visi, 0, dtype=torch.int32) - visi  # the slot of each visible row
+    num_visible = torch.sum(visi)
+    rows = torch.arange(N, dtype=torch.int32, device=dev)
+    # invisible rows and rows past the budget land in one extra slot, cut off below
+    dest = torch.where(pre.visible & (pos < budget), pos, torch.full_like(pos, budget))
+    vidx = torch.full((budget + 1,), N, dtype=torch.int32, device=dev)
+    vidx = vidx.scatter_(0, dest.long(), rows)[:budget]
     keep = vidx < N
-    safe = torch.clamp(vidx, max=N - 1).long()
 
     def take(x):
-        return x[safe]
+        return _PermuteRows.apply(x, vidx)
 
     zero = torch.zeros((budget,), dtype=pre.opacity.dtype, device=dev)
     pre_c = PreprocessedGaussians(

@@ -220,7 +220,8 @@ def compute_losses(
     )
     img = out["render"]
     if use_exposure:
-        img = apply_exposure(img, exposure[batch.image_idx])
+        # a gather: indexing with the 0-d index itself reads it to the host
+        img = apply_exposure(img, exposure[batch.image_idx.reshape(1)][0])
     # background pixels render as exactly 0: clip's tie gradient matters
     img = clip(img, 0.0, 1.0)
 
@@ -318,6 +319,29 @@ def _unslice_rows(full: TrainState, view: TrainState) -> TrainState:
 
     def wb(f, v):
         return torch.cat([v, f[R:]], dim=0)
+
+    def wbp(fp, vp):
+        return GaussianParams(*(wb(f, v) for f, v in zip(fp, vp)))
+
+    fg, vg = full.gaussians, view.gaussians
+    return view._replace(
+        gaussians=vg._replace(params=wbp(fg.params, vg.params),
+                              **{f: wb(getattr(fg, f), getattr(vg, f)) for f in _ROW_FIELDS}),
+        opt=AdamState(m=wbp(full.opt.m, view.opt.m), v=wbp(full.opt.v, view.opt.v),
+                      step=wb(full.opt.step, view.opt.step)),
+    )
+
+
+def _unslice_rows_(full: TrainState, view: TrainState) -> TrainState:
+    """`_unslice_rows` in place: the view's updated prefix rows are copied
+    into the full buffers, which the returned state holds (JAX's
+    dynamic_update_slice into donated buffers). The state-level fields come
+    from the view."""
+    R = view.gaussians.capacity
+
+    def wb(f, v):
+        f[:R].copy_(v)
+        return f
 
     def wbp(fp, vp):
         return GaussianParams(*(wb(f, v) for f, v in zip(fp, vp)))

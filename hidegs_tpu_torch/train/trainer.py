@@ -9,6 +9,11 @@ checkpoints and metric logging.
     python -m hidegs_tpu_torch.train --source_path <scene> --model_path <out> [--device cuda]
 
 Everything runs on `--device` (default cuda, which raises without a card).
+On a card each iteration is one replay of the train step captured as a CUDA
+graph (train/compiled.py, the JAX trainer's jitted, donated step); on the
+CPU it is the eager `train_step`. Densify, the opacity reset, the SH
+warm-up and scrubbing stay eager on the host's cadence and hand the next
+step a new state, which it copies into its buffers once.
 The flags are the JAX trainer's; `raster_backend` "jnp" and "pallas" train
 with the port's "blend" backend (config.port_backend). The model directory
 is the JAX trainer's layout, so `hidegs_tpu_torch.evaluate` and
@@ -54,6 +59,7 @@ from hidegs_tpu_torch.model.knn import initial_scales
 from hidegs_tpu_torch.model.schedules import LRConfig
 from hidegs_tpu_torch.raster.api import RasterConfig, render, round_budget, suggest_max_instances
 from hidegs_tpu_torch.train.checkpoint import save_train_state
+from hidegs_tpu_torch.train.compiled import CompiledTrainStep
 from hidegs_tpu_torch.train.geometric import MultiViewBatch
 from hidegs_tpu_torch.train.loop import (
     TrainConfig,
@@ -448,6 +454,11 @@ def train(
         save_scene_artifacts(scene, model_cfg.model_path)
 
     cache = ViewCache(dev)
+    # on a card every iteration replays the step captured as a CUDA graph
+    # (train/compiled.py); a new budget, row budget or batch layout
+    # captures anew. Its metrics live until the next step: the counters are
+    # stacked into a tensor of their own below.
+    step_fn = CompiledTrainStep() if dev.type == "cuda" else train_step
     rng = random.Random(seed)
     order = []
     t0 = time.time()
@@ -537,7 +548,7 @@ def train(
                 src_depth = render_plane_depth(ts, cache.arrays(src_cam)["cam"], cfg)
 
         batch = build_view_batch(cache, cam, vi, src_cam, src_depth)
-        ts, metrics = train_step(ts, batch, cfg, use_exposure=opt_cfg.use_exposure, row_budget=row_budget)
+        ts, metrics = step_fn(ts, batch, cfg, use_exposure=opt_cfg.use_exposure, row_budget=row_budget)
         if model_cfg.model_path and it in save_iterations:
             # save BEFORE the schedule hook: an opacity reset on the same
             # iteration would otherwise leave a near-transparent model in

@@ -16,7 +16,11 @@ within the rounding bound of a float32 sum, k·2^-24·Σ|row| for k rows, and
 bitwise against the scalar fold it replaced (tools/csrc/fold_rows_scalar.cu,
 fed by a scatter of sorted-instance rows into expansion order). The
 multi-view step (two blends forward and backward) is bitwise reproducible
-and makes no host synchronisation with the chunk box set. The post-opt
+and makes no host synchronisation with the chunk box set. The compiled
+train step (train/compiled.py) is bitwise the eager step in each of its
+variants, replays with no host sync, keeps an old graph across a new
+key's capture, and runs the trainer (visible-row compaction included)
+with no sync in a step that captures nothing. The post-opt
 step of the hierarchy (train/hier_trainer.py) holds the same way, and
 the pipeline runs on the card end to end.
 """
@@ -473,6 +477,158 @@ def test_chunk_box_multi_view_step_makes_no_host_sync(cuda):
     assert int(new_ts.step) == int(ts.step) + 1
 
 
+# ---------------------------------------------------------------------------
+# the compiled train step (train/compiled.py): one CUDA graph per static key
+
+
+def _compiled_variant(dev, variant):
+    """(state, config, use_exposure, row_budget, the K = 3 batches) of a
+    variant of the compiled-step tests."""
+    import dataclasses
+
+    ts, batches, cfg = _train_problem(dev)
+    mv = dataclasses.replace(cfg, multi_view_from=0, multi_view_sample_num=2048)
+    compact = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=160))
+    return {
+        "single-view": (ts, cfg, False, 0, batches[:3]),
+        "multi-view": (ts, mv, False, 0, [_multi_view_batch(batches, i, s) for i, s in ((0, 1), (2, 3), (1, 2))]),
+        "exposure": (ts, cfg, True, 0, [batches[2], batches[0], batches[2]]),
+        "row budget": (ts, cfg, False, 224, [batches[0], batches[3], batches[1]]),
+        "compaction": (ts, compact, False, 0, batches[1:4]),
+    }[variant]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["single-view", "multi-view", "exposure", "row budget", "compaction"])
+def test_compiled_step_is_bitwise_the_eager_step(cuda, variant):
+    """Three replays against three eager train steps from one state: every
+    tensor of the state and every metric bitwise equal (the multi-view
+    samples drawn outside the graph from the state's generator, which
+    advances alike); the returned state is the step's own buffers; one
+    capture; each replay adds the graph's launches (1 or 2 of each kernel)
+    to REPLAY_LAUNCHES and none to the launchers' counters."""
+    from hidegs_tpu_torch.train import compiled
+    from hidegs_tpu_torch.train import loop as tl
+
+    ts, cfg, use_exposure, row_budget, batches = _compiled_variant(cuda, variant)
+    step = compiled.CompiledTrainStep()
+    eager, comp = ts, ts
+    per_step = 2 if batches[0].multi_view is not None else 1
+    ptrs = None
+    for k, batch in enumerate(batches):
+        eager, em = tl.train_step(eager, batch, cfg, use_exposure, row_budget)
+        replays = dict(compiled.REPLAY_LAUNCHES)
+        counts = _counts()
+        comp, cm = step(comp, batch, cfg, use_exposure, row_budget)
+        torch.cuda.synchronize()
+        if k > 0:
+            assert _counts() == counts, "a replay went through the launchers"
+        assert {n: compiled.REPLAY_LAUNCHES[n] - replays[n] for n in replays} == dict.fromkeys(replays, per_step)
+        for n, (a, b) in enumerate(zip(compiled._tensors(comp), compiled._tensors(eager), strict=True)):
+            assert torch.equal(a, b), f"{variant} step {k}: tensor {n} of the state"
+        assert em.keys() == cm.keys() and all(torch.equal(em[m], cm[m]) for m in em), variant
+        assert torch.equal(comp.mv_generator.get_state(), eager.mv_generator.get_state())
+        now = [x.data_ptr() for x in compiled._tensors(comp)]
+        assert ptrs is None or now == ptrs, "the replay returned other buffers"
+        ptrs = now
+    assert float(cm["step_ok"]) == 1.0 and len(step.captures) == 1 and step.replays == 3
+    assert step.captures[0]["launches"] == dict.fromkeys(compiled.KERNELS, per_step)
+    if variant == "compaction":
+        assert int(cm["num_visible"]) > 0 and int(cm["visible_overflow"]) >= 0
+    if variant == "multi-view":
+        assert float(cm["mv_geo"]) > 0
+
+
+@pytest.mark.cuda
+def test_compiled_replay_makes_no_host_sync(cuda):
+    """After the capture, steady replays of a multi-view step (the samples
+    drawn before each replay) under set_sync_debug_mode("error")."""
+    from hidegs_tpu_torch.train import compiled
+
+    ts, cfg, _, _, batches = _compiled_variant(cuda, "multi-view")
+    step = compiled.CompiledTrainStep()
+    ts, _ = step(ts, batches[0], cfg)  # warm-up and capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for batch in (batches[0], batches[1], batches[0]):
+            ts, metrics = step(ts, batch, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(metrics["step_ok"]) == 1.0 and int(ts.step) == 4 and len(step.captures) == 1
+
+
+@pytest.mark.cuda
+def test_a_key_change_recaptures_and_keeps_the_old_graph(cuda):
+    """A new instance budget captures a second graph in the shared pool;
+    replaying the first graph afterwards still gives the eager step bitwise,
+    and so does the second."""
+    import dataclasses
+
+    from hidegs_tpu_torch.train import compiled
+    from hidegs_tpu_torch.train import loop as tl
+
+    ts, batches, cfg = _train_problem(cuda)
+    wide = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_instances=2 * cfg.raster.max_instances))
+    step = compiled.CompiledTrainStep()
+    s, _ = step(ts, batches[0], cfg)
+    s, _ = step(s, batches[1], wide)
+    assert len(step.captures) == 2
+    for c, batch in ((cfg, batches[2]), (wide, batches[3])):
+        e, em = tl.train_step(ts, batch, c)
+        k, km = step(ts, batch, c)  # a state of the caller's: copied in
+        for n, (a, b) in enumerate(zip(compiled._tensors(k), compiled._tensors(e), strict=True)):
+            assert torch.equal(a, b), f"max_instances {c.raster.max_instances}: tensor {n}"
+        assert all(torch.equal(em[m], km[m]) for m in em)
+    assert len(step.captures) == 2 and step.replays == 4
+
+
+@pytest.mark.cuda
+def test_trainer_with_visible_compaction_makes_no_host_sync_per_step(cuda, tmp_path, monkeypatch, capsys):
+    """The trainer on the card runs the compiled step; once its first
+    window turns visible-row compaction on, a step that captures nothing
+    makes no host sync (compact_visible has static shapes). The toy scene's
+    dead rows sit at the origin, in view, so the trainer's own policy never
+    finds that compaction pays here: the budget is fixed at 1024 of the
+    2048 rows."""
+    import warnings
+
+    from hidegs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from hidegs_tpu_torch.train import compiled, trainer
+    from torch_scenes import write_two_cluster_scene
+
+    src = write_two_cluster_scene(tmp_path / "scene")
+    steps = []
+
+    class Watched(compiled.CompiledTrainStep):
+        def __call__(self, ts, batch, cfg, *args, **kwargs):
+            captured = len(self.captures)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = super().__call__(ts, batch, cfg, *args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            steps.append((cfg.raster.max_visible, len(self.captures) > captured,
+                          [str(w.message) for w in caught if "synchroniz" in str(w.message)]))
+            return out
+
+    monkeypatch.setattr(trainer, "_fit_visible_budget", lambda peak, rows: 1024 if peak > 0 else 0)
+    monkeypatch.setattr(trainer, "CompiledTrainStep", Watched)
+    opt = OptimizationConfig(iterations=24, densify_from_iter=1000, freq_warmup_iterations=0,
+                             single_view_weight_from_iter=0, multi_view_weight_from_iter=1000)
+    ts = trainer.train(ModelConfig(source_path=src), PipelineConfig(capacity=2048, max_instances=1 << 12),
+                       opt, save_iterations=(), log_every=1000, device="cuda")
+    assert "enabling visible-row compaction" in capsys.readouterr().out
+    assert len(steps) == 24 and ts.gaussians.alive.device.type == "cuda"
+    compacted = [s for s in steps if s[0] > 0]
+    assert compacted and any(captured for _, captured, _ in compacted)
+    for i, (max_visible, captured, syncs) in enumerate(steps):
+        if not captured:
+            assert not syncs, f"iteration {i + 1} (max_visible {max_visible}) synchronised: {syncs}"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", [16, 32])
 @pytest.mark.parametrize("scene", ["toy", "mask boundary"])
@@ -747,7 +903,9 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
     """run_pipeline on the two-cluster scene on the card (3 chunk and 3
     post-opt iterations, eval at tau 0 and 3): two chunks, finite merged
     and post-optimized hierarchies; one backward and fold per train and
-    post-opt step, and one forward more per (tau, view) of the eval."""
+    post-opt step, and one forward more per (tau, view) of the eval. The
+    chunks train on the compiled step: their steps' launches are replays,
+    and each capture's warm-up step launches each kernel once more."""
     import json
     import os
 
@@ -755,20 +913,23 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
 
     from hidegs_tpu_torch import pipeline
     from hidegs_tpu_torch.hier import io as hio
+    from hidegs_tpu_torch.train import compiled
     from torch_scenes import write_two_cluster_scene
 
     src = write_two_cluster_scene(tmp_path / "scene")
     out = str(tmp_path / "out")
-    before = _counts()
+    before, replays = _counts(), tuple(compiled.REPLAY_LAUNCHES[k] for k in compiled.KERNELS)
     pipeline.run_pipeline(src, out, chunk_size=14.0, min_n_cams=3, iterations=3, post_opt_iterations=3,
                           capacity=256, max_instances=1 << 12, add_far_cams=False, log_every=1000,
                           eval_taus=(0.0, 3.0), device="cuda")
     torch.cuda.synchronize()
     fwd, bwd, fold = (x - y for x, y in zip(_counts(), before))
+    replayed = tuple(compiled.REPLAY_LAUNCHES[k] - r for k, r in zip(compiled.KERNELS, replays))
     meta = json.load(open(os.path.join(out, "pipeline.json")))
     assert len(meta["chunks"]) == 2 and len(meta["lod_eval"]) == 2
     n_eval = 2 * 8  # two taus, eight of the ten views
-    assert bwd == fold == 3 * 2 + 3 and fwd == bwd + n_eval, (fwd, bwd, fold)
+    assert replayed == (3 * 2,) * 3, replayed  # one capture per chunk: its warm-up is one launch of each
+    assert bwd == fold == 2 + 3 and fwd == bwd + n_eval, (fwd, bwd, fold)
     for name in ("merged.hier", "merged_opt.hier"):
         h = hio.read_hier(os.path.join(out, name))
         assert all(np.isfinite(getattr(h, f)).all() for f in ("pos", "rot", "scale", "alpha", "shs"))
