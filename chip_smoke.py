@@ -6,9 +6,11 @@
 Drives the port's paths at full width — rendering
 (`hidegs_tpu_torch.raster.api.render`, the hand-written CUDA forward blend),
 the LOD hierarchy (`hier.interp.AdaptiveHierRenderer`: cut select,
-interpolation, then the forward blend, once per frame), its
-post-optimizer (`train.hier_trainer.post_optimize`: a forward blend, a
-backward blend and a fold per step), serving a trained
+interpolation, then the forward blend, once per frame, eager and replayed
+as a CUDA graph by `hier.interp.CompiledLodFrame`), its post-optimizer
+(`train.hier_trainer.post_optimize`: a forward blend, a backward blend
+and a fold per step, on the compiled step `CompiledHierTrainStep`),
+serving a trained
 scene (`python -m hidegs_tpu_torch.evaluate` and `render_cli`, with and
 without `--hierarchy`, which reach the forward blend once per view), the
 viewers (`python -m hidegs_tpu_torch.viewer`'s HTTP and SIBR frontends),
@@ -60,32 +62,48 @@ Phases (run in the order of `main`):
      g++ from hidegs_tpu_torch/hier/native/hier_builder.cpp into
      build/hier/) on the host: seconds, points, nodes; written as .hier and
      read back equal. AdaptiveHierRenderer on the card renders every view
-     at every tau of LOD_TAUS (0, 3, 6, 15 px); launch counts are read
-     around that run: exactly one cut-and-render call and one forward
-     blend per frame (a re-expansion or a regrow fails it). Checks:
-     the tau=0 cut is exactly the 1,010,240 leaves and its frames are
-     within PSNR >= 40 dB of the leaf render; cut sizes do not rise with
-     tau; num_selected equals the count pass; the tau=6 frame's forward
-     kernel against the plain blend on the frame's own rows and binning at
-     phase 4's gates; two tau=6 frames bitwise equal; no overflow. Prints
-     the cut, budget and instances per view and tau, and ms per LOD frame
-     (CUDA events, median of 10 after 2 warm-ups) with its four stages
-     (count, select, interpolate, render) timed alone;
+     at every tau of LOD_TAUS (0, 3, 6, 15 px), eager (`compiled` None) and
+     then compiled (the default: each frame a CompiledLodFrame replay,
+     cloned before the next); launch counts are read around each run:
+     exactly one cut-and-render call and one forward blend per frame
+     (eager: through the launcher; compiled: replayed, and the warm-up's
+     launch once per capture; a re-expansion or a regrow fails it).
+     Checks: the compiled frames bitwise the eager ones (every key), with
+     the same cuts and budgets; the tau=0 cut is exactly the 1,010,240
+     leaves and its frames are within PSNR >= 40 dB of the leaf render;
+     cut sizes do not rise with tau; num_selected equals the count pass;
+     the eager tau=6 frame's forward kernel against the plain blend on the
+     frame's own rows and binning at phase 4's gates; two eager and two
+     compiled tau=6 frames bitwise equal; no overflow. Prints the cut,
+     budget and instances per view and tau, ms per LOD frame of both modes
+     (CUDA events, median of 10 after 2 warm-ups), the host ms per compiled
+     frame, the four stages (count, select, interpolate, render) timed
+     alone, one frame of each mode under the profiler at tau 0 and 6, and
+     each capture's seconds and pool growth;
  6b. post-opt: phase 6a's hierarchy with every SH coefficient scaled by
      0.7, `post_optimize` for 30 steps on the four views (targets: phase
      4's leaf renders, clipped) at the τ=6 cut (budget 2^21, interpolated
      parents), exposure trained, tile 32, an instance budget from a probe
-     with 1.12x slack; launch counts and every step's budget counters are
-     read around this run alone. Checks: one launch of each kernel per
-     step, finite losses, no overflow, the τ-cut PSNR (mean of the views)
-     above the perturbed start's; the last step's blend node held against
-     the plain versions on its own rows, binning and cotangents (forward
-     planes and observe at phase 4's gates, backward + fold with
-     `hold_backward`); two steps from one state bitwise equal; one step
-     under set_sync_debug_mode("error"); hierarchy_from_state written as
-     .hier and read back equal. Prints ms per step (CUDA events, median of
-     10 after 2 warm-ups) with its stages (select, forward, backward,
-     update), one step under the profiler, and the peak device memory;
+     with 1.12x slack. On the card it runs the compiled step (a cut
+     replay and a step replay per iteration); every iteration is held
+     against the eager select_cut and hier_train_step on the same inputs,
+     with the launches of both read around each call and the budget
+     counters taken from the graph's outputs. Checks: the cut, the state
+     and the metrics bitwise the eager ones after every step; per step one
+     eager launch of each kernel and one replayed, the warm-up's once per
+     capture; every replay but the first under
+     set_sync_debug_mode("error"); finite losses, no overflow, the τ-cut
+     PSNR (mean of the views) above the perturbed start's; the last step's
+     blend node held against the plain versions on its own rows, binning
+     and cotangents (forward planes and observe at phase 4's gates,
+     backward + fold with `hold_backward`); two eager steps from one state
+     bitwise equal; an eager step and three compiled iterations under
+     set_sync_debug_mode("error"); hierarchy_from_state written as .hier
+     and read back equal. Prints ms per step of both modes (CUDA events,
+     median of 10 after 2 warm-ups) with the eager stages (select, forward,
+     backward, update), the host ms per compiled iteration, each capture's
+     seconds and pool growth, one step of each mode under the profiler,
+     and the peak device memory;
   7. serve at full width: the port's write_synthetic_colmap_scene writes
      the four views as a COLMAP scene (the ground truth is the 8-bit image
      of the model), the model is written as point_cloud/iteration_30000/
@@ -101,7 +119,8 @@ Phases (run in the order of `main`):
      and the ms per evaluated view split into render, LPIPS, image I/O and
      the rest, and whether Pillow imports; then `render_cli --hierarchy
      <the scene's .hier> --tau 6` on the same scene: ms per view, exactly
-     one cut-and-render call and one forward launch per PNG, counted on the
+     one compiled cut-and-render call and one replayed forward launch per
+     PNG, and the warm-up's launch per capture, counted on the compiled
      hierarchy path;
  7a. viewers: `python -m hidegs_tpu_torch.viewer`'s render function behind
      both frontends, one 1920x1088 frame each over localhost (HttpViewer on
@@ -202,9 +221,10 @@ Phases (run in the order of `main`):
      parent-process launches per stage are read around each stage (the
      workers' launches are theirs). Checks: 9 chunks, finite chunk, merged
      and post-optimized hierarchies, the workers run the port on the
-     card with the coarse scaffold and the chunk-box cull, one launch of
-     each kernel per coarse and post-opt step and one
-     forward per (τ, view) of the eval and nothing else in the parent,
+     card with the coarse scaffold and the chunk-box cull, one replayed
+     launch of each kernel per coarse and post-opt step (both compiled) and
+     the warm-up's per capture, one forward per (τ, view) of the eval and
+     nothing else in the parent,
      `hier.cli merge` bitwise merged.hier, `hier.cli create --cameras` on
      chunk 0, ChunkStreamer over the chunks, the mean cut not rising with
      τ. Prints the seconds per stage, the merged size, PSNR and cut per τ,
@@ -239,9 +259,11 @@ the render cell (phase 5: blend_fwd) and the train path (phase 11:
 blend_bwd, fold_rows); `launches` is the train path's count (phase 8), as
 in earlier slices; `launches_by_path` holds the count of every path (render,
 serve, train, train_compiled (phase 11a: replays and warm-ups), trainer,
-hierarchy with render_cli --hierarchy, viewer, post_opt, pipeline,
-view_parallel); a replay of a captured step counts the launches its graph
-recorded (train/compiled.py:REPLAY_LAUNCHES);
+hierarchy (the eager renderer), hierarchy_compiled (the compiled renderer
+and render_cli --hierarchy: replays and warm-ups), viewer, post_opt (the
+eager steps held beside post_optimize), post_opt_compiled (post_optimize's
+replays and warm-up), pipeline, view_parallel); a replay of a captured
+graph counts the launches it recorded (utils/graphs.py:REPLAY_LAUNCHES);
 `max_abs_err` is the largest error of the kernel's full-width holds in
 phases 4 and 6a (forward), 10 (backward, fold), 13 (all three, on both
 nodes of a multi-view step), 6b (all three, the post-opt step) and 15
@@ -394,10 +416,10 @@ def time_per_launch_ms(fn, launches=20, warmup=WARMUP, iters=ITERS):
 
 def reset_counts():
     from hidegs_tpu_torch.raster import cuda_blend
-    from hidegs_tpu_torch.train import compiled
+    from hidegs_tpu_torch.utils import graphs
 
     cuda_blend.LAUNCHES = cuda_blend.BWD_LAUNCHES = cuda_blend.FOLD_LAUNCHES = 0
-    compiled.REPLAY_LAUNCHES.update(dict.fromkeys(compiled.REPLAY_LAUNCHES, 0))
+    graphs.REPLAY_LAUNCHES.update(dict.fromkeys(graphs.REPLAY_LAUNCHES, 0))
 
 
 def direct_counts():
@@ -409,10 +431,11 @@ def direct_counts():
 
 
 def replay_counts():
-    """The launches graph replays of the compiled train step made."""
-    from hidegs_tpu_torch.train import compiled
+    """The launches graph replays made (the compiled train step, post-opt
+    step and LOD frame: utils/graphs.py's one count)."""
+    from hidegs_tpu_torch.utils import graphs
 
-    return tuple(compiled.REPLAY_LAUNCHES[k] for k in compiled.KERNELS)
+    return tuple(graphs.REPLAY_LAUNCHES[k] for k in graphs.KERNELS)
 
 
 def read_counts():
@@ -2425,17 +2448,54 @@ def kept_blend(kept):
 
 @contextlib.contextmanager
 def frame_calls(calls):
-    """Count fused_lod_frame calls (each launches the forward kernel once)."""
+    """Record the LOD frame calls: ("eager", 0) for each fused_lod_frame
+    call (one forward blend), ("compiled", n) for each CompiledLodFrame
+    call (one replay, one forward blend), n the captures it made (each
+    warms up with one forward blend through the launcher). The
+    fused_lod_frame calls of a compiled call's warm-up and capture are
+    its own, not recorded."""
     from hidegs_tpu_torch.hier import interp
 
-    def wrap(fn):
+    inside = [0]
+
+    def wrap_eager(fn):
         def call(*args, **kwargs):
-            calls.append(1)
+            if not inside[0]:
+                calls.append(("eager", 0))
             return fn(*args, **kwargs)
         return call
 
-    with patched(interp, "fused_lod_frame", wrap):
+    def wrap_compiled(fn):
+        def call(self, *args, **kwargs):
+            n = len(self.captures)
+            inside[0] += 1
+            try:
+                out = fn(self, *args, **kwargs)
+            finally:
+                inside[0] -= 1
+            calls.append(("compiled", len(self.captures) - n))
+            return out
+        return call
+
+    with patched(interp, "fused_lod_frame", wrap_eager), patched(interp.CompiledLodFrame, "__call__", wrap_compiled):
         yield
+
+
+def check_frame_launches(calls, launches, replays, n_frames, mode, what):
+    """The gate on a LOD path's launches: exactly one call per frame in
+    `mode`, one forward blend per frame (a launch through the launcher per
+    eager frame; a replayed launch per compiled frame, and the warm-up's
+    launch per capture), nothing else."""
+    captures = sum(n for _, n in calls)
+    direct = {k: launches[k] - replays[k] for k in launches}
+    want_direct = {"blend_fwd": n_frames if mode == "eager" else captures, "blend_bwd": 0, "fold_rows": 0}
+    want_replays = {"blend_fwd": 0 if mode == "eager" else n_frames, "blend_bwd": 0, "fold_rows": 0}
+    check(len(calls) == n_frames and all(m == mode for m, _ in calls) and direct == want_direct
+          and replays == want_replays,
+          f"{what}: {len(calls)} {sorted(set(m for m, _ in calls))} cut-and-render calls, launches {direct} through "
+          f"the launchers and {replays} replayed for {n_frames} frames, expected {n_frames} {mode} calls, "
+          f"{want_direct} and {want_replays} ({captures} captures)")
+    return captures
 
 
 def lod_stages(r, cam, tau):
@@ -2461,30 +2521,53 @@ def lod_stages(r, cam, tau):
 def phase_hierarchy(scene, cams, h):
     """The LOD hierarchy path at full width: AdaptiveHierRenderer on the
     card (the scene's hierarchy, tile 32, depth_sort_bits -1), every view at
-    every τ of LOD_TAUS through `render`, with counts read around it; then
-    the checks and the times."""
+    every τ of LOD_TAUS through `render`, eager (`compiled` None) and then
+    compiled (the default on a card: each frame a CompiledLodFrame
+    replay), with counts read around each run; the compiled frames cloned
+    and held bitwise against the eager ones; then the checks and the times
+    of both."""
     from hidegs_tpu_torch.hier import lod
     from hidegs_tpu_torch.hier.interp import AdaptiveHierRenderer
     from hidegs_tpu_torch.raster import blend_plain
     from hidegs_tpu_torch.raster.api import RasterConfig, render
     from hidegs_tpu_torch.train.losses import psnr
 
-    r = AdaptiveHierRenderer.from_hierarchy(h, scene.means3d.device)
-    calls, frames, cuts = [], {}, {}
-    reset_counts()
-    with torch.no_grad(), frame_calls(calls):
-        for tau in LOD_TAUS:
-            for i, cam in enumerate(cams):
-                out = r.render(cam, tau)
-                frames[tau, i] = {k: out[k] for k in ("render", "num_selected", "overflow", "num_instances")}
-                cuts[tau, i] = (int(out["num_selected"]), r._budget, int(out["num_instances"]))
-    launches = read_counts()
+    dev = scene.means3d.device
+    e = AdaptiveHierRenderer.from_hierarchy(h, dev)
+    e.compiled = None  # the eager frame loop
+    r = AdaptiveHierRenderer.from_hierarchy(h, dev)
+    check(r.compiled is not None and e.compiled is None, "hierarchy: the renderer on the card is not compiled")
     n_frames = len(LOD_TAUS) * len(cams)
-    print(f"[hier] launches on the hierarchy path: {launches} for {n_frames} frames ({len(calls)} cut-and-render "
-          f"calls; a call past one per frame would be a re-expansion or an instance regrow)")
-    check(launches == {"blend_fwd": n_frames, "blend_bwd": 0, "fold_rows": 0} and len(calls) == n_frames,
-          f"hierarchy path launches {launches} in {len(calls)} cut-and-render calls, expected one forward blend "
-          f"and one call per frame ({n_frames})")
+    frames, cuts, launches, captures = {}, {}, {}, {}
+    for mode, renderer in (("eager", e), ("compiled", r)):
+        calls, kept = [], {}
+        reset_counts()
+        with torch.no_grad(), frame_calls(calls):
+            for tau in LOD_TAUS:
+                for i, cam in enumerate(cams):
+                    out = renderer.render(cam, tau)
+                    kept[tau, i] = {k: v.clone() for k, v in out.items()}  # the next frame overwrites a replay's
+                    cuts[mode, tau, i] = (int(out["num_selected"]), renderer._budget, int(out["num_instances"]))
+        launches[mode] = read_counts()
+        replays = dict(zip(launches[mode], replay_counts()))
+        captures[mode] = check_frame_launches(calls, launches[mode], replays, n_frames, mode,
+                                              f"hierarchy path ({mode})")
+        frames[mode] = kept
+        print(f"[hier] launches on the {mode} hierarchy path: {launches[mode]} for {n_frames} frames ({len(calls)} "
+              f"cut-and-render calls, {replays['blend_fwd']} replayed launches, {captures[mode]} captures; a call "
+              f"past one per frame would be a re-expansion or an instance regrow)")
+    for tau in LOD_TAUS:
+        for i in range(len(cams)):
+            check(cuts["compiled", tau, i] == cuts["eager", tau, i],
+                  f"hierarchy view {i} tau {tau}: compiled cut / budget / instances {cuts['compiled', tau, i]}, eager "
+                  f"{cuts['eager', tau, i]}")
+            got, want = frames["compiled"][tau, i], frames["eager"][tau, i]
+            bad = [k for k in want if not torch.equal(got[k], want[k])]
+            check(got.keys() == want.keys() and not bad, f"hierarchy view {i} tau {tau}: the compiled frame differs "
+                                                         f"from the eager one in {bad}")
+    print(f"[hier] compiled frames bitwise the eager frames: {n_frames} frames, every key of the render dict")
+    frames = frames["compiled"]
+    cuts = {key[1:]: val for key, val in cuts.items() if key[0] == "compiled"}
     for (tau, i), f in frames.items():
         check(int(f["overflow"]) == 0, f"hierarchy view {i} tau {tau}: overflow {int(f['overflow'])}")
         check(bool(torch.isfinite(f["render"]).all()), f"hierarchy view {i} tau {tau}: render not finite")
@@ -2510,14 +2593,22 @@ def phase_hierarchy(scene, cams, h):
             worst = min(worst, p)
     check(worst >= LOD_MIN_PSNR, f"hierarchy: the tau=0 frame is {worst:.2f} dB from the leaf render (< {LOD_MIN_PSNR})")
     print(f"[hier] tau=0 frames against the leaf render of the same scene: PSNR >= {worst:.4f} dB (bar {LOD_MIN_PSNR})")
+    del frames
 
-    # the forward kernel on the tau=6 frame's own rows and binning, and a repeat
+    # the forward kernel on the eager tau=6 frame's own rows and binning
+    # (the compiled frames are bitwise the eager ones), and a repeat of each
     kept = {}
     with torch.no_grad(), kept_blend(kept):
-        a = r.render(cams[0], LOD_HOLD_TAU)
-        b = r.render(cams[0], LOD_HOLD_TAU)
+        a = e.render(cams[0], LOD_HOLD_TAU)
+        b = e.render(cams[0], LOD_HOLD_TAU)
     for key, val in a.items():
-        check(torch.equal(val, b[key]), f"two tau={LOD_HOLD_TAU:g} frames differ in {key}")
+        check(torch.equal(val, b[key]), f"two eager tau={LOD_HOLD_TAU:g} frames differ in {key}")
+    with torch.no_grad():
+        ca = {k: v.clone() for k, v in r.render(cams[0], LOD_HOLD_TAU).items()}
+        cb = r.render(cams[0], LOD_HOLD_TAU)
+    for key, val in ca.items():
+        check(torch.equal(val, cb[key]) and torch.equal(val, a[key]),
+              f"two compiled tau={LOD_HOLD_TAU:g} frames differ in {key}, or from the eager frame")
     pre, tb, ty, tx, tile, max_blocks, bf16 = kept["args"]
     check(not bf16, "hierarchy: the frame blended the bf16 stream")
     p = blend_plain.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
@@ -2530,20 +2621,46 @@ def phase_hierarchy(scene, cams, h):
     check(n_diff <= n_rows // 1000, f"hierarchy: out_observe differs on {n_diff} of {n_rows} rows (> 0.1%)")
     print(f"[hier] tau={LOD_HOLD_TAU:g} frame, view 0 ({n_rows} interpolated rows, {int(tb.num_instances)} instances): "
           f"forward kernel vs plain blend: max abs err {err:.3e} (atol 3e-4 / rtol 1e-3 holds), out_observe differs "
-          f"on {n_diff} of {n_rows} rows; two frames bitwise equal")
-    del kept, pre, tb, p, a, b
+          f"on {n_diff} of {n_rows} rows; two eager and two compiled frames bitwise equal")
+    del kept, pre, tb, p, a, b, ca, cb
 
-    # ms per LOD frame and its four stages, view 0
+    # ms per LOD frame of both renderers and the four stages, view 0; the
+    # device busy share of both at tau 0 and 6
     times = {}
     for tau in LOD_TAUS:
         with torch.no_grad():
+            eager_ms = time_ms(lambda: e.render(cams[0], tau))
             frame_ms = time_ms(lambda: r.render(cams[0], tau))
-            parts = {name: time_ms(fn) for name, fn in lod_stages(r, cams[0], tau).items()}
-        times[tau] = dict(frame_ms=frame_ms, **parts)
-        print(f"[hier-times] tau {tau:g}: ms per LOD frame {frame_ms:.3f} (CUDA events, median of {ITERS}); stages "
+            host = []
+            for _ in range(ITERS):
+                sync(dev)
+                t0 = time.perf_counter()
+                r.render(cams[0], tau)
+                host.append(1e3 * (time.perf_counter() - t0))
+            parts = {name: time_ms(fn) for name, fn in lod_stages(e, cams[0], tau).items()}
+        times[tau] = dict(eager_ms=eager_ms, frame_ms=frame_ms, host_ms=statistics.median(host), **parts)
+        print(f"[hier-times] tau {tau:g}: ms per LOD frame (CUDA events, median of {ITERS}) eager {eager_ms:.3f}, "
+              f"compiled {frame_ms:.3f} ({eager_ms / frame_ms:.2f}x); host ms per compiled frame (the viewpoint "
+              f"read, copy-in, replay, the counter read; median of {ITERS}) {times[tau]['host_ms']:.3f}; stages "
               f"alone: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
               + f" ms; cut {cuts[tau, 0][0]}, budget {cuts[tau, 0][1]}, instances {cuts[tau, 0][2]}")
-    return dict(launches=launches, err=err, times=times, cuts=cuts)
+        if tau in (0.0, LOD_HOLD_TAU):
+            with torch.no_grad():
+                for mode, renderer in (("eager", e), ("compiled", r)):
+                    times[tau][f"{mode}_profile"] = profile_device(lambda: renderer.render(cams[0], tau),
+                                                                   f"hier-{mode}-tau{tau:g}")
+    for c in r.compiled.captures:
+        print(f"[hier] capture: budget {c['budget']}, max_instances {c['max_instances']}: warm-up "
+              f"{c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s, graph pool "
+              f"+{c['pool_reserved_bytes'] / 2**30:.3f} GiB reserved")
+    pool = sum(c["pool_reserved_bytes"] for c in r.compiled.captures) / 2**30
+    print(f"[hier] {len(r.compiled.captures)} captures, {r.compiled.replays} replays in the renderer's "
+          f"CompiledLodFrame; the graph pool grew by {pool:.3f} GiB over its captures")
+    result = dict(launches=launches["eager"], compiled_launches=launches["compiled"], err=err, times=times, cuts=cuts,
+                  captures=len(r.compiled.captures), pool_gib=pool)
+    del r, e
+    torch.cuda.empty_cache()
+    return result
 
 
 def serve_hierarchy(src, hier_path, dev):
@@ -2563,14 +2680,15 @@ def serve_hierarchy(src, hier_path, dev):
     wall = time.perf_counter() - t0
     launches = read_counts()
     pngs = sorted(out.glob("*.png"))
-    check(len(pngs) >= 1 and launches == {"blend_fwd": len(pngs), "blend_bwd": 0, "fold_rows": 0}
-          and len(calls) == len(pngs), f"render_cli --hierarchy: {len(pngs)} PNGs, launches {launches}, {len(calls)} "
-                                       f"cut-and-render calls, expected one of each per PNG")
+    replays = dict(zip(launches, replay_counts()))
+    check(len(pngs) >= 1, "render_cli --hierarchy wrote no PNG")
+    # on the card render_cli's renderer replays its frames
+    captures = check_frame_launches(calls, launches, replays, len(pngs), "compiled", "render_cli --hierarchy")
     img = png.read_image(str(pngs[0]))
     check(img.shape == (FULL_H, FULL_W, 3) and img.std() > 1, "render_cli --hierarchy: a blank or misshapen view")
     print(f"[serve] render_cli --hierarchy {hier_path.name} --tau {SERVE_TAU:g}: {len(pngs)} views in {wall:.2f} s "
-          f"({1e3 * wall / len(pngs):.1f} ms per view, the .hier read, the renderer's set-up and the PNG writes "
-          f"included); launches {launches}")
+          f"({1e3 * wall / len(pngs):.1f} ms per view, the .hier read, the renderer's set-up, {captures} captures and "
+          f"the PNG writes included); launches {launches}, of which {replays['blend_fwd']} replayed")
     return launches
 
 
@@ -2816,6 +2934,12 @@ POST_OPT_SH_SCALE = 0.7  # the start state: the hierarchy with every SH coeffici
 POST_OPT_BUDGET = 1 << 21  # post_optimize's default budget for 2,020,479 points
 
 
+def post_opt_leaves(ts):
+    """The tensors a post-opt step writes."""
+    return list(ts.params) + list(ts.opt.m) + list(ts.opt.v) + [ts.opt.step, ts.step, ts.exposure, ts.exposure_m,
+                                                                 ts.exposure_v]
+
+
 def phase_post_opt(h, cams, targets):
     """The hierarchy post-optimizer at full width: phase 6a's hierarchy with
     every SH coefficient scaled by POST_OPT_SH_SCALE, `post_optimize` for
@@ -2823,14 +2947,19 @@ def phase_post_opt(h, cams, targets):
     renders, clipped) at the τ=6 cut, exposure trained as the pipeline runs
     it, tile 32, an instance budget from a probe of the τ-cut frames
     (`pipeline.lod_sweep`, the pipeline's LOD evaluation) with 1.12x
-    slack. Launch counts and every step's budget counters are read around
-    that run. Then: the τ-cut PSNR against the perturbed start; the
-    last step's blend node held against the plain versions; two steps from
-    one state bitwise equal; one step under set_sync_debug_mode("error");
-    the optimized hierarchy written as .hier and read back equal; ms per
-    step with its stages, the device busy share and the peak memory."""
-    import dataclasses
-
+    slack. On the card post_optimize runs the compiled step
+    (CompiledHierTrainStep: a cut replay and a step replay per iteration);
+    every iteration is held against the eager `select_cut` and
+    `hier_train_step` on the same inputs (the cut, then the state and the
+    metrics, bitwise), with the launches of both counted around each call
+    and every replay but the first under set_sync_debug_mode("error"); the
+    budget counters are the graph's outputs. Then: the τ-cut PSNR against
+    the perturbed start; the last step's blend node held against the plain
+    versions; two eager steps from one state bitwise equal; eager and
+    compiled steps under set_sync_debug_mode("error"); the optimized
+    hierarchy written as .hier and read back equal; ms per step of both
+    modes with the eager stages, the host ms per replay, the device busy
+    share of both and the peak memory."""
     from hidegs_tpu_torch.hier import io as hio
     from hidegs_tpu_torch.hier.lod import tau_to_target_size
     from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
@@ -2838,6 +2967,7 @@ def phase_post_opt(h, cams, targets):
     from hidegs_tpu_torch.raster.api import RasterConfig, round_budget
     from hidegs_tpu_torch.train import hier_trainer as ht
     from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.utils import graphs
 
     dev = targets[0].device
     target = tau_to_target_size(POST_OPT_TAU, float(cams[0].fx))
@@ -2850,46 +2980,89 @@ def phase_post_opt(h, cams, targets):
     print(f"[post-opt] hierarchy {h.num_points} points / {h.num_nodes} nodes, SH x{POST_OPT_SH_SCALE}; τ={POST_OPT_TAU:g} "
           f"cut per view {cut_sizes} (budget {POST_OPT_BUDGET}), instances {inst} → max_instances {cfg.max_instances}")
 
-    losses, counters, last = [], [], {}
+    losses, counters, last, owner, diverged = [], [], {}, {}, []
+    path = {"eager": (0, 0, 0), "compiled": (0, 0, 0)}
 
-    def keep_step(step):
-        def call(ts, cut, cam, gt, lrs, rcfg, **kwargs):
-            last.update(ts=ts, cut=cut, cam=cam, gt=gt, lrs=lrs, kwargs=kwargs)
-            new, m = step(ts, cut, cam, gt, lrs, rcfg, **kwargs)
-            losses.append(m["loss"])
-            return new, m
+    def hold_select(select):
+        def call(self, ts, cam, target_size, budget):
+            want = ht.select_cut(ts, cam, target_size, budget)
+            cut = select(self, ts, cam, target_size, budget)
+            bad = [f for f in cut._fields if not torch.equal(getattr(cut, f), getattr(want, f))]
+            if bad and not diverged:
+                diverged.append((len(losses), f"the cut's {bad}"))
+            return cut
         return call
 
-    def keep_counters(render):
-        def call(*args, **kwargs):
-            out = render(*args, **kwargs)
-            counters.append(torch.stack([out[k].to(torch.int64) for k in ("overflow", "block_overflow",
-                                                                         "visible_overflow")]))
-            return out
+    def hold_step(step):
+        def call(self, ts, cut, cam, gt, lrs, rcfg, **kwargs):
+            owner["step"] = self
+            k = len(losses)
+            if k == POST_OPT_ITERS - 1:  # the last step's inputs, for the node hold
+                last.update(ts=graphs._map(torch.clone, ts), cut=graphs._map(torch.clone, cut), cam=cam, gt=gt,
+                            lrs=lrs, kwargs=kwargs)
+            sync(dev)
+            d0 = direct_counts()
+            want, wm = ht.hier_train_step(ts, cut, cam, gt, lrs, rcfg, **kwargs)
+            sync(dev)
+            d1, r1, n_caps = direct_counts(), replay_counts(), len(self.captures)
+            if k > 0:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                new, m = step(self, ts, cut, cam, gt, lrs, rcfg, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sync(dev)
+            eager = tuple(b - a for a, b in zip(d0, d1))
+            d = tuple(b - a for a, b in zip(d1, direct_counts()))
+            r = tuple(b - a for a, b in zip(r1, replay_counts()))
+            captured = [c["kind"] for c in self.captures[n_caps:]]
+            check(eager == (1, 1, 1), f"post-opt step {k}: the eager step launched {eager}")
+            check(r == (1, 1, 1) and d == ((1, 1, 1) if "step" in captured else (0, 0, 0)),
+                  f"post-opt step {k}: replayed launches {r}, the launchers' {d} (captured {captured})")
+            path["eager"] = tuple(a + b for a, b in zip(path["eager"], eager))
+            path["compiled"] = tuple(a + b + c for a, b, c in zip(path["compiled"], d, r))
+            bad = [n for n, (x, y) in enumerate(zip(post_opt_leaves(new), post_opt_leaves(want)))
+                   if not torch.equal(x, y)] + [key for key in wm if not torch.equal(m[key], wm[key])]
+            if bad and not diverged:
+                diverged.append((k, f"state leaves and metrics {bad}"))
+            losses.append(m["loss"].clone())
+            counters.append(torch.stack([self.counters[key].to(torch.int64) for key in ht.COUNTERS]))
+            return new, m
         return call
 
     torch.cuda.reset_peak_memory_stats()
     sync(dev)
     reset_counts()
     t0 = time.perf_counter()
-    with patched(ht, "hier_train_step", keep_step), patched(ht, "render", keep_counters):
+    with patched(ht.CompiledHierTrainStep, "__call__", hold_step), \
+            patched(ht.CompiledHierTrainStep, "select", hold_select):
         ts = ht.post_optimize(start, cams, targets, iterations=POST_OPT_ITERS, target_size=target,
                               raster_cfg=cfg, log_every=10, optimize_exposure=True, device=dev)
     sync(dev)
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = read_counts()
+    comp = owner["step"]
+    h_opt = ht.hierarchy_from_state(ts, start)  # before a replay overwrites the buffers
     losses = torch.stack(losses).tolist()
     counters = torch.stack(counters).sum(0).tolist()
-    print(f"[post-opt] launches on the post-opt path: {launches} for {POST_OPT_ITERS} steps; losses "
-          f"{losses[0]:.4f} → {losses[-1]:.4f}; budget counters (overflow, block, visible) summed {counters}; "
-          f"{1e3 * wall / POST_OPT_ITERS:.1f} ms per step on the host clock, peak device memory {peak_gb:.2f} GiB")
-    check(launches == {k: POST_OPT_ITERS for k in ("blend_fwd", "blend_bwd", "fold_rows")},
-          f"post-opt launches {launches}, expected one of each kernel per step ({POST_OPT_ITERS})")
+    n_step_captures = sum(c["kind"] == "step" for c in comp.captures)
+    want_compiled = (POST_OPT_ITERS + n_step_captures,) * 3
+    print(f"[post-opt] launches: {path['compiled']} on the compiled path ({POST_OPT_ITERS} steps: replays and "
+          f"{n_step_captures} capture's warm-up), {path['eager']} of the eager steps held beside them; losses "
+          f"{losses[0]:.4f} → {losses[-1]:.4f}; budget counters (overflow, block, visible; the graph's outputs) "
+          f"summed {counters}; {1e3 * wall / POST_OPT_ITERS:.1f} ms per held iteration on the host clock (an eager "
+          f"and a compiled step, the checks), peak device memory {peak_gb:.2f} GiB")
+    check(diverged == [], f"post-opt: the compiled and eager steps part: {diverged}")
+    check(path["eager"] == (POST_OPT_ITERS,) * 3 and path["compiled"] == want_compiled
+          and tuple(launches.values()) == tuple(a + b for a, b in zip(path["eager"], want_compiled)),
+          f"post-opt launches {path}, {launches} in all; expected one of each kernel per eager step and per replay, "
+          f"and one per capture's warm-up")
     check(len(losses) == POST_OPT_ITERS and all(np.isfinite(losses)), f"post-opt: losses {losses}")
     check(counters == [0, 0, 0], f"post-opt: a step overflowed its budgets {counters}")
+    print(f"[post-opt] compiled and eager steps bitwise equal after each of the {POST_OPT_ITERS} steps (the cut, "
+          f"params, moments, row steps, step, exposure and its moments, loss, n_visible); replays made no host sync")
 
-    h_opt = ht.hierarchy_from_state(ts, start)
     (after,) = lod_sweep(h_opt, cams, targets, [POST_OPT_TAU], cfg)
     psnr_after = after["psnr"]
     check(after["overflow"] == 0 and after["cuts"] == cut_sizes,
@@ -2917,23 +3090,24 @@ def phase_post_opt(h, cams, targets):
           f"rows): backward + fold kernels vs blend_tiles_bwd + plain fold: {hold_report(held)}")
     del got, node, loss, inputs
 
-    def leaves(x):
-        return list(x.params) + list(x.opt.m) + list(x.opt.v) + [x.opt.step, x.step, x.exposure, x.exposure_m,
-                                                                 x.exposure_v]
-
     a, ma = ht.hier_train_step(s_ts, cut, cam, gt, lrs, cfg, **kw)
     b, mb = ht.hier_train_step(s_ts, cut, cam, gt, lrs, cfg, **kw)
-    for i, (x, y) in enumerate(zip(leaves(a), leaves(b))):
+    for i, (x, y) in enumerate(zip(post_opt_leaves(a), post_opt_leaves(b))):
         check(torch.equal(x, y), f"post-opt: two steps from one state differ in leaf {i}")
     check(torch.equal(ma["loss"], mb["loss"]), "post-opt: two steps from one state differ in the loss")
     print("[post-opt-hold] two steps from one state: params, moments, row steps, exposure and its moments bitwise equal")
-    del a, b
+    del a, b, s_ts
 
     def step(state):
         c = ht.select_cut(state, cam, target, POST_OPT_BUDGET)
         return ht.hier_train_step(state, c, cam, gt, lr_tree(state.step, LRConfig(), 1.0), cfg, **kw)
 
-    warm, _ = step(ts)
+    def cstep(state):
+        c = comp.select(state, cam, target, POST_OPT_BUDGET)
+        return comp(state, c, cam, gt, lr_tree(state.step, LRConfig(), 1.0), cfg, **kw)
+
+    ts0 = graphs._map(torch.clone, ts)  # the post-optimized state, kept from the replays that follow
+    warm, _ = step(ts0)
     sync(dev)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2941,9 +3115,21 @@ def phase_post_opt(h, cams, targets):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     check(bool(torch.isfinite(m["loss"])) and int(stepped.step) == POST_OPT_ITERS + 2, "post-opt: unsynced step")
-    print(f"[post-opt-hold] a step (select_cut, learning rates, forward, backward, Adam, exposure Adam) ran under "
-          f"set_sync_debug_mode('error'): no host sync; {int(m['n_visible'])} visible rows")
     del warm, stepped
+    n_caps = len(comp.captures)
+    state, _ = cstep(ts)  # the steady loop: each replay consumes the state the last one returned
+    sync(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            state, m = cstep(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bool(torch.isfinite(m["loss"])) and int(state.step) == POST_OPT_ITERS + 4 and len(comp.captures) == n_caps,
+          "post-opt: unsynced compiled steps")
+    print(f"[post-opt-hold] an eager step (select_cut, learning rates, forward, backward, Adam, exposure Adam) and "
+          f"three compiled iterations (cut and step replays, learning rates) ran under set_sync_debug_mode('error'): "
+          f"no host sync; {int(m['n_visible'])} visible rows")
 
     work = ROOT / "build" / "post_opt_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -2958,18 +3144,31 @@ def phase_post_opt(h, cams, targets):
     print("[post-opt] hierarchy_from_state written as .hier and read back equal, finite")
 
     i = kw["image_idx"]
-    step_ms = time_ms(lambda: step(ts))
+    steady = [state]
+
+    def replayed():
+        steady[0], _ = cstep(steady[0])
+
+    step_ms = time_ms(lambda: step(ts0))
+    compiled_ms = time_ms(replayed)
+    host = []
+    for _ in range(ITERS):
+        sync(dev)
+        t0 = time.perf_counter()
+        replayed()
+        host.append(1e3 * (time.perf_counter() - t0))
+    host_ms = statistics.median(host)
 
     def stages():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
-        c = ht.select_cut(ts, cam, target, POST_OPT_BUDGET)
+        c = ht.select_cut(ts0, cam, target, POST_OPT_BUDGET)
         ev[1].record()
-        loss, inputs = ht.hier_step_forward(ts, c, cam, gt, cfg, image_idx=i, use_exposure=True)
+        loss, inputs = ht.hier_step_forward(ts0, c, cam, gt, cfg, image_idx=i, use_exposure=True)
         ev[2].record()
         grads = tl.step_backward(loss, inputs)
         ev[3].record()
-        ht.hier_step_update(ts, c, grads, lrs, use_exposure=True, optimize_exposure=True)
+        ht.hier_step_update(ts0, c, grads, lrs, use_exposure=True, optimize_exposure=True)
         ev[4].record()
         ev[4].synchronize()
         return [ev[k].elapsed_time(ev[k + 1]) for k in range(4)]
@@ -2977,13 +3176,23 @@ def phase_post_opt(h, cams, targets):
     for _ in range(WARMUP):
         stages()
     split = [statistics.median(x) for x in zip(*(stages() for _ in range(ITERS)))]
-    print(f"[post-opt-times] post-opt step (select_cut, learning rates, hier_train_step) {step_ms:.3f} ms (CUDA events, "
-          f"median of {ITERS} after {WARMUP} warm-ups); stages: select {split[0]:.3f} ms, forward (interpolate + "
-          f"render + loss) {split[1]:.3f} ms, backward {split[2]:.3f} ms, update (visible mask, Adam, exposure Adam) "
-          f"{split[3]:.3f} ms; peak device memory of the run {peak_gb:.2f} GiB")
-    profile_device(lambda: step(ts), "post-opt-breakdown")
-    return dict(launches=launches, fwd_err=fwd_err, err=held["err"], fold_err=held["fold_err"], step_ms=step_ms,
-                split=split, psnr=(psnr_before, psnr_after))
+    print(f"[post-opt-times] post-opt step (cut, learning rates, step; CUDA events, median of {ITERS} after {WARMUP} "
+          f"warm-ups): eager {step_ms:.3f} ms, compiled {compiled_ms:.3f} ms ({step_ms / compiled_ms:.2f}x); host ms "
+          f"per compiled iteration (copy-in and both replays, median of {ITERS}) {host_ms:.3f}; eager stages: select "
+          f"{split[0]:.3f} ms, forward (interpolate + render + loss) {split[1]:.3f} ms, backward {split[2]:.3f} ms, "
+          f"update (visible mask, Adam, exposure Adam) {split[3]:.3f} ms; peak device memory of the held run "
+          f"{peak_gb:.2f} GiB")
+    for c in comp.captures:
+        print(f"[post-opt] capture of the {c['kind']}: warm-up {c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s, "
+              f"graph pool +{c['pool_reserved_bytes'] / 2**30:.3f} GiB reserved, launches {c['launches']}")
+    profiles = {"eager": profile_device(lambda: step(ts0), "post-opt-breakdown"),
+                "compiled": profile_device(replayed, "post-opt-compiled-breakdown")}
+    pool = sum(c["pool_reserved_bytes"] for c in comp.captures) / 2**30
+    del comp, steady, state, ts, ts0
+    torch.cuda.empty_cache()
+    return dict(launches=dict(zip(launches, path["eager"])), compiled_launches=dict(zip(launches, path["compiled"])),
+                fwd_err=fwd_err, err=held["err"], fold_err=held["fold_err"], step_ms=step_ms, compiled_ms=compiled_ms,
+                host_ms=host_ms, split=split, psnr=(psnr_before, psnr_after), profiles=profiles, pool_gib=pool)
 
 
 PIPE_SCENE = dict(n_ground=60_000, n_structs=96, seed=7, extent_xy=24.0)  # benchmarks/largescene_run.py:21-40
@@ -3019,7 +3228,7 @@ def phase_pipeline(dev):
     from hidegs_tpu_torch.hier import io as hio
     from hidegs_tpu_torch.hier.streaming import ChunkStreamer
     from hidegs_tpu_torch.raster.api import RasterConfig, round_budget
-    from hidegs_tpu_torch.train import compiled
+    from hidegs_tpu_torch.utils import graphs
 
     # the chunk workers share the card with this process: hand back what
     # the earlier phases' caching allocator holds
@@ -3085,7 +3294,7 @@ def phase_pipeline(dev):
                                (pipeline, "post_optimize", "post-opt"), (pipeline, "evaluate_lod", "eval")):
             stack.enter_context(patched(obj, name, stage(key)))
         stack.enter_context(patched(pipeline, "subprocess", lambda _: types.SimpleNamespace(Popen=popen)))
-        stack.enter_context(patched(compiled.CompiledTrainStep, "_capture", record_capture))
+        stack.enter_context(patched(graphs.GraphSet, "capture", record_capture))
         try:
             pipeline.main(argv)
         except BaseException:
@@ -3147,13 +3356,20 @@ def phase_pipeline(dev):
           f"pipeline: lod_eval {rows}")
     check(all(a >= b for a, b in zip(cuts, cuts[1:])), f"pipeline: the mean cut rises with τ: {cuts}")
     n_eval = len(PIPE_TAUS) * PIPE_EVAL_VIEWS
-    # the coarse model trains on the compiled step: one replayed launch of
-    # each kernel per step, and each capture's warm-up step launches them
-    # once more
-    warm = tuple(sum(c["warmup_launches"][k] for c in captures) for k in ("blend_fwd", "blend_bwd", "fold_rows"))
-    check(replayed.get("coarse") == (PIPE_COARSE,) * 3 and all(c["launches"] == c["warmup_launches"] for c in captures),
-          f"pipeline: the coarse stage replayed {replayed.get('coarse')} launches, expected {PIPE_COARSE} of each")
-    want = {"coarse": tuple(PIPE_COARSE + w for w in warm), "post-opt": (PIPE_POST,) * 3, "eval": (n_eval, 0, 0)}
+    # the coarse model and the post-optimizer train on compiled steps: one
+    # replayed launch of each kernel per step, and each capture's warm-up
+    # step launches them once more (the post-opt cut's graph launches none)
+    kinds = {"coarse": "the train step", "post-opt": "the post-opt step"}
+    check({c["what"] for c in captures} == set(kinds.values()) and all(c["launches"] == c["warmup_launches"]
+                                                                       for c in captures),
+          f"pipeline: captures {[(c['what'], c['launches'], c['warmup_launches']) for c in captures]}")
+    warm = {stage: tuple(sum(c["warmup_launches"][k] for c in captures if c["what"] == what)
+                         for k in ("blend_fwd", "blend_bwd", "fold_rows")) for stage, what in kinds.items()}
+    for stage, steps in (("coarse", PIPE_COARSE), ("post-opt", PIPE_POST)):
+        check(replayed.get(stage) == (steps,) * 3,
+              f"pipeline: the {stage} stage replayed {replayed.get(stage)} launches, expected {steps} of each")
+    want = {"coarse": tuple(PIPE_COARSE + w for w in warm["coarse"]),
+            "post-opt": tuple(PIPE_POST + w for w in warm["post-opt"]), "eval": (n_eval, 0, 0)}
     for key, expect in want.items():
         check(launches.get(key) == expect, f"pipeline: {key} launched {launches.get(key)}, expected {expect}")
     by_stage = [sum(v[k] for v in launches.values()) for k in range(3)]
@@ -3168,10 +3384,10 @@ def phase_pipeline(dev):
         f"τ={r['tau']:g}: PSNR {r['psnr']:.4f} dB, mean cut {r['mean_cut']:.0f}" for r in rows))
     print(f"[pipeline] steps skipped by the finite-step gate per chunk: {skipped}")
     print(f"[pipeline] each worker's train loop (alive rows, seconds of {PIPE_ITERS} iterations, its log): {trained}")
-    print(f"[pipeline] the coarse model on the compiled step: {len(captures)} captures ("
-          + ", ".join(f"{c['max_instances']} instances, row budget {c['row_budget']}: warm-up {c['warmup_s']:.3f} s, "
-                      f"capture {c['capture_s']:.3f} s" for c in captures)
-          + f"), {PIPE_COARSE} replays, warm-up launches {warm}")
+    print(f"[pipeline] the coarse model and the post-optimizer on compiled steps: {len(captures)} captures ("
+          + ", ".join(f"{c['what']}, {c['max_instances'] if 'max_instances' in c else c['kind']}: warm-up "
+                      f"{c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s" for c in captures)
+          + f"), {PIPE_COARSE} + {PIPE_POST} step replays, warm-up launches {warm}")
     print(f"[pipeline] launches in the parent process per stage (fwd, bwd, fold): {launches}; post-opt "
           f"{1e3 * seconds['post-opt'] / PIPE_POST:.2f} ms per step ({PIPE_POST} steps, host clock, the state's "
           f"upload included); hier.cli merge bitwise merged.hier; hier.cli create --cameras: {created.num_points} "
@@ -3316,8 +3532,10 @@ def main() -> int:
     by_path = {name: {"render": render_launches[name], "serve": serve["launches"][name],
                       "train": train_launches[name], "train_compiled": comp["launches"][name],
                       "trainer": trainer_run_launches[name],
-                      "hierarchy": lod["launches"][name] + serve["hier_launches"][name],
+                      "hierarchy": lod["launches"][name],
+                      "hierarchy_compiled": lod["compiled_launches"][name] + serve["hier_launches"][name],
                       "viewer": viewer["launches"][name], "post_opt": post_opt["launches"][name],
+                      "post_opt_compiled": post_opt["compiled_launches"][name],
                       "pipeline": pipe["launches"][name], "view_parallel": vp["launches"][name]}
                for name in launches}
     kernels = [{

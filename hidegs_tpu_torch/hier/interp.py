@@ -14,9 +14,13 @@ The gathers read one (P, 59) attribute matrix (`pack_attributes`: means,
 scales, quats, opacity and the 48 SH values of each gaussian). The JAX
 version concatenates it inside every call, ~470 MB per frame at 2M points;
 `AdaptiveHierRenderer` builds it once per hierarchy and passes it in.
+
+On a card the renderer replays each frame as a CUDA graph
+(`CompiledLodFrame`, the counterpart of JAX's one jit dispatch per frame).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -33,6 +37,7 @@ from hidegs_tpu_torch.hier.lod import (
     pack_hierarchy,
 )
 from hidegs_tpu_torch.raster.api import RasterConfig, render, round_budget
+from hidegs_tpu_torch.utils.graphs import Graph, GraphSet, _map, _spec, copy_into, on_card, require_cuda, same_tensors
 
 
 class InterpolatedGaussians(NamedTuple):
@@ -185,6 +190,98 @@ def fused_lod_frame(
     return out
 
 
+def lod_frame_key(packed: PackedHier, target_size, cam, means3d, scales, quats, opacities, shs, budget: int,
+                  num_points: int, skybox_count: int = 0, background=None, config: Optional[RasterConfig] = None,
+                  active_sh_degree: int = 3, render_geo: bool = False, attrs: Optional[torch.Tensor] = None) -> tuple:
+    """The key a LOD frame graph is captured for: JAX's static arguments of
+    `fused_lod_frame` (budget, num_points, skybox_count, config,
+    active_sh_degree, render_geo), the shapes of the hierarchy, its arrays,
+    `attrs` and the camera (the image size), whether `background` is given
+    and a float target's value (a tensor target is an input)."""
+    return (int(budget), int(num_points), int(skybox_count), config or RasterConfig(), int(active_sh_degree),
+            bool(render_geo), _spec(packed), _spec((means3d, scales, quats, opacities, shs)), _spec(attrs),
+            _spec(cam), _spec(target_size), _spec(background))
+
+
+@dataclasses.dataclass
+class _FrameGraph:
+    graph: Graph  # outputs: the frame's dict
+    held: tuple  # (packed, the five arrays, attrs), by reference
+    inputs: tuple  # static (target, camera, background)
+
+
+class CompiledLodFrame:
+    """`fused_lod_frame` captured once per static key (`lod_frame_key`) as
+    a CUDA graph and replayed: cut select (`expand_packed`), interpolation
+    and raster in one replay, the forward blend kernel inside. Called as
+    `fused_lod_frame` is, on a hierarchy on a CUDA device; the frame is
+    not differentiable (the body runs under `torch.no_grad`).
+
+      * the hierarchy (`packed`), its five arrays and `attrs` are held by
+        reference: they never change for a renderer, and copying the
+        (P, 59) attribute matrix per key would cost ~470 MB at 2M points.
+        A call with other tensors for them raises: use one
+        CompiledLodFrame per hierarchy;
+      * the camera, a tensor target and the background are copied into
+        the graph's static inputs before each replay;
+      * the returned dict holds the graph's static tensors: the next
+        replay of any of this callable's graphs (they share one pool)
+        overwrites them, so a caller that keeps a frame past the next
+        call clones it.
+
+    A new key warms the frame up on a side stream, then captures it
+    (utils/graphs.py). There is no fallback: a hierarchy off the card
+    raises ValueError, a failed capture RuntimeError."""
+
+    def __init__(self):
+        self._set = GraphSet("the LOD frame")
+        self._frames = {}
+
+    @property
+    def captures(self):
+        return self._set.captures
+
+    @property
+    def replays(self) -> int:
+        return self._set.replays
+
+    @staticmethod
+    def body(*args, **kwargs):
+        """What a graph captures: `fused_lod_frame` under no_grad."""
+        with torch.no_grad():
+            return fused_lod_frame(*args, **kwargs)
+
+    def __call__(self, packed: PackedHier, target_size, cam, means3d, scales, quats, opacities, shs, budget: int,
+                 num_points: int, skybox_count: int = 0, background=None, config: Optional[RasterConfig] = None,
+                 active_sh_degree: int = 3, render_geo: bool = False, attrs: Optional[torch.Tensor] = None):
+        dev = packed.obox.device
+        require_cuda(dev, "the compiled LOD frame", "fused_lod_frame")
+        arrays = (means3d, scales, quats, opacities, shs)
+        key = lod_frame_key(packed, target_size, cam, *arrays, budget, num_points, skybox_count, background, config,
+                            active_sh_degree, render_geo, attrs)
+        held, inputs = (packed, arrays, attrs), (target_size, cam, background)
+        g = self._frames.get(key)
+        if g is None:
+            static = _map(torch.clone, inputs)
+            statics = dict(budget=budget, num_points=num_points, skybox_count=skybox_count, config=config,
+                           active_sh_degree=active_sh_degree, render_geo=render_geo, attrs=attrs)
+
+            def run():
+                target, c, bg = static
+                return self.body(packed, target, c, *arrays, background=bg, **statics)
+
+            info = dict(budget=int(budget), image=(cam.height, cam.width),
+                        max_instances=(config or RasterConfig()).max_instances)
+            g = self._frames[key] = _FrameGraph(graph=self._set.capture(dev, run, run, info), held=held,
+                                                inputs=static)
+        elif not same_tensors(g.held, held):
+            raise ValueError("the compiled LOD frame holds the hierarchy's arrays by reference: "
+                             "use one CompiledLodFrame per hierarchy")
+        copy_into(g.inputs, inputs)
+        self._set.replay(g.graph)
+        return dict(g.graph.outputs)
+
+
 class AdaptiveHierRenderer:
     """τ-aware hierarchy renderer: fits the cut, interpolation and raster
     budgets to the cut size of each (viewpoint, τ) instead of riding
@@ -205,6 +302,13 @@ class AdaptiveHierRenderer:
     skips the count pass), and the three counters (num_selected, overflow,
     num_instances) together; a re-expansion or a regrow reads the counters
     again.
+
+    On a card each cut-and-render call is a replay of `compiled`, a
+    `CompiledLodFrame` (None off the card; set to None, the renderer calls
+    the eager `fused_lod_frame`); the budgets are part of its key, so a
+    re-expansion or a regrow captures once and replays afterwards. The
+    frame it returns then holds the graph's static tensors, which the next
+    `render` overwrites: a caller that keeps a frame clones it.
     """
 
     def __init__(self, nodes, boxes, means3d, scales, quats, opacities, shs,
@@ -231,6 +335,7 @@ class AdaptiveHierRenderer:
         self.shrink_factor = shrink_factor
         self._budget = 0
         self._max_inst = 0
+        self.compiled = CompiledLodFrame() if on_card(boxes.device) else None
 
     @classmethod
     def from_hierarchy(cls, h: Hierarchy, device, **kwargs) -> "AdaptiveHierRenderer":
@@ -279,10 +384,11 @@ class AdaptiveHierRenderer:
         want = round_budget(max(2 * (budget + self.skybox_count), 1 << 14))
         if want > self._max_inst or want * 4 <= self._max_inst:
             self._max_inst = want
+        frame = fused_lod_frame if self.compiled is None else self.compiled
         for _ in range(5):
             config = RasterConfig(backend=self.backend, tile=self.tile, depth_sort_bits=-1,
                                   max_instances=self._max_inst)
-            out = fused_lod_frame(
+            out = frame(
                 self._packed, target, cam, *self.arrays, budget=budget, num_points=self.num_points,
                 skybox_count=self.skybox_count, background=background, config=config,
                 render_geo=render_geo, active_sh_degree=active_sh_degree, attrs=self._attrs)

@@ -62,7 +62,9 @@ def main(argv=None):
                                                        backend=port_backend(args.backend))
         for i in range(len(scene.train_cameras)):
             cam = scene.train_cameras[i]
-            # --tau is in pixels (the reference's convention); 0 = exact leaf cut
+            # --tau is in pixels (the reference's convention); 0 = exact leaf cut.
+            # On a card the frame is a graph replay's static output, which the
+            # next render overwrites: it is written out before then
             with torch.no_grad():
                 out = renderer.render(cam.cam_params(dev), args.tau)
             save_png(os.path.join(args.output_path, f"{i:05d}.png"), torch.clamp(out["render"], 0, 1))

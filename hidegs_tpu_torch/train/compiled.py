@@ -37,22 +37,18 @@ There is no fallback: a state off the card raises, and so does a failed
 capture (a host sync inside the step is one). The eager `train_step` is
 the CPU's path.
 
-Launch counts: `cuda_blend`'s counters count its launchers' calls, which a
-replay does not make. Each graph records at capture how often the step
-launched each kernel, capture leaves those counters as they were (it
-launches nothing), and every replay adds the graph's launches to
-`REPLAY_LAUNCHES`. The warm-up's launches are real and stay in
+Launch counts: every replay adds the graph's recorded launches to
+`REPLAY_LAUNCHES`, the capture machinery's one process-wide count
+(utils/graphs.py); the warm-up's launches are real and stay in
 `cuda_blend`'s counters.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from hidegs_tpu_torch.raster import cuda_blend
 from hidegs_tpu_torch.train.loop import (
     TrainConfig,
     TrainState,
@@ -64,52 +60,16 @@ from hidegs_tpu_torch.train.loop import (
     step_forward,
     step_update,
 )
-
-KERNELS = ("blend_fwd", "blend_bwd", "fold_rows")
-# launches of each kernel made by graph replays in this process
-REPLAY_LAUNCHES = {k: 0 for k in KERNELS}
-
-
-def _kernel_counts() -> tuple:
-    return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
-
-
-def _set_kernel_counts(counts: tuple) -> None:
-    cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES = counts
-
-
-def _map(fn, x):
-    """`x` with `fn` applied to each tensor: tensors inside NamedTuples,
-    tuples, lists and dataclasses; every other leaf as it is."""
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(_map(fn, v) for v in x))
-    if isinstance(x, (tuple, list)):
-        return type(x)(_map(fn, v) for v in x)
-    if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return dataclasses.replace(x, **{f.name: _map(fn, getattr(x, f.name)) for f in dataclasses.fields(x)})
-    return x
-
-
-def _tensors(x) -> List[torch.Tensor]:
-    out: List[torch.Tensor] = []
-    _map(out.append, x)
-    return out
-
-
-def _spec(x):
-    """The static part of `x`: each tensor's shape, dtype and device, each
-    other leaf's value; generators are state, not structure."""
-    if isinstance(x, torch.Tensor):
-        return (tuple(x.shape), x.dtype, x.device)
-    if isinstance(x, torch.Generator):
-        return torch.Generator
-    if isinstance(x, (tuple, list)):
-        return (type(x), tuple(_spec(v) for v in x))
-    if dataclasses.is_dataclass(x) and not isinstance(x, type):
-        return (type(x), tuple(_spec(getattr(x, f.name)) for f in dataclasses.fields(x)))
-    return x
+from hidegs_tpu_torch.utils.graphs import (  # noqa: F401  (the tests and the smoke read some of these here)
+    KERNELS,
+    REPLAY_LAUNCHES,
+    GraphSet,
+    _map,
+    _spec,
+    _tensors,
+    copy_into,
+    require_cuda,
+)
 
 
 def _effective_row_budget(ts: TrainState, row_budget: int) -> int:
@@ -123,22 +83,6 @@ def static_key(ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposure:
     A row budget at or above the capacity is the full-capacity step."""
     return (cfg, bool(use_exposure), _effective_row_budget(ts, row_budget), _spec(ts), _spec(batch),
             _spec(uv if batch.multi_view is not None else None))
-
-
-def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return (a.data_ptr() == b.data_ptr() and a.dtype == b.dtype and a.shape == b.shape
-            and a.stride() == b.stride())
-
-
-def copy_into(static, given) -> int:
-    """Copy every tensor of `given` into the matching tensor of `static`,
-    except those that already are it; returns how many were copied."""
-    n = 0
-    for s, g in zip(_tensors(static), _tensors(given), strict=True):
-        if not _same_memory(s, g):
-            s.copy_(g)
-            n += 1
-    return n
 
 
 def step_in_place(ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposure: bool = False,
@@ -159,11 +103,9 @@ def step_in_place(ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposu
 
 @dataclasses.dataclass
 class _Graph:
-    graph: Any  # torch.cuda.CUDAGraph
+    graph: Any  # utils.graphs.Graph: the graph, its static metrics and launches
     batch: ViewBatch  # static batch tensors
     uv: Optional[torch.Tensor]  # static pixel samples
-    metrics: Dict[str, torch.Tensor]  # static outputs
-    launches: Dict[str, int]  # kernel launches recorded into the graph
 
 
 class CompiledTrainStep:
@@ -179,16 +121,19 @@ class CompiledTrainStep:
     def __init__(self):
         self._graphs: Dict[tuple, _Graph] = {}
         self._states: Dict[Any, TrainState] = {}  # static state buffers, by the state's spec
-        self._pool = None
-        self.captures: List[Dict[str, Any]] = []
-        self.replays = 0
+        self._set = GraphSet("the train step")
+
+    @property
+    def captures(self):
+        return self._set.captures
+
+    @property
+    def replays(self) -> int:
+        return self._set.replays
 
     def __call__(self, ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposure: bool = False,
                  row_budget: int = 0, uv: Optional[torch.Tensor] = None):
-        dev = ts.gaussians.alive.device
-        if dev.type != "cuda":
-            raise ValueError(f"the compiled train step captures CUDA graphs; the state is on {dev}: "
-                             "use train_step off the card")
+        require_cuda(ts.gaussians.alive.device, "the compiled train step", "train_step")
         mv_generator = ts.mv_generator
         if batch.multi_view is None:
             uv = None
@@ -207,56 +152,24 @@ class CompiledTrainStep:
         copy_into(g.batch, batch)
         if uv is not None:
             g.uv.copy_(uv)
-        g.graph.replay()
-        self.replays += 1
-        for k, n in g.launches.items():
-            REPLAY_LAUNCHES[k] += n
+        self._set.replay(g.graph)
         return state._replace(generator=ts.generator, mv_generator=mv_generator, rows_split=ts.rows_split), \
-            g.metrics
+            g.graph.outputs
 
     def _capture(self, ts, state, batch, cfg, use_exposure, row_budget, uv) -> _Graph:
-        dev = ts.gaussians.alive.device
         static_batch = _map(torch.clone, batch)
         static_uv = None if uv is None else uv.clone()
-        with torch.cuda.device(dev):
-            # warm-up: the same step on a scratch copy of the caller's state,
-            # on a side stream (lazy library state, the kernels' builds)
-            scratch = _map(torch.clone, ts)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            counts = _kernel_counts()
-            t0 = time.perf_counter()
-            with torch.cuda.stream(side):
-                step_in_place(scratch, static_batch, cfg, use_exposure, row_budget, static_uv)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            torch.cuda.synchronize(dev)
-            warmup_s = time.perf_counter() - t0
-            warmup = dict(zip(KERNELS, (b - a for a, b in zip(counts, _kernel_counts()))))
-            del scratch
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(dev)
-            graph = torch.cuda.CUDAGraph()
-            counts = _kernel_counts()
-            t0 = time.perf_counter()
-            try:
-                with torch.cuda.graph(graph, pool=self._pool):
-                    metrics = step_in_place(state, static_batch, cfg, use_exposure, row_budget, static_uv)
-                recorded = dict(zip(KERNELS, (b - a for a, b in zip(counts, _kernel_counts()))))
-            except Exception as e:
-                raise RuntimeError(f"capturing the train step as a CUDA graph failed: {e}") from e
-            finally:
-                _set_kernel_counts(counts)  # a capture records launches, it makes none
-            capture_s = time.perf_counter() - t0
-            info = dict(capacity=ts.gaussians.capacity, image=tuple(batch.image.shape[-2:]),
-                        multi_view=batch.multi_view is not None, use_exposure=bool(use_exposure),
-                        row_budget=row_budget, max_instances=cfg.raster.max_instances,
-                        max_visible=cfg.raster.max_visible, max_blocks=cfg.raster.max_blocks,
-                        warmup_s=warmup_s, capture_s=capture_s, warmup_launches=warmup, launches=recorded,
-                        pool_reserved_bytes=torch.cuda.memory_reserved(dev) - reserved)
-        self.captures.append(info)
-        return _Graph(graph=graph, batch=static_batch, uv=static_uv, metrics=metrics, launches=recorded)
+        info = dict(capacity=ts.gaussians.capacity, image=tuple(batch.image.shape[-2:]),
+                    multi_view=batch.multi_view is not None, use_exposure=bool(use_exposure),
+                    row_budget=row_budget, max_instances=cfg.raster.max_instances,
+                    max_visible=cfg.raster.max_visible, max_blocks=cfg.raster.max_blocks)
+        # the warm-up steps a scratch copy of the caller's state
+        graph = self._set.capture(
+            ts.gaussians.alive.device,
+            lambda: step_in_place(_map(torch.clone, ts), static_batch, cfg, use_exposure, row_budget, static_uv),
+            lambda: step_in_place(state, static_batch, cfg, use_exposure, row_budget, static_uv),
+            info)
+        return _Graph(graph=graph, batch=static_batch, uv=static_uv)
 
 
 def compile_train_step(cfg: TrainConfig, use_exposure: bool = False, row_budget: int = 0):

@@ -24,10 +24,11 @@ packed once per state (`HierTrainState.packed`) and every cut is an
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import random
-from typing import NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,6 +44,18 @@ from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
 from hidegs_tpu_torch.raster.api import RasterConfig, render
 from hidegs_tpu_torch.train.loop import apply_exposure, step_backward
 from hidegs_tpu_torch.train.losses import abs_, clip, dssim_l1
+from hidegs_tpu_torch.utils.graphs import (
+    Graph,
+    GraphSet,
+    _map,
+    _same_memory,
+    _spec,
+    _tensors,
+    copy_into,
+    on_card,
+    require_cuda,
+    same_tensors,
+)
 
 
 class HierTrainState(NamedTuple):
@@ -140,6 +153,32 @@ def select_cut(ts: HierTrainState, cam, target_size, budget: int) -> HierCut:
                          num_points=int(ts.params.xyz.shape[0]))
 
 
+def image_row(exposure: torch.Tensor, image_idx) -> torch.Tensor:
+    """exposure[image_idx] for an int or a 0-d integer tensor. A tensor
+    index is read as a one-element gather: indexing with a 0-d tensor reads
+    it to the host, which a CUDA graph cannot capture (JAX traces the
+    index, hidegs_tpu/train/hier_trainer.py:168)."""
+    if isinstance(image_idx, torch.Tensor):
+        return exposure[image_idx.reshape(1).long()][0]
+    return exposure[image_idx]
+
+
+def _hier_forward(ts, cut, cam, gt_image, raster_cfg, lambda_dssim, skybox_count, image_idx, use_exposure):
+    """hier_step_forward, and the render's output dict."""
+    params = GaussianParams(*(p.detach().requires_grad_(True) for p in ts.params))
+    exposure = ts.exposure.detach().requires_grad_(use_exposure)
+    xyz, scales, quats, opac, shs = hierarchy_to_arrays(params)
+    ig = interpolate_cut(cut, xyz, scales, quats, opac, shs, skybox_count)
+    out = render(ig.means3d, ig.scales, ig.quats, ig.opacities, ig.shs, cam, config=raster_cfg)
+    img = out["render"]
+    if use_exposure:
+        img = apply_exposure(img, image_row(exposure, image_idx))
+    # background pixels render as exactly 0: clip's tie gradient matters
+    img = clip(img, 0.0, 1.0)
+    loss = dssim_l1(img, gt_image, lambda_dssim)
+    return loss, list(params) + ([exposure] if use_exposure else []), out
+
+
 def hier_step_forward(
     ts: HierTrainState,
     cut: HierCut,
@@ -153,19 +192,11 @@ def hier_step_forward(
 ):
     """The forward half of a step: interpolate the cut, render, loss, on
     fresh leaves that require grad. Returns (loss, inputs): the params'
-    leaves and, with `use_exposure`, the exposure."""
-    params = GaussianParams(*(p.detach().requires_grad_(True) for p in ts.params))
-    exposure = ts.exposure.detach().requires_grad_(use_exposure)
-    xyz, scales, quats, opac, shs = hierarchy_to_arrays(params)
-    ig = interpolate_cut(cut, xyz, scales, quats, opac, shs, skybox_count)
-    out = render(ig.means3d, ig.scales, ig.quats, ig.opacities, ig.shs, cam, config=raster_cfg)
-    img = out["render"]
-    if use_exposure:
-        img = apply_exposure(img, exposure[image_idx])
-    # background pixels render as exactly 0: clip's tie gradient matters
-    img = clip(img, 0.0, 1.0)
-    loss = dssim_l1(img, gt_image, lambda_dssim)
-    return loss, list(params) + ([exposure] if use_exposure else [])
+    leaves and, with `use_exposure`, the exposure. `image_idx` is an int or
+    a 0-d integer tensor."""
+    loss, inputs, _ = _hier_forward(ts, cut, cam, gt_image, raster_cfg, lambda_dssim, skybox_count, image_idx,
+                                    use_exposure)
+    return loss, inputs
 
 
 def hier_step_update(
@@ -242,6 +273,201 @@ def hier_train_step(
     return new_ts, {"loss": loss.detach(), "n_visible": visible.sum()}
 
 
+# ---------------------------------------------------------------------------
+# the compiled post-opt step
+
+# the fields of HierTrainState a step writes; the topology (nodes, boxes,
+# packed) is only read, by the cut, and is held by reference
+_STEP_FIELDS = ("params", "opt", "step", "exposure", "exposure_m", "exposure_v")
+COUNTERS = ("overflow", "block_overflow", "visible_overflow")
+
+
+def _written(ts: HierTrainState) -> tuple:
+    return tuple(getattr(ts, f) for f in _STEP_FIELDS)
+
+
+def hier_static_key(ts: HierTrainState, cut: HierCut, cam, gt_image: torch.Tensor, lr_cfg_tree: GaussianParams,
+                    raster_cfg: RasterConfig, lambda_dssim: float = 0.2, skybox_count: int = 0,
+                    frozen: Optional[torch.Tensor] = None, use_exposure: bool = False,
+                    optimize_exposure: bool = False) -> tuple:
+    """The key a post-opt step graph is captured for: what `jax.jit`
+    retraces `hier_train_step` on, its static arguments and the shapes,
+    dtypes and non-tensor leaves of the others (the learning rates' float
+    leaves, the image size, whether `frozen` is given). The image index is
+    a traced input, not part of the key."""
+    return (raster_cfg, float(lambda_dssim), int(skybox_count), bool(use_exposure), bool(optimize_exposure),
+            _spec(ts), _spec(cut), _spec(cam), _spec(gt_image), _spec(lr_cfg_tree), _spec(frozen))
+
+
+def select_static_key(ts: HierTrainState, target_size, budget: int) -> tuple:
+    """The key a cut graph is captured for: JAX's static arguments of
+    `expand_packed` (budget, num_points), the packed hierarchy's shapes and
+    a float target's value (a tensor target is an input)."""
+    return (int(budget), int(ts.params.xyz.shape[0]), _spec(ts.packed), _spec(target_size))
+
+
+def hier_step_in_place(ts: HierTrainState, cut: HierCut, cam, gt_image: torch.Tensor, lr_cfg_tree: GaussianParams,
+                       raster_cfg: RasterConfig, lambda_dssim: float = 0.2, skybox_count: int = 0,
+                       frozen: Optional[torch.Tensor] = None, image_idx=0, use_exposure: bool = False,
+                       optimize_exposure: bool = False):
+    """What a post-opt graph captures: one `hier_train_step` whose new
+    params, moments, step and exposure are written into the buffers of
+    `ts`. Returns (the metrics {"loss", "n_visible"}, the render's budget
+    counters {"overflow", "block_overflow", "visible_overflow"}), 0-d."""
+    loss, inputs, out = _hier_forward(ts, cut, cam, gt_image, raster_cfg, lambda_dssim, skybox_count, image_idx,
+                                      use_exposure)
+    grads = step_backward(loss, inputs)
+    new, visible = hier_step_update(ts, cut, grads, lr_cfg_tree, skybox_count, frozen, use_exposure,
+                                    optimize_exposure)
+    for dst, src in zip(_tensors(_written(ts)), _tensors(_written(new)), strict=True):
+        if not _same_memory(dst, src):
+            dst.copy_(src)
+    return {"loss": loss.detach(), "n_visible": visible.sum()}, {k: out[k] for k in COUNTERS}
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    graph: Graph  # outputs: (metrics, counters)
+    inputs: tuple  # static (cut, cam, gt_image, lr_cfg_tree, frozen)
+    image_idx: torch.Tensor  # static () int64
+
+
+@dataclasses.dataclass
+class _CutGraph:
+    graph: Graph  # outputs: the HierCut
+    packed: PackedHier  # held by reference
+    target: Any  # static target tensor, or the float of the key
+    viewpoint: torch.Tensor  # static (3,)
+
+
+class CompiledHierTrainStep:
+    """`hier_train_step` compiled, the counterpart of the JAX package's
+    `jax.jit(hier_train_step, static_argnames=(raster_cfg, lambda_dssim,
+    skybox_count, use_exposure, optimize_exposure), donate_argnums=(0,))`
+    (hidegs_tpu/train/hier_trainer.py:136-147), with `select` for the cut
+    (JAX's own `expand_packed` executable). Called as `hier_train_step` is,
+    on a state on a CUDA device; returns (state, {"loss", "n_visible"}).
+
+      * the static key (`hier_static_key`) is what JAX retraces on; a new
+        key warms the step up on a side stream on a scratch copy of the
+        state, then captures `hier_step_in_place` (utils/graphs.py). The
+        image index is an input (an int is written into it, a tensor
+        copied), so every view replays one graph;
+      * donation: the captured step ends by writing the new state into the
+        static state buffers, and the returned state is those buffers (with
+        the caller's topology, `nodes`, `boxes` and `packed`, which the step
+        does not read). The state a replay returned is consumed by the next
+        replay, as JAX invalidates a donated argument; a fresh state is
+        copied in;
+      * the cut, camera, target image, learning rates and `frozen` are
+        copied into the graph's static inputs before each replay, except
+        where they already are them;
+      * `select(ts, cam, target_size, budget)` replays the cut of
+        `select_cut` captured per `select_static_key`; the packed
+        hierarchy is held by reference (it is constant for the state's
+        lifetime; a call with another one raises), the viewpoint is copied
+        in;
+      * the metrics, the render's budget counters (`counters`) and the cut
+        are static tensors of graphs that share one pool: valid until the
+        next replay of either graph.
+
+    There is no fallback: a state off the card raises ValueError, a failed
+    capture RuntimeError. `captures` and `replays` are the record of
+    utils.graphs.GraphSet."""
+
+    def __init__(self):
+        self._set = GraphSet("the post-opt step")
+        self._steps: Dict[tuple, _StepGraph] = {}
+        self._cuts: Dict[tuple, _CutGraph] = {}
+        self._states: Dict[Any, tuple] = {}  # static state buffers, by their spec
+        self.counters: Optional[Dict[str, torch.Tensor]] = None
+
+    @property
+    def captures(self):
+        return self._set.captures
+
+    @property
+    def replays(self) -> int:
+        return self._set.replays
+
+    def select(self, ts: HierTrainState, cam, target_size, budget: int) -> HierCut:
+        """`select_cut(ts, cam, target_size, budget)` as a graph replay."""
+        dev = ts.params.xyz.device
+        require_cuda(dev, "the compiled post-opt step", "select_cut and hier_train_step")
+        vp = cam.camera_center
+        key = select_static_key(ts, target_size, budget)
+        g = self._cuts.get(key)
+        if g is None:
+            g = self._cuts[key] = self._capture_cut(ts, target_size, vp, budget)
+        elif not same_tensors(g.packed, ts.packed):
+            raise ValueError("the compiled post-opt step holds the packed hierarchy by reference: "
+                             "use one CompiledHierTrainStep per state")
+        if isinstance(target_size, torch.Tensor):
+            copy_into(g.target, target_size)
+        g.viewpoint.copy_(vp)
+        self._set.replay(g.graph)
+        return g.graph.outputs
+
+    def _capture_cut(self, ts, target_size, vp, budget) -> _CutGraph:
+        num_points = int(ts.params.xyz.shape[0])
+        target = target_size.clone() if isinstance(target_size, torch.Tensor) else float(target_size)
+        viewpoint = vp.clone()
+
+        def body():
+            return expand_packed(ts.packed, target, viewpoint, budget=budget, num_points=num_points)
+
+        graph = self._set.capture(vp.device, body, body, dict(kind="cut", budget=int(budget)))
+        return _CutGraph(graph=graph, packed=ts.packed, target=target, viewpoint=viewpoint)
+
+    def __call__(self, ts: HierTrainState, cut: HierCut, cam, gt_image: torch.Tensor, lr_cfg_tree: GaussianParams,
+                 raster_cfg: RasterConfig, lambda_dssim: float = 0.2, skybox_count: int = 0,
+                 frozen: Optional[torch.Tensor] = None, image_idx=0, use_exposure: bool = False,
+                 optimize_exposure: bool = False):
+        dev = ts.params.xyz.device
+        require_cuda(dev, "the compiled post-opt step", "hier_train_step")
+        key = hier_static_key(ts, cut, cam, gt_image, lr_cfg_tree, raster_cfg, lambda_dssim, skybox_count, frozen,
+                              use_exposure, optimize_exposure)
+        written = _written(ts)
+        spec = _spec(written)
+        state = self._states.get(spec)
+        if state is None:
+            state = self._states[spec] = _map(torch.clone, written)
+        inputs = (cut, cam, gt_image, lr_cfg_tree, frozen)
+        g = self._steps.get(key)
+        if g is None:
+            g = self._steps[key] = self._capture_step(ts, state, inputs, raster_cfg, lambda_dssim, skybox_count,
+                                                      use_exposure, optimize_exposure)
+        copy_into(state, written)
+        copy_into(g.inputs, inputs)
+        if isinstance(image_idx, torch.Tensor):
+            copy_into(g.image_idx, image_idx.reshape(()))
+        else:
+            g.image_idx.fill_(int(image_idx))
+        self._set.replay(g.graph)
+        metrics, self.counters = g.graph.outputs
+        return ts._replace(**dict(zip(_STEP_FIELDS, state))), metrics
+
+    def _capture_step(self, ts, state, inputs, raster_cfg, lambda_dssim, skybox_count, use_exposure,
+                      optimize_exposure) -> _StepGraph:
+        static = _map(torch.clone, inputs)
+        image_idx = torch.zeros((), dtype=torch.int64, device=ts.params.xyz.device)
+        statics = dict(raster_cfg=raster_cfg, lambda_dssim=lambda_dssim, skybox_count=skybox_count,
+                       use_exposure=use_exposure, optimize_exposure=optimize_exposure)
+
+        def run(written):
+            cut, cam, gt_image, lrs, frozen = static
+            return hier_step_in_place(ts._replace(**dict(zip(_STEP_FIELDS, written))), cut, cam, gt_image, lrs,
+                                      frozen=frozen, image_idx=image_idx, **statics)
+
+        cut, _, gt_image = inputs[:3]
+        info = dict(kind="step", budget=int(cut.valid.shape[0]), image=tuple(gt_image.shape[-2:]),
+                    max_instances=raster_cfg.max_instances)
+        # the warm-up steps a scratch copy of the state
+        graph = self._set.capture(ts.params.xyz.device, lambda: run(_map(torch.clone, state)), lambda: run(state),
+                                  info)
+        return _StepGraph(graph=graph, inputs=static, image_idx=image_idx)
+
+
 def post_optimize(
     h: Hierarchy,
     cameras,
@@ -266,7 +492,13 @@ def post_optimize(
     create_from_hier pretrained-exposure ingestion); `optimize_exposure`
     trains it (fresh identity when no seed was given). Views are drawn
     with random.Random(0), as in the JAX package; the host reads the
-    device only at the log."""
+    device only at the log.
+
+    On a card every iteration is two graph replays, the cut and the step
+    (`CompiledHierTrainStep`, JAX's two executables `expand_packed` and
+    `hier_train_step`); on the CPU the eager `select_cut` and
+    `hier_train_step`. The image index is a device tensor, so one graph
+    serves every view."""
     dev = resolve_device(device)
     ts = state_from_hierarchy(h, num_images=len(cameras), exposures=exposures, device=dev)
     use_expo = exposures is not None or optimize_exposure
@@ -278,18 +510,24 @@ def post_optimize(
     raster_cfg = raster_cfg or RasterConfig(backend="blend", max_instances=1 << 18)
     lr_cfg = lr_cfg or LRConfig()
     gts = [torch.as_tensor(im, dtype=torch.float32, device=dev) for im in images]
+    image_ids = torch.arange(len(cameras), device=dev)
+    if on_card(dev):
+        compiled = CompiledHierTrainStep()
+        select, step = compiled.select, compiled
+    else:
+        select, step = select_cut, hier_train_step
     rnd = random.Random(0)
     for it in range(1, iterations + 1):
         i = rnd.randrange(len(cameras))
-        cut = select_cut(ts, cameras[i], target_size, budget)
+        cut = select(ts, cameras[i], target_size, budget)
         lrs = lr_tree(ts.step, lr_cfg, 1.0)
-        ts, m = hier_train_step(
+        ts, m = step(
             ts, cut, cameras[i], gts[i], lrs, raster_cfg,
             skybox_count=skybox_count, frozen=frozen,
-            image_idx=i, use_exposure=use_expo,
+            image_idx=image_ids[i], use_exposure=use_expo,
             optimize_exposure=optimize_exposure,
         )
-        if it % log_every == 0:
+        if it % log_every == 0:  # before the next replay overwrites the metrics
             loss, n_vis = torch.stack([m["loss"].double(), m["n_visible"].double()]).tolist()
             print(f"[hier {it}/{iterations}] loss={loss:.4f} visible={int(n_vis)}", flush=True)
     return ts

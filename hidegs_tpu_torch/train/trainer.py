@@ -69,6 +69,7 @@ from hidegs_tpu_torch.train.loop import (
     maybe_host_side_schedule,
     train_step,
 )
+from hidegs_tpu_torch.utils.graphs import on_card
 
 
 def train_config_from_opt(opt: OptimizationConfig, pipe: PipelineConfig, n_init: int) -> TrainConfig:
@@ -458,7 +459,7 @@ def train(
     # (train/compiled.py); a new budget, row budget or batch layout
     # captures anew. Its metrics live until the next step: the counters are
     # stacked into a tensor of their own below.
-    step_fn = CompiledTrainStep() if dev.type == "cuda" else train_step
+    step_fn = CompiledTrainStep() if on_card(dev) else train_step
     rng = random.Random(seed)
     order = []
     t0 = time.time()

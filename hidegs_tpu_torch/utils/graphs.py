@@ -1,0 +1,184 @@
+"""The capture machinery of the port's compiled callables: a callable run
+once per static key as a warm-up and captured as a `torch.cuda.CUDAGraph`,
+then replayed.
+
+The JAX package compiles its hot boundaries with `jax.jit`: one XLA
+executable per static key that the host issues with one call. The port's
+counterparts (`train.compiled.CompiledTrainStep`,
+`train.hier_trainer.CompiledHierTrainStep`, `hier.interp.CompiledLodFrame`)
+share what is here:
+
+  * `_map`, `_tensors` and `_spec` walk the NamedTuples, tuples, lists and
+    dataclasses of a call's arguments; `_spec` is the static part (each
+    tensor's shape, dtype and device, every other leaf's value), from
+    which each callable builds the key `jax.jit` would retrace on;
+  * `copy_into` copies the caller's tensors into a graph's static inputs,
+    skipping those that already are them (the buffers a replay returned);
+  * `GraphSet.capture` warms the body up on a side stream (lazy library
+    state, the kernels' builds), then captures it; the graphs of one
+    `GraphSet` share one memory pool, since they never run at once, and
+    `GraphSet.captures` records what each capture cost (warm-up and
+    capture seconds, the pool's growth, the launches);
+  * launch accounting: `cuda_blend`'s counters count its launchers' calls,
+    which a replay does not make. A capture records how often the body
+    launched each kernel and leaves those counters as they were (it
+    launches nothing); every replay adds the graph's launches to
+    `REPLAY_LAUNCHES`, one process-wide count for every compiled callable.
+    The warm-up's launches are real and stay in `cuda_blend`'s counters.
+
+A graph's outputs are its static tensors: a replay of any graph of the
+same `GraphSet` may overwrite them (the pool is shared), so a caller that
+keeps an output past the next call clones it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List
+
+import torch
+
+from hidegs_tpu_torch.raster import cuda_blend
+
+KERNELS = ("blend_fwd", "blend_bwd", "fold_rows")
+# launches of each kernel made by graph replays in this process
+REPLAY_LAUNCHES = {k: 0 for k in KERNELS}
+
+
+def _kernel_counts() -> tuple:
+    return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+
+
+def _set_kernel_counts(counts: tuple) -> None:
+    cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES = counts
+
+
+def _map(fn, x):
+    """`x` with `fn` applied to each tensor: tensors inside NamedTuples,
+    tuples, lists and dataclasses; every other leaf as it is."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_map(fn, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map(fn, v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: _map(fn, getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+
+
+def _tensors(x) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    _map(out.append, x)
+    return out
+
+
+def _spec(x):
+    """The static part of `x`: each tensor's shape, dtype and device, each
+    other leaf's value; generators are state, not structure."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, torch.Generator):
+        return torch.Generator
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_spec(v) for v in x))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x), tuple(_spec(getattr(x, f.name)) for f in dataclasses.fields(x)))
+    return x
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.data_ptr() == b.data_ptr() and a.dtype == b.dtype and a.shape == b.shape
+            and a.stride() == b.stride())
+
+
+def copy_into(static, given) -> int:
+    """Copy every tensor of `given` into the matching tensor of `static`,
+    except those that already are it; returns how many were copied."""
+    n = 0
+    for s, g in zip(_tensors(static), _tensors(given), strict=True):
+        if not _same_memory(s, g):
+            s.copy_(g)
+            n += 1
+    return n
+
+
+def same_tensors(a, b) -> bool:
+    """Whether every tensor of `b` is the memory of the matching one of `a`
+    (inputs a graph holds by reference)."""
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) and all(_same_memory(x, y) for x, y in zip(ta, tb))
+
+
+def on_card(dev) -> bool:
+    """Whether work on `dev` runs as graph replays: on a CUDA device."""
+    return torch.device(dev).type == "cuda"
+
+
+def require_cuda(dev: torch.device, what: str, eager: str) -> None:
+    if not on_card(dev):
+        raise ValueError(f"{what} captures CUDA graphs; the state is on {dev}: use {eager} off the card")
+
+
+@dataclasses.dataclass
+class Graph:
+    graph: Any  # torch.cuda.CUDAGraph
+    outputs: Any  # what the body returned: static tensors
+    launches: Dict[str, int]  # kernel launches recorded into the graph
+
+
+class GraphSet:
+    """The graphs of one compiled callable: one memory pool, the record of
+    each capture (`captures`) and the count of replays (`replays`)."""
+
+    def __init__(self, what: str):
+        self.what = what
+        self._pool = None
+        self.captures: List[Dict[str, Any]] = []
+        self.replays = 0
+
+    def capture(self, dev: torch.device, warmup: Callable[[], Any], body: Callable[[], Any],
+                info: Dict[str, Any]) -> Graph:
+        """Run `warmup()` on a side stream, then capture `body()` (which
+        reads and writes only static tensors) into a new graph of the pool.
+        `info` (a summary of the key) is recorded in `captures` with the
+        warm-up and capture seconds, the launches of both and the pool's
+        growth. A capture that fails raises RuntimeError."""
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            counts = _kernel_counts()
+            t0 = time.perf_counter()
+            with torch.cuda.stream(side):
+                warmup()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            warmup_s = time.perf_counter() - t0
+            warmup_launches = dict(zip(KERNELS, (b - a for a, b in zip(counts, _kernel_counts()))))
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            counts = _kernel_counts()
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(graph, pool=self._pool):
+                    outputs = body()
+                recorded = dict(zip(KERNELS, (b - a for a, b in zip(counts, _kernel_counts()))))
+            except Exception as e:
+                raise RuntimeError(f"capturing {self.what} as a CUDA graph failed: {e}") from e
+            finally:
+                _set_kernel_counts(counts)  # a capture records launches, it makes none
+            capture_s = time.perf_counter() - t0
+            info = dict(info, what=self.what, warmup_s=warmup_s, capture_s=capture_s,
+                        warmup_launches=warmup_launches, launches=recorded,
+                        pool_reserved_bytes=torch.cuda.memory_reserved(dev) - reserved)
+        self.captures.append(info)
+        return Graph(graph=graph, outputs=outputs, launches=recorded)
+
+    def replay(self, g: Graph) -> None:
+        g.graph.replay()
+        self.replays += 1
+        for k, n in g.launches.items():
+            REPLAY_LAUNCHES[k] += n

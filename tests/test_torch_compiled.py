@@ -176,7 +176,7 @@ COMMON = dict(iterations=100, freq_warmup=0, single_view_from=0)
 # as many steps as the eager port's own parity tests hold on the problem:
 # on the train problem the eager port's third exposure step and second
 # multi-view step already depart from JAX by more than 1e-2·lr on a few
-# rotations (ROADMAP C29). The eager step holds all K, bitwise.
+# rotations (ROADMAP C30). The eager step holds all K, bitwise.
 VARIANTS = {
     "single-view": ("train", dict(), False, 0, ((0, None), (1, None), (2, None)), K),
     "multi-view": ("multi-view", dict(multi_view_from=0, multi_view_sample_num=256), False, 0,

@@ -734,20 +734,60 @@ def test_bf16_stream_render_and_backward_run_the_bf16_kernels(cuda, tile, monkey
     _assert_grads_close(got["d_attrs"], want, f"bf16 render() tile {tile}")
 
 
-@pytest.mark.cuda
-def test_lod_frame_kernel_holds_against_plain(cuda):
-    """One AdaptiveHierRenderer frame of a built hierarchy on the card: one
-    forward launch, and its tile planes against the plain blend on the
-    frame's own rows and binning; the same frame again bitwise equal."""
-    from hidegs_tpu_torch.hier.build import build_hierarchy
-    from hidegs_tpu_torch.hier.interp import AdaptiveHierRenderer
+def _replays():
+    from hidegs_tpu_torch.utils import graphs
 
-    scene = make_toy_gaussians(2000, seed=5, device="cpu")
+    return tuple(graphs.REPLAY_LAUNCHES[k] for k in graphs.KERNELS)
+
+
+def _lod_problem(dev, n=2000):
+    """A built hierarchy of a toy scene (native builder) and a 96x128 view."""
+    from hidegs_tpu_torch.hier.build import build_hierarchy
+
+    scene = make_toy_gaussians(n, seed=5, device="cpu")
     h = build_hierarchy(*(x.numpy() for x in (scene.means3d, scene.quats, scene.scales, scene.opacities,
                                                 scene.shs)), use_native=True)
+    return h, ring_camera(0, height=96, width=128, device=dev)
 
-    r = AdaptiveHierRenderer.from_hierarchy(h, cuda)
-    cam = ring_camera(0, height=96, width=128, device=cuda)
+
+def _eager_renderer(h, dev):
+    """An AdaptiveHierRenderer that calls the eager fused_lod_frame."""
+    from hidegs_tpu_torch.hier.interp import AdaptiveHierRenderer
+
+    r = AdaptiveHierRenderer.from_hierarchy(h, dev)
+    r.compiled = None
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["eager", "compiled"])
+def test_lod_frame_kernel_holds_against_plain(cuda, mode):
+    """One AdaptiveHierRenderer frame of a built hierarchy on the card: one
+    forward launch per frame, and the same frame again bitwise equal. Eager
+    (the renderer's `compiled` None): the frame's tile planes against the plain blend on
+    the frame's own rows and binning. Compiled (the default on a card): the
+    first frame warms up (one launch through the launcher) and captures,
+    every frame is a replay that adds the graph's one launch to
+    REPLAY_LAUNCHES, and the frames are bitwise the eager renderer's."""
+    from hidegs_tpu_torch.hier.interp import AdaptiveHierRenderer
+
+    h, cam = _lod_problem(cuda)
+    if mode == "compiled":
+        r = AdaptiveHierRenderer.from_hierarchy(h, cuda)
+        eager = _eager_renderer(h, cuda)
+        before, replays = _counts(), _replays()
+        with torch.no_grad():
+            out = {k: v.clone() for k, v in r.render(cam, 2.0).items()}
+            again = r.render(cam, 2.0)
+            want = eager.render(cam, 2.0)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(replays, _replays())) == (2, 0, 0)
+        assert cuda_blend.LAUNCHES == before[0] + 1 + 1  # the warm-up's and the eager frame's
+        assert len(r.compiled.captures) == 1 and r.compiled.replays == 2 and int(out["overflow"]) == 0
+        for key in out:
+            assert torch.equal(out[key], again[key]) and torch.equal(out[key], want[key]), key
+        return
+    r = _eager_renderer(h, cuda)
     kept = {}
     real = blend_autograd.blend_tiles
 
@@ -772,6 +812,85 @@ def test_lod_frame_kernel_holds_against_plain(cuda):
     assert torch.equal(kept["planes"]["out_observe"], p["out_observe"])
     for key in out:
         assert torch.equal(out[key], again[key]), key
+
+
+@pytest.mark.cuda
+def test_compiled_lod_frames_are_bitwise_the_eager_frames(cuda):
+    """The compiled renderer against the eager one, frame by frame at τ = 0
+    and 6 on two views and back (count-cache hits and misses, the budgets
+    of both renderers alike): every key of every frame bitwise equal, the
+    frames cloned before the next render; one replay per frame."""
+    from hidegs_tpu_torch.hier.interp import AdaptiveHierRenderer
+
+    h, cam0 = _lod_problem(cuda)
+    cams = [cam0, ring_camera(1, height=96, width=128, device=cuda)]
+    r = AdaptiveHierRenderer.from_hierarchy(h, cuda)
+    e = _eager_renderer(h, cuda)
+    replays = _replays()
+    n = 0
+    with torch.no_grad():
+        for tau in (0.0, 6.0, 0.0):
+            for cam in cams:
+                got = {k: v.clone() for k, v in r.render(cam, tau).items()}
+                want = e.render(cam, tau)
+                n += 1
+                assert (r._budget, r._max_inst) == (e._budget, e._max_inst)
+                for key in want:
+                    assert torch.equal(got[key], want[key]), (tau, key)
+    torch.cuda.synchronize()
+    assert _replays()[0] - replays[0] == n == r.compiled.replays
+    keys = [(c["budget"], c["max_instances"]) for c in r.compiled.captures]
+    assert len(set(keys)) == len(keys), keys  # one capture per budget pair
+
+
+@pytest.mark.cuda
+def test_a_new_lod_budget_captures_a_new_key_and_keeps_the_old_graph(cuda):
+    """A second cut budget captures a second frame graph in the shared
+    pool; replaying the first afterwards still gives the eager frame
+    bitwise, and so does the second."""
+    from hidegs_tpu_torch.hier.interp import CompiledLodFrame, fused_lod_frame
+
+    h, cam = _lod_problem(cuda)
+    r = _eager_renderer(h, cuda)
+    frame = CompiledLodFrame()
+    args = dict(num_points=r.num_points, config=RasterConfig(max_instances=1 << 15), attrs=r._attrs)
+    cams = [ring_camera(i, n_cams=6, height=96, width=128, device=cuda) for i in range(3)]
+    with torch.no_grad():
+        for budget, c in ((1 << 12, cams[0]), (1 << 13, cams[1]), (1 << 12, cams[2]), (1 << 13, cams[0])):
+            target = r.target_size(c, 2.0)
+            got = frame(r._packed, target, c, *r.arrays, budget=budget, **args)
+            want = fused_lod_frame(r._packed, target, c, *r.arrays, budget=budget, **args)
+            assert int(got["num_selected"]) > 0
+            for key in want:
+                assert torch.equal(got[key], want[key]), (budget, key)
+    assert [c["budget"] for c in frame.captures] == [1 << 12, 1 << 13] and frame.replays == 4
+
+
+@pytest.mark.cuda
+def test_compiled_lod_frame_replay_makes_no_host_sync(cuda):
+    """After the capture, replays of the frame (other cameras, a tensor
+    target) under set_sync_debug_mode("error"); a frame of another
+    hierarchy's arrays is refused."""
+    from hidegs_tpu_torch.hier.interp import CompiledLodFrame
+
+    h, cam = _lod_problem(cuda)
+    r = _eager_renderer(h, cuda)
+    frame = CompiledLodFrame()
+    cams = [ring_camera(i, n_cams=6, height=96, width=128, device=cuda) for i in range(3)]
+    args = dict(budget=1 << 12, num_points=r.num_points, config=RasterConfig(max_instances=1 << 15),
+                attrs=r._attrs)
+    with torch.no_grad():
+        frame(r._packed, r.target_size(cam, 2.0), cam, *r.arrays, **args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for c in cams:
+                out = frame(r._packed, r.target_size(c, 2.0), c, *r.arrays, **args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert int(out["num_selected"]) > 0 and len(frame.captures) == 1 and frame.replays == 4
+        with pytest.raises(ValueError, match="by reference"):
+            frame(r._packed, r.target_size(cam, 2.0), cam, *r.arrays, **dict(args, attrs=r._attrs.clone()))
 
 
 def test_native_builder_builds_into_build_dir():
@@ -805,13 +924,23 @@ def _post_opt_problem(dev, n=2000, h=96, w=128):
     return ts, cams, gts, rcfg, tau_to_target_size(2.0, float(cams[0].fx)), 1 << 13
 
 
+def _post_opt_leaves(ts):
+    return (list(ts.params) + list(ts.opt.m) + list(ts.opt.v)
+            + [ts.opt.step, ts.step, ts.exposure, ts.exposure_m, ts.exposure_v])
+
+
 @pytest.mark.cuda
-def test_post_opt_step_kernels_hold_against_plain(cuda):
-    """One post-opt step (exposure on): one launch of each kernel; the
-    blend node's forward planes against the plain blend and its backward +
-    fold against the plain backward, on the node's own rows, binning and
-    cotangents; the whole step against the "plain" backend: loss at rtol
-    1e-3, Adam's first moments normalised at 1e-3."""
+@pytest.mark.parametrize("mode", ["eager", "compiled"])
+def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
+    """One post-opt step (exposure on). Eager: one launch of each kernel;
+    the blend node's forward planes against the plain blend and its
+    backward + fold against the plain backward, on the node's own rows,
+    binning and cotangents; the whole step against the "plain" backend:
+    loss at rtol 1e-3, Adam's first moments normalised at 1e-3. Compiled:
+    the first call warms up (one launch of each kernel through the
+    launchers) and captures, each replay adds one launch of each kernel to
+    REPLAY_LAUNCHES, and the step is bitwise the eager one, which the
+    eager case holds."""
     import dataclasses
 
     from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
@@ -820,6 +949,26 @@ def test_post_opt_step_kernels_hold_against_plain(cuda):
     ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
     cut = ht.select_cut(ts, cams[0], target, budget)
     assert bool(((cut.ts > 0) & (cut.ts < 1) & cut.valid).any())
+    if mode == "compiled":
+        lrs = lr_tree(ts.step, LRConfig(), 1.0)
+        kw = dict(image_idx=0, use_exposure=True, optimize_exposure=True)
+        step = ht.CompiledHierTrainStep()
+        before, replays = _counts(), _replays()
+        for k in range(2):
+            got, gm = step(ts, step.select(ts, cams[0], target, budget), cams[0], gts[0], lrs, rcfg, **kw)
+            torch.cuda.synchronize()
+            assert tuple(b - a for a, b in zip(replays, _replays())) == (k + 1,) * 3
+            assert tuple(b - a for a, b in zip(before, _counts())) == ((1, 1, 1) if k == 0 else (0, 0, 0))
+            want, wm = ht.hier_train_step(ts, cut, cams[0], gts[0], lrs, rcfg, **kw)
+            for x, y in zip(_post_opt_leaves(got), _post_opt_leaves(want)):
+                assert torch.equal(x, y)
+            assert all(torch.equal(gm[m], wm[m]) for m in wm)
+            before = _counts()
+        assert [c["kind"] for c in step.captures] == ["cut", "step"]
+        assert step.captures[1]["launches"] == step.captures[1]["warmup_launches"] == dict.fromkeys(
+            ("blend_fwd", "blend_bwd", "fold_rows"), 1)
+        assert all(int(c) == 0 for c in step.counters.values())
+        return
     before = _counts()
     loss, inputs = ht.hier_step_forward(ts, cut, cams[0], gts[0], rcfg, image_idx=0, use_exposure=True)
     node = _blend_node(loss.grad_fn)
@@ -852,50 +1001,145 @@ def test_post_opt_step_kernels_hold_against_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_post_opt_step_is_bitwise_deterministic(cuda):
+@pytest.mark.parametrize("mode", ["eager", "compiled"])
+def test_post_opt_step_is_bitwise_deterministic(cuda, mode):
     """Two post-opt steps from one state: params, moments, per-row step
     counts and exposure bitwise equal (the parents' gradients are summed by
-    the sorted index_put_ of the interpolation's gathers)."""
+    the sorted index_put_ of the interpolation's gathers). Compiled: two
+    replays, each from the caller's state copied in (a device tensor as
+    the image index), the first result cloned before the second."""
     from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
     from hidegs_tpu_torch.train import hier_trainer as ht
+    from hidegs_tpu_torch.utils import graphs
 
     ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
     cut = ht.select_cut(ts, cams[1], target, budget)
     lrs = lr_tree(ts.step, LRConfig(), 1.0)
     kw = dict(image_idx=1, use_exposure=True, optimize_exposure=True)
-    a, ma = ht.hier_train_step(ts, cut, cams[1], gts[1], lrs, rcfg, **kw)
-    b, mb = ht.hier_train_step(ts, cut, cams[1], gts[1], lrs, rcfg, **kw)
-    for x, y in zip(list(a.params) + list(a.opt.m) + list(a.opt.v) + [a.opt.step, a.exposure, a.exposure_m],
-                    list(b.params) + list(b.opt.m) + list(b.opt.v) + [b.opt.step, b.exposure, b.exposure_m]):
+    if mode == "compiled":
+        step = ht.CompiledHierTrainStep()
+        kw["image_idx"] = torch.tensor(1, device=cuda)
+        a, ma = graphs._map(torch.clone, step(ts, cut, cams[1], gts[1], lrs, rcfg, **kw))
+        b, mb = step(ts, cut, cams[1], gts[1], lrs, rcfg, **kw)
+        assert len(step.captures) == 1 and step.replays == 2
+    else:
+        a, ma = ht.hier_train_step(ts, cut, cams[1], gts[1], lrs, rcfg, **kw)
+        b, mb = ht.hier_train_step(ts, cut, cams[1], gts[1], lrs, rcfg, **kw)
+    for x, y in zip(_post_opt_leaves(a), _post_opt_leaves(b)):
         assert torch.equal(x, y)
     assert torch.equal(ma["loss"], mb["loss"]) and float(ma["loss"]) > 0
 
 
 @pytest.mark.cuda
-def test_post_opt_step_makes_no_host_sync(cuda):
-    """select_cut, the learning rates and a post-opt step with exposure and
-    frozen anchors under torch.cuda.set_sync_debug_mode("error")."""
+@pytest.mark.parametrize("mode", ["eager", "compiled"])
+def test_post_opt_step_makes_no_host_sync(cuda, mode):
+    """select_cut, the learning rates and a post-opt step with exposure,
+    a skybox tail and frozen anchors under
+    torch.cuda.set_sync_debug_mode("error"); compiled: the steady loop of
+    cut and step replays over three views (image indices from a device
+    tensor), after the capture."""
     from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
     from hidegs_tpu_torch.train import hier_trainer as ht
 
     ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
     frozen = torch.zeros(ts.params.xyz.shape[0], dtype=torch.bool, device=cuda)
     frozen[::7] = True
-    kw = dict(frozen=frozen, image_idx=2, use_exposure=True, optimize_exposure=True)
+    kw = dict(frozen=frozen, skybox_count=16, use_exposure=True, optimize_exposure=True)
+    ids = torch.arange(3, device=cuda)
+    compiled = ht.CompiledHierTrainStep()
+    select, train = (compiled.select, compiled) if mode == "compiled" else (ht.select_cut, ht.hier_train_step)
 
-    def step(state):
-        cut = ht.select_cut(state, cams[2], target, budget)
-        return ht.hier_train_step(state, cut, cams[2], gts[2], lr_tree(state.step, LRConfig(), 1.0), rcfg, **kw)
+    def step(state, i=2):
+        cut = select(state, cams[i], target, budget)
+        idx = ids[i] if mode == "compiled" else i
+        return train(state, cut, cams[i], gts[i], lr_tree(state.step, LRConfig(), 1.0), rcfg, image_idx=idx, **kw)
 
-    ts, _ = step(ts)  # builds the kernels and the loss constants
+    ts, _ = step(ts)  # builds the kernels and the loss constants (compiled: warms up and captures)
+    xyz = ts.params.xyz.clone()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         new, m = step(ts)
+        if mode == "compiled":
+            for i in (0, 1, 2):
+                new, m = step(new, i)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert int(new.step) == 2 and bool(torch.isfinite(m["loss"]))
-    assert torch.equal(new.params.xyz[frozen], ts.params.xyz[frozen])
+    n = 2 if mode == "eager" else 5
+    assert int(new.step) == n and bool(torch.isfinite(m["loss"]))
+    assert torch.equal(new.params.xyz[frozen], xyz[frozen])
+    if mode == "compiled":
+        assert len(compiled.captures) == 2 and compiled.replays == 2 * n
+
+
+@pytest.mark.cuda
+def test_a_new_post_opt_budget_captures_a_new_key_and_keeps_the_old_graph(cuda):
+    """A second cut budget captures a second cut graph and a second step
+    graph in the shared pool; replaying the first pair afterwards still
+    gives the eager step bitwise, and so does the second."""
+    from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
+    from hidegs_tpu_torch.train import hier_trainer as ht
+
+    ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
+    lrs = lr_tree(ts.step, LRConfig(), 1.0)
+    step = ht.CompiledHierTrainStep()
+    for b in (budget, 2 * budget):
+        s, _ = step(ts, step.select(ts, cams[0], target, b), cams[0], gts[0], lrs, rcfg)
+    assert len(step.captures) == 4
+    for b, i in ((budget, 1), (2 * budget, 2), (budget, 0)):
+        want, wm = ht.hier_train_step(ts, ht.select_cut(ts, cams[i], target, b), cams[i], gts[i], lrs, rcfg)
+        got, gm = step(ts, step.select(ts, cams[i], target, b), cams[i], gts[i], lrs, rcfg)
+        for x, y in zip(_post_opt_leaves(got), _post_opt_leaves(want)):
+            assert torch.equal(x, y), b
+        assert all(torch.equal(gm[m], wm[m]) for m in wm)
+    assert len(step.captures) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "skybox_tail", "frozen_anchors", "exposure"])
+def test_compiled_post_opt_step_is_bitwise_the_eager_step(cuda, variant):
+    """Three steps over the three views (the cut and the step replayed)
+    against three eager steps (select_cut and hier_train_step) from one
+    state: the cut, every tensor of the state and both metrics bitwise
+    equal after each step; the returned state is the step's own buffers;
+    one capture of each graph; each replay adds one launch of each kernel
+    to REPLAY_LAUNCHES and none to the launchers' counters."""
+    from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
+    from hidegs_tpu_torch.train import hier_trainer as ht
+
+    ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
+    P = ts.params.xyz.shape[0]
+    frozen = torch.zeros(P, dtype=torch.bool, device=cuda)
+    frozen[torch.randperm(P, generator=torch.Generator().manual_seed(3))[:P // 4].to(cuda)] = True
+    kw = {"plain": dict(), "skybox_tail": dict(skybox_count=16), "frozen_anchors": dict(frozen=frozen),
+          "exposure": dict(use_exposure=True, optimize_exposure=True)}[variant]
+    ids = torch.arange(3, device=cuda)
+    step = ht.CompiledHierTrainStep()
+    eager = comp = ts
+    ptrs = None
+    for k in range(3):
+        cut = ht.select_cut(eager, cams[k], target, budget)
+        eager, em = ht.hier_train_step(eager, cut, cams[k], gts[k], lr_tree(eager.step, LRConfig(), 1.0), rcfg,
+                                       image_idx=k, **kw)
+        counts, replays = _counts(), _replays()
+        ccut = step.select(comp, cams[k], target, budget)
+        for f in cut._fields:
+            assert torch.equal(getattr(ccut, f), getattr(cut, f)), f
+        comp, cm = step(comp, ccut, cams[k], gts[k], lr_tree(comp.step, LRConfig(), 1.0), rcfg, image_idx=ids[k],
+                        **kw)
+        torch.cuda.synchronize()
+        if k > 0:
+            assert _counts() == counts, "a replay went through the launchers"
+        assert tuple(b - a for a, b in zip(replays, _replays())) == (1, 1, 1)
+        for n, (a, b) in enumerate(zip(_post_opt_leaves(comp), _post_opt_leaves(eager))):
+            assert torch.equal(a, b), f"{variant} step {k}: leaf {n}"
+        assert all(torch.equal(em[m], cm[m]) for m in em), variant
+        now = [x.data_ptr() for x in _post_opt_leaves(comp)]
+        assert ptrs is None or now == ptrs, "the replay returned other buffers"
+        ptrs = now
+    assert len(step.captures) == 2 and step.replays == 6 and float(cm["loss"]) > 0
+    if "frozen" in kw:
+        assert torch.equal(comp.params.xyz[frozen], ts.params.xyz[frozen])
 
 
 @pytest.mark.cuda
@@ -904,8 +1148,9 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
     post-opt iterations, eval at tau 0 and 3): two chunks, finite merged
     and post-optimized hierarchies; one backward and fold per train and
     post-opt step, and one forward more per (tau, view) of the eval. The
-    chunks train on the compiled step: their steps' launches are replays,
-    and each capture's warm-up step launches each kernel once more."""
+    chunks and the post-optimizer train on compiled steps: their steps'
+    launches are replays, and each capture's warm-up step launches each
+    kernel once more."""
     import json
     import os
 
@@ -928,8 +1173,9 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
     meta = json.load(open(os.path.join(out, "pipeline.json")))
     assert len(meta["chunks"]) == 2 and len(meta["lod_eval"]) == 2
     n_eval = 2 * 8  # two taus, eight of the ten views
-    assert replayed == (3 * 2,) * 3, replayed  # one capture per chunk: its warm-up is one launch of each
-    assert bwd == fold == 2 + 3 and fwd == bwd + n_eval, (fwd, bwd, fold)
+    # one capture per chunk and one of the post-opt step: each warm-up is one launch of each
+    assert replayed == (3 * 2 + 3,) * 3, replayed
+    assert bwd == fold == 2 + 1 and fwd == bwd + n_eval, (fwd, bwd, fold)
     for name in ("merged.hier", "merged_opt.hier"):
         h = hio.read_hier(os.path.join(out, name))
         assert all(np.isfinite(getattr(h, f)).all() for f in ("pos", "rot", "scale", "alpha", "shs"))
