@@ -25,7 +25,9 @@ processes, merge, post-opt, the τ sweep), and the view-parallel trainer
 (`parallel.sharded.make_dp_train_step`: four views a step, a forward
 blend, a backward blend and a fold per view, the gradients summed by one
 collective; one rank, a one-rank NCCL group, two gloo ranks on the card,
-and `python -m hidegs_tpu_torch.parallel`) — and holds every kernel of those
+and `python -m hidegs_tpu_torch.parallel`; eager and compiled into one
+CUDA graph per static key by `parallel.compiled.CompiledDPStep`) — and
+holds every kernel of those
 paths, and the bf16
 attribute-stream mode of both blends, against its plain PyTorch version.
 Phases (run in the order of `main`):
@@ -121,7 +123,10 @@ Phases (run in the order of `main`):
      <the scene's .hier> --tau 6` on the same scene: ms per view, exactly
      one compiled cut-and-render call and one replayed forward launch per
      PNG, and the warm-up's launch per capture, counted on the compiled
-     hierarchy path;
+     hierarchy path. evaluate's LPIPS is the compiled one
+     (train/lpips.py:CompiledLpips), held bitwise against the eager
+     distance on two full-width renders: ms of both, the host ms per
+     compiled call, one call of each under the profiler;
  7a. viewers: `python -m hidegs_tpu_torch.viewer`'s render function behind
      both frontends, one 1920x1088 frame each over localhost (HttpViewer on
      port 0 fetched with urllib, NetworkGUI with a socket client speaking
@@ -132,7 +137,10 @@ Phases (run in the order of `main`):
      noise on sh_dc, opacity logits and xyz, capacity 1.25x. 30 train steps
      cycling the views, default TrainConfig but freq_warmup=0,
      single_view_from=0 and one densify round of the reference's rules
-     after step 10; launch counts are read around this run alone. Checks:
+     after step 10, replayed from the compiled pair
+     (train/compiled.py:CompiledDensify; so are the scrubs after the
+     window) and held bitwise against the eager round on the same draws,
+     both timed; launch counts are read around this run alone. Checks:
      finite losses, step_ok, no overflow, mean PSNR up over the steps
      before the round and over those after it, one launch of each kernel
      per step, two runs of one step bitwise equal;
@@ -245,7 +253,15 @@ Phases (run in the order of `main`):
      alone in float32 and bf16 with its bytes, the masked Adam update, one
      step under the profiler and the peak memory. (d) one step under
      utils.profiling.trace: the trace must name the three kernels and the
-     annotated range. (b) two ranks on the card: whether NCCL takes them
+     annotated range. The compiled step (parallel/compiled.py) beside the
+     eager one, 10 steps each, from the same state: no group on both wires
+     and a one-rank NCCL group on both (the all-reduces recorded in the
+     graph); after every step both states and the metrics bitwise equal,
+     every replay under set_sync_debug_mode("error"), launches exact (4 of
+     each kernel per replay, 4 per warm-up). Prints ms per step of both
+     modes (no group, NCCL), the host ms per replay, both under the
+     profiler, the capture and warm-up seconds, the pool and the eager
+     step's peak. (b) two ranks on the card: whether NCCL takes them
      (a two-rank NCCL probe), then gloo on CUDA tensors, 3 steps on a
      (2, 1) mesh (two views a rank) and on a (1, 2) mesh (rows split, all
      views), each against (a)'s float32 run at tests/test_torch_train.py's
@@ -262,7 +278,9 @@ serve, train, train_compiled (phase 11a: replays and warm-ups), trainer,
 hierarchy (the eager renderer), hierarchy_compiled (the compiled renderer
 and render_cli --hierarchy: replays and warm-ups), viewer, post_opt (the
 eager steps held beside post_optimize), post_opt_compiled (post_optimize's
-replays and warm-up), pipeline, view_parallel); a replay of a captured
+replays and warm-up), pipeline, view_parallel (the eager no-group
+float32 run), view_parallel_compiled (phase 15's compiled steps: replays
+and warm-ups)); a replay of a captured
 graph counts the launches it recorded (utils/graphs.py:REPLAY_LAUNCHES);
 `max_abs_err` is the largest error of the kernel's full-width holds in
 phases 4 and 6a (forward), 10 (backward, fold), 13 (all three, on both
@@ -928,6 +946,7 @@ def phase_serve(scene, cams, cfg, hier_path):
     def timed_lpips(default_fn):
         def make(*args, **kwargs):
             fn, kind = default_fn(*args, **kwargs)
+            check(isinstance(fn, lpips.CompiledLpips), f"serve: evaluate's LPIPS is {type(fn)}, not CompiledLpips")
             return timed("lpips", check_devices=True)(fn), kind
         return make
 
@@ -1029,9 +1048,56 @@ def phase_serve(scene, cams, cfg, hier_path):
     print(f"[serve] render_cli: {t_cli:.2f} s for {n_served - n_eval} views: render "
           f"{1e3 * np.mean(timers['render'][n_eval:]):.2f} ms and PNG write "
           f"{1e3 * np.mean(timers['png_write'][2 * n_eval:]):.2f} ms per view")
+    phase_lpips(renders[0]["image"], renders[1]["image"])
     hier_launches = serve_hierarchy(src, hier_path, dev)
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=launches, hier_launches=hier_launches, cli_budget=cli_budget)
+
+
+def phase_lpips(a, b):
+    """The serve phase's LPIPS (train/lpips.py) compiled and eager on two
+    full-width renders: bitwise equal; times of both (CUDA events), the
+    host ms per compiled call, one call of each under the profiler."""
+    from hidegs_tpu_torch.train import lpips
+
+    a, b = torch.clamp(a, 0.0, 1.0), torch.clamp(b, 0.0, 1.0)
+    params = lpips.random_lpips_params(0, a.device)
+
+    def eager():
+        with torch.no_grad():
+            return lpips.lpips_distance(params, a, b)
+
+    comp = lpips.CompiledLpips(params)
+    got, want = comp(a, b).clone(), eager()
+    check(torch.equal(got, want), f"serve: compiled LPIPS {float(got)!r} is not the eager {float(want)!r}")
+    sync(a.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = comp(a, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(torch.equal(again, want), "serve: a steady compiled LPIPS call differs from the eager distance")
+    eager_ms = time_ms(eager)
+    compiled_ms = time_ms(lambda: comp(a, b))
+    host = []
+    for _ in range(ITERS):
+        sync(a.device)
+        t0 = time.perf_counter()
+        comp(a, b)
+        host.append(1e3 * (time.perf_counter() - t0))
+    sync(a.device)
+    profs = {mode: profile_device(fn, f"lpips-{mode}") for mode, fn in (("eager", eager),
+                                                                          ("compiled", lambda: comp(a, b)))}
+    busy = {mode: "not measured" if p is None else f"{p['busy_ms']:.3f} ms busy ({p['busy_ms'] / p['wall_ms']:.1%})"
+            for mode, p in profs.items()}
+    info = comp.captures[0]
+    print(f"[lpips] {tuple(a.shape)} pair, random VGG16: compiled bitwise the eager distance ({float(want):.6g}); "
+          f"a steady call made no host sync; CUDA events, median of {ITERS} after {WARMUP}: eager {eager_ms:.3f} ms, "
+          f"compiled {compiled_ms:.3f} ms; host ms per compiled call {statistics.median(host):.3f}; under the "
+          f"profiler eager {busy['eager']}, compiled {busy['compiled']}; warm-up {info['warmup_s']:.3f} s, capture "
+          f"{info['capture_s']:.3f} s, graph pool +{info['pool_reserved_bytes'] / 2**30:.3f} GiB reserved")
+    del comp
+    return dict(eager_ms=eager_ms, compiled_ms=compiled_ms)
 
 
 def grad_gate_stats(got, want):
@@ -1284,7 +1350,9 @@ def train_cell(scene, cams, cfg):
 
 
 def phase_train(scene, cams, cfg):
-    """The training path at full width; launch counts read around it."""
+    """The training path at full width; launch counts read around it. Its
+    densify round replays the compiled round, held against the eager one."""
+    from hidegs_tpu_torch.train import compiled
     from hidegs_tpu_torch.train import loop as tl
 
     t0 = time.perf_counter()
@@ -1301,13 +1369,16 @@ def phase_train(scene, cams, cfg):
     reset_counts()
     t0 = time.perf_counter()
     metrics, rounds = [], []
+    densify = compiled.CompiledDensify()  # the round replays its graph, as in the trainer
     for k in range(TRAIN_STEPS):
         ts, m = tl.train_step(ts, batches[k % len(batches)], tcfg)
         metrics.append(m)
-        before = ts
-        ts, info = tl.maybe_host_side_schedule(ts, tcfg, extent, step=k + 1)
-        if info is not None:  # states are not updated in place: keep both sides
-            rounds.append((k + 1, info, before, ts))
+        before, gen = ts, ts.generator.get_state()
+        ts, info = tl.maybe_host_side_schedule(ts, tcfg, extent, step=k + 1, compiled=densify)
+        if info is not None:  # keep both sides: the round's state is its graph's buffers, which the scrubs
+            # after the densify window overwrite
+            rounds.append((k + 1, {key: v.clone() for key, v in info.items()}, before,
+                           compiled._map(torch.clone, ts), gen))
     launches = read_counts()
     wall_s = time.perf_counter() - t0
     print(f"[train] {TRAIN_STEPS} steps in {wall_s:.2f} s host wall; launches on the train path: {launches}")
@@ -1320,8 +1391,10 @@ def phase_train(scene, cams, cfg):
             check(int(m[key]) == 0, f"train step {k}: {key} = {int(m[key])}")
     print("[train] losses: " + ", ".join(f"{float(m['total']):.5f}" for m in metrics))
     check([r[0] for r in rounds] == [DENSIFY_AT], f"densify rounds ran at {[r[0] for r in rounds]}")
-    _, info, pre_round, post_round = rounds[0]
+    _, info, pre_round, post_round, gen = rounds[0]
     print(f"[train] densify at step {DENSIFY_AT}: " + ", ".join(f"{k} {float(v):.6g}" for k, v in info.items()))
+    hold_densify_round(densify, pre_round, post_round, info, gen, extent, tcfg)
+    del densify
     psnr_pre, psnr_post = phase_densify_round(pre_round, post_round, cams, targets, pcfg, tcfg)
     del pre_round, post_round, rounds
     psnr1, views1 = mean_psnr(ts, cams, targets, pcfg)
@@ -1340,6 +1413,69 @@ def phase_train(scene, cams, cfg):
         check(torch.equal(x, y), f"two train steps from one state differ in leaf {i}")
     print("[train] two steps from one cloned state: params, moments, stats bitwise equal")
     return dict(ts=ts, tcfg=tcfg, batches=batches, launches=launches, psnr=(psnr0, psnr1))
+
+
+def same_bits(a, b):
+    """Bitwise equality of two tensors, NaNs included."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def hold_densify_round(densify, pre_round, post_round, info, gen, extent, tcfg):
+    """The train phase's densify round, replayed from the compiled pair
+    (train/compiled.py:CompiledDensify), against the eager `densify_step`
+    on the same state and draws: every tensor of the state and every info
+    value bitwise equal. Times both from the round's input state (CUDA
+    events, the host's split draws included) and one of each under the
+    profiler."""
+    from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.train.compiled import _tensors
+
+    dev = pre_round.gaussians.alive.device
+
+    def with_gen():
+        g = torch.Generator()
+        g.set_state(gen)
+        return pre_round._replace(generator=g)
+
+    eager, einfo = tl.densify_step(with_gen(), extent, tcfg)
+    for n, (a, b) in enumerate(zip(_tensors(post_round), _tensors(eager), strict=True)):
+        check(same_bits(a, b), f"densify round: the compiled round's state tensor {n} differs from the eager round's")
+    check(einfo.keys() == info.keys() and all(same_bits(info[k], einfo[k]) for k in info),
+          "densify round: the compiled round's info differs from the eager round's")
+    # after the window every DENSIFY_AT-th step scrubs: the pair's second graph
+    n_scrubs = sum(1 for k in range(DENSIFY_AT + 1, TRAIN_STEPS + 1) if k % DENSIFY_AT == 0)
+    check([c["kind"] for c in densify.captures] == ["densify", "scrub"] and densify.replays == 1 + n_scrubs,
+          f"densify round: captures {[c['kind'] for c in densify.captures]}, {densify.replays} replays; expected "
+          f"the round and the scrub, {1 + n_scrubs} replays")
+    del eager, einfo
+    # the times replay a pair of their own: the held round's buffers
+    # (`post_round`) stay as the round left them
+    timed = type(densify)()
+    src = with_gen()
+    eager_ms = time_ms(lambda: tl.densify_step(src, extent, tcfg), warmup=1, iters=5)
+    compiled_ms = time_ms(lambda: timed.densify_step(src, extent, tcfg), warmup=1, iters=5)
+    host = []
+    for _ in range(5):
+        sync(dev)
+        t0 = time.perf_counter()
+        timed.densify_step(src, extent, tcfg)
+        host.append(1e3 * (time.perf_counter() - t0))
+    sync(dev)
+    profs = {mode: profile_device(fn, f"densify-{mode}")
+             for mode, fn in (("eager", lambda: tl.densify_step(src, extent, tcfg)),
+                              ("compiled", lambda: timed.densify_step(src, extent, tcfg)))}
+    busy = {mode: "not measured" if p is None else f"{p['busy_ms']:.3f} ms busy ({p['busy_ms'] / p['wall_ms']:.1%})"
+            for mode, p in profs.items()}
+    c = densify.captures[0]
+    print(f"[densify] the round at step {DENSIFY_AT} replayed its graph, the {n_scrubs} scrubs after the window "
+          f"theirs; the round's state and info bitwise the eager round's on the same draws; CUDA events, median of 5 after 1 (the host's split draws included): eager "
+          f"{eager_ms:.3f} ms, compiled {compiled_ms:.3f} ms; host ms per compiled round (draws, copy-in, launch) "
+          f"{statistics.median(host):.3f}; under the profiler eager {busy['eager']}, compiled {busy['compiled']}; "
+          f"warm-up {c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s, graph pool "
+          f"+{c['pool_reserved_bytes'] / 2**30:.3f} GiB reserved")
+    del timed
+    return dict(eager_ms=eager_ms, compiled_ms=compiled_ms)
 
 
 def phase_densify_round(pre_round, post_round, cams, targets, cfg, tcfg):
@@ -2148,8 +2284,50 @@ def hold_params(got, kept, start, tcfg, what):
     return worst
 
 
+def hold_compiled_dp(estep, cstep, ts, batch, n, what):
+    """`n` steps of the eager view-parallel step `estep` and the compiled
+    `cstep` side by side from `ts` on `batch`. Gates: after every step the
+    two states and the metrics bitwise equal; the compiled step's first
+    call captures (its warm-up launches V of each kernel through the
+    launchers), every later one is a replay under
+    set_sync_debug_mode("error") that adds V of each kernel to the replay
+    count and none to the launchers'. Returns the compiled path's launches
+    and the last compiled state and metrics."""
+    from hidegs_tpu_torch.parallel import sharded
+
+    V = sharded.num_views(batch)
+    dev = ts.gaussians.alive.device
+    eager = comp = ts
+    launches = dict.fromkeys(("blend_fwd", "blend_bwd", "fold_rows"), 0)
+    for k in range(n):
+        eager, em = estep(eager, batch)
+        sync(dev)
+        direct, replayed, n_captures = direct_counts(), replay_counts(), len(cstep.captures)
+        if k > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            comp, cm = cstep(comp, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        sync(dev)
+        d = tuple(b - a for a, b in zip(direct, direct_counts()))
+        r = tuple(b - a for a, b in zip(replayed, replay_counts()))
+        captured = len(cstep.captures) > n_captures
+        check(captured == (k == 0), f"{what} step {k}: captured {captured}")
+        check(r == (V,) * 3 and d == ((V,) * 3 if captured else (0, 0, 0)),
+              f"{what} step {k}: replayed launches {r}, the launchers' {d}, expected {V} of each a replay")
+        for j, key in enumerate(launches):
+            launches[key] += d[j] + r[j]
+        diff = first_difference(comp, eager)
+        bad = [m for m in em if not torch.equal(em[m], cm[m])]
+        check(diff is None and not bad, f"{what} step {k}: the compiled and eager steps part: metrics {bad}, "
+                                        f"state tensor {diff}")
+    return dict(launches=launches, ts=comp, metrics=cm)
+
+
 def phase_view_parallel(scene, cams, cfg):
-    """15. The view-parallel trainer (parallel/sharded.py) on the train cell."""
+    """15. The view-parallel trainer (parallel/sharded.py) on the train cell,
+    and its compiled step (parallel/compiled.py) beside the eager one."""
     import dataclasses
 
     import torch.distributed as dist
@@ -2157,6 +2335,7 @@ def phase_view_parallel(scene, cams, cfg):
     from hidegs_tpu_torch.model.adam import masked_adam_update
     from hidegs_tpu_torch.model.schedules import lr_tree
     from hidegs_tpu_torch.parallel import distributed as pdist
+    from hidegs_tpu_torch.parallel import compiled as pc
     from hidegs_tpu_torch.parallel import dryrun, sharded
     from hidegs_tpu_torch.parallel.mesh import make_mesh
     from hidegs_tpu_torch.train import loop as tl
@@ -2196,6 +2375,28 @@ def phase_view_parallel(scene, cams, cfg):
               f"view-parallel {name}: launches {launches}, expected {V} of each kernel per step")
         check(all(np.isfinite(losses)), f"view-parallel {name}: non-finite losses {losses}")
         runs[name] = dict(ts=ts, kept=kept, losses=losses, launches=launches)
+    # the compiled step beside the eager one, from the same state
+    comp = {}
+    comp_launches = dict.fromkeys(("blend_fwd", "blend_bwd", "fold_rows"), 0)
+    for wire in (None, torch.bfloat16):
+        name = "f32" if wire is None else "bf16"
+        estep, _ = sharded.make_dp_train_step(tcfg, None, grad_reduce_dtype=wire)
+        cstep, _ = pc.compile_dp_train_step(tcfg, None, grad_reduce_dtype=wire)
+        held = hold_compiled_dp(estep, cstep, ts0, batch, DP_STEPS, f"compiled view-parallel {name}")
+        check(float(held["metrics"]["loss"]) == runs[name]["losses"][-1]
+              and all(torch.equal(x, y) for x, y in zip(train_leaves(held["ts"]), train_leaves(runs[name]["ts"]))),
+              f"compiled view-parallel {name}: its last step is not the eager run's")
+        for key in comp_launches:
+            comp_launches[key] += held["launches"][key]
+        info = cstep.captures[0]
+        print(f"[dp-compiled] no group, {name} wire: {DP_STEPS} compiled steps bitwise the eager ones after every "
+              f"step; replays made no host sync; {V} of each kernel's launches per replay, {V} per warm-up; "
+              f"warm-up {info['warmup_s']:.3f} s, capture {info['capture_s']:.3f} s, graph pool +"
+              f"{info['pool_reserved_bytes'] / 2**30:.3f} GiB reserved")
+        comp[name] = dict(step=cstep, ts=held["ts"], info=info)
+        del estep, held
+    del comp["bf16"]
+    torch.cuda.empty_cache()
     psnr1, views1 = mean_psnr(runs["f32"]["ts"], cams, targets, pcfg)
     print(f"[dp] mean PSNR {psnr0:.4f} -> {psnr1:.4f} dB after {DP_STEPS} steps "
           f"(views {', '.join(f'{v:.3f}' for v in views1)})")
@@ -2244,6 +2445,24 @@ def phase_view_parallel(scene, cams, cfg):
             for i, (x, y) in enumerate(zip(train_leaves(ts), train_leaves(runs[name]["ts"]))):
                 check(torch.equal(x, y), f"one-rank NCCL {name}: leaf {i} differs from the no-group run")
             print(f"[dp] one-rank NCCL group, {name} wire: {DP_STEPS} steps bitwise the no-group run")
+            # the compiled step records the group's collectives into its graph
+            cstep, _ = pc.compile_dp_train_step(tcfg, mesh, grad_reduce_dtype=wire)
+            ts, _ = place(ts0, batch)
+            held = hold_compiled_dp(step, cstep, ts, b, DP_STEPS, f"compiled one-rank NCCL {name}")
+            for i, (x, y) in enumerate(zip(train_leaves(held["ts"]), train_leaves(runs[name]["ts"]))):
+                check(torch.equal(x, y), f"compiled one-rank NCCL {name}: leaf {i} differs from the no-group run")
+            for key in comp_launches:
+                comp_launches[key] += held["launches"][key]
+            info = cstep.captures[0]
+            print(f"[dp-compiled] one-rank NCCL group, {name} wire: {DP_STEPS} compiled steps (the all-reduces in "
+                  f"the graph) bitwise the eager ones after every step and the no-group run at the end; replays "
+                  f"made no host sync; warm-up {info['warmup_s']:.3f} s, capture {info['capture_s']:.3f} s, "
+                  f"graph pool +{info['pool_reserved_bytes'] / 2**30:.3f} GiB reserved")
+            if wire is None:
+                cts = held["ts"]
+                nccl_compiled_ms = time_ms(lambda: cstep(cts, b))
+            del cstep, held, ts
+            sync(dev)
         step, place = sharded.make_dp_train_step(tcfg, mesh)
         ts, b = place(runs["f32"]["ts"], batch)
         sync(dev)
@@ -2262,6 +2481,7 @@ def phase_view_parallel(scene, cams, cfg):
             times[wdt] = (time_ms(lambda: dist.all_reduce(buf, group=grp)), buf.numel() * buf.element_size())
         nccl_ms = time_ms(lambda: step(ts, b))
     finally:
+        sync(dev)  # no graph of the group's is still running when it goes
         pdist.shutdown_distributed()
     ar32, ar16 = times[torch.float32], times[torch.bfloat16]
 
@@ -2312,15 +2532,41 @@ def phase_view_parallel(scene, cams, cfg):
     upd_ms = time_ms(lambda: masked_adam_update(ts.gaussians.params, grads, ts.opt, lrs, visible))  # alive rows
     del grads
     torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     step32(ts, batch)
     sync(dev)
     peak = torch.cuda.max_memory_allocated(dev)
+    eager_peak = peak - base
     print(f"[dp-times] view-parallel step, V = {V} at {cams[0].width}x{cams[0].height}, CUDA events, median of "
           f"{ITERS} after {WARMUP} warm-ups: no group {step_ms:.3f} ms, one-rank NCCL group {nccl_ms:.3f} ms; "
           f"local forward + backward of the {V} views {fb_ms:.3f} ms; the gradient all-reduce alone (one-rank "
           f"NCCL) {ar32[0]:.3f} ms for {ar32[1]:,} bytes (float32), {ar16[0]:.3f} ms for {ar16[1]:,} bytes "
           f"(bf16); the masked Adam update {upd_ms:.3f} ms; peak memory {peak / 2**30:.2f} GiB")
-    profile_device(lambda: step32(ts, batch), "dp-breakdown")
+    eager_prof = profile_device(lambda: step32(ts, batch), "dp-breakdown")
+
+    # the compiled step's times, from the state its last replay returned
+    cstep, cts = comp["f32"]["step"], comp["f32"]["ts"]
+    compiled_ms = time_ms(lambda: cstep(cts, batch))
+    host = []
+    for _ in range(ITERS):
+        sync(dev)
+        t0 = time.perf_counter()
+        cstep(cts, batch)
+        host.append(1e3 * (time.perf_counter() - t0))
+    sync(dev)
+    comp_prof = profile_device(lambda: cstep(cts, batch), "dp-compiled-breakdown")
+    info = comp["f32"]["info"]
+    pool = info["pool_reserved_bytes"] / 2**30
+    busy = {mode: "not measured" if prof is None else f"{prof['busy_ms'] / prof['wall_ms']:.1%}"
+            for mode, prof in (("eager", eager_prof), ("compiled", comp_prof))}
+    print(f"[dp-compiled] V = {V} step, CUDA events, median of {ITERS} after {WARMUP}: eager {step_ms:.3f} ms, "
+          f"compiled {compiled_ms:.3f} ms ({step_ms / compiled_ms:.2f}x); one-rank NCCL group eager {nccl_ms:.3f}, "
+          f"compiled {nccl_compiled_ms:.3f} ms; host ms per replay (copy-in and launch, median of {ITERS}) "
+          f"{statistics.median(host):.3f}; device busy under the profiler eager {busy['eager']}, compiled "
+          f"{busy['compiled']}; capture {info['capture_s']:.3f} s after a {info['warmup_s']:.3f} s warm-up; graph "
+          f"pool {pool:.3f} GiB reserved, an eager step's peak {eager_peak / 2**30:.3f} GiB above what was "
+          f"allocated before it")
+    del cstep, cts, comp
 
     # (d) the trace
     tdir = work / "trace"
@@ -2386,7 +2632,8 @@ def phase_view_parallel(scene, cams, cfg):
         for ln in ok_lines:
             print(f"[dp-dryrun]   {ln}")
     shutil.rmtree(work, ignore_errors=True)
-    return dict(launches=runs["f32"]["launches"], step_ms=step_ms, nccl_ms=nccl_ms, rank_ms=rank_ms, **hold)
+    return dict(launches=runs["f32"]["launches"], compiled_launches=comp_launches, step_ms=step_ms, nccl_ms=nccl_ms,
+                compiled_ms=compiled_ms, rank_ms=rank_ms, **hold)
 
 
 LOD_TAUS = (0.0, 3.0, 6.0, 15.0)  # pixel granularities of the hierarchy phase
@@ -3358,10 +3605,11 @@ def phase_pipeline(dev):
     n_eval = len(PIPE_TAUS) * PIPE_EVAL_VIEWS
     # the coarse model and the post-optimizer train on compiled steps: one
     # replayed launch of each kernel per step, and each capture's warm-up
-    # step launches them once more (the post-opt cut's graph launches none)
+    # step launches them once more (the post-opt cut's graph launches none,
+    # nor do the graphs of the coarse trainer's densify rounds and scrubs)
     kinds = {"coarse": "the train step", "post-opt": "the post-opt step"}
-    check({c["what"] for c in captures} == set(kinds.values()) and all(c["launches"] == c["warmup_launches"]
-                                                                       for c in captures),
+    check({c["what"] for c in captures} == set(kinds.values()) | {"the densify round"}
+          and all(c["launches"] == c["warmup_launches"] for c in captures),
           f"pipeline: captures {[(c['what'], c['launches'], c['warmup_launches']) for c in captures]}")
     warm = {stage: tuple(sum(c["warmup_launches"][k] for c in captures if c["what"] == what)
                          for k in ("blend_fwd", "blend_bwd", "fold_rows")) for stage, what in kinds.items()}
@@ -3536,7 +3784,8 @@ def main() -> int:
                       "hierarchy_compiled": lod["compiled_launches"][name] + serve["hier_launches"][name],
                       "viewer": viewer["launches"][name], "post_opt": post_opt["launches"][name],
                       "post_opt_compiled": post_opt["compiled_launches"][name],
-                      "pipeline": pipe["launches"][name], "view_parallel": vp["launches"][name]}
+                      "pipeline": pipe["launches"][name], "view_parallel": vp["launches"][name],
+                      "view_parallel_compiled": vp["compiled_launches"][name]}
                for name in launches}
     kernels = [{
         "name": "blend_fwd",

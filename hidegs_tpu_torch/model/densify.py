@@ -16,7 +16,12 @@ nothing here reads a count back to the host.
 
 The split draws come from `split_draws` and a `torch.Generator`; the
 numbers differ from `jax.random`'s, so the parity test replaces that one
-function with the JAX draws.
+function with the JAX draws. `densify_round` takes the draws as an input
+(the compiled round, train/compiled.py:CompiledDensify, draws them before
+its replay, as the view-parallel step draws its pixel samples), and
+`densify_and_prune` draws them for it. Nothing here reads the device from
+the host or copies a constant from it, so a round can be captured as a
+CUDA graph.
 """
 from __future__ import annotations
 
@@ -63,10 +68,12 @@ def add_densification_stats(
 def split_draws(generator: torch.Generator, capacity: int, device) -> tuple:
     """The two (C, 3) standard-normal draws of a densify round, one per
     split child. Drawn on the CPU from `generator`, so a seed gives the same
-    numbers on any device."""
-    eps0 = torch.randn((capacity, 3), generator=generator)
-    eps1 = torch.randn((capacity, 3), generator=generator)
-    return eps0.to(device), eps1.to(device)
+    numbers on any device; for a card into pinned memory, whose copy does
+    not make the host wait."""
+    pin = torch.device(device).type == "cuda"
+    eps0 = torch.randn((capacity, 3), generator=generator, pin_memory=pin)
+    eps1 = torch.randn((capacity, 3), generator=generator, pin_memory=pin)
+    return eps0.to(device, non_blocking=pin), eps1.to(device, non_blocking=pin)
 
 
 def _put(x: torch.Tensor, dest: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -96,7 +103,20 @@ def densify_and_prune(
     cfg: DensifyConfig,
     generator: torch.Generator,
 ):
-    """One densification round. Returns (new_state, new_opt, info dict of
+    """One densification round on draws from `generator` (`split_draws`).
+    Returns (new_state, new_opt, info dict of 0-d tensors)."""
+    return densify_round(state, opt, scene_extent, cfg, split_draws(generator, state.capacity, state.params.xyz.device))
+
+
+def _constants(values, device) -> torch.Tensor:
+    """float32 constants on `device`, from fills (no copy from the host)."""
+    return torch.stack([torch.full((), v, dtype=torch.float32, device=device) for v in values])
+
+
+def densify_round(state: GaussianState, opt: AdamState, scene_extent, cfg: DensifyConfig, draws: tuple):
+    """`densify_and_prune` on the given split draws, the (C, 3) pair of
+    `split_draws`. `scene_extent`: a float or a 0-d float64 tensor (the
+    same threshold to the bit). Returns (new_state, new_opt, info dict of
     0-d tensors)."""
     p = state.params
     C = state.capacity
@@ -143,11 +163,11 @@ def densify_and_prune(
     # splits: sample the children
     scales = torch.exp(p.scaling)
     R = quat_to_rotmat(p.rotation)
-    eps0, eps1 = split_draws(generator, C, dev)
+    eps0, eps1 = draws
     child0_xyz = p.xyz + torch.einsum("nij,nj->ni", R, eps0 * scales)
     child1_xyz = p.xyz + torch.einsum("nij,nj->ni", R, eps1 * scales)
     child_scaling = p.scaling - torch.log(
-        torch.tensor(cfg.split_scale_div * cfg.split_n, dtype=torch.float32, device=dev))
+        torch.full((), cfg.split_scale_div * cfg.split_n, dtype=torch.float32, device=dev))
     child1 = GaussianParams(
         xyz=child1_xyz, sh_dc=p.sh_dc, sh_rest=p.sh_rest, scaling=child_scaling,
         rotation=p.rotation, opacity=p.opacity,
@@ -182,10 +202,9 @@ def densify_and_prune(
     )
     # score quantiles among alive rows, for threshold calibration
     nan = torch.full_like(score, float("nan"))
-    q = torch.nanquantile(torch.where(state.alive, score, nan),
-                          torch.tensor([0.5, 0.9, 0.99], device=dev))
-    qg = torch.nanquantile(torch.where(state.alive, state.grad_max, nan), torch.tensor([0.5, 0.99], device=dev))
-    qr = torch.nanquantile(torch.where(state.alive, state.max_radii2d, nan), torch.tensor([0.5, 0.99], device=dev))
+    q = torch.nanquantile(torch.where(state.alive, score, nan), _constants((0.5, 0.9, 0.99), dev))
+    qg = torch.nanquantile(torch.where(state.alive, state.grad_max, nan), _constants((0.5, 0.99), dev))
+    qr = torch.nanquantile(torch.where(state.alive, state.max_radii2d, nan), _constants((0.5, 0.99), dev))
     info = {
         "n_clone": n_clone,
         "n_split": n_split,

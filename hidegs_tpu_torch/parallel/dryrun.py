@@ -6,7 +6,8 @@ The port's counterpart of `__graft_entry__.py:dryrun_multichip` and
 
   * `dryrun_multichip`: one full step on a (n/model, model) mesh (model 2
     when n is even and > 2) with the rows split over "model": 16,384
-    toy gaussians at capacity 65,536, 256² views, the "plain" backend;
+    toy gaussians at capacity 65,536, 256² views, the "plain" backend
+    (the "blend" backend on a card: `leg_backend`);
     then the kernel leg: one step on an (n, 1) mesh on the "blend" backend
     (the CUDA kernels on a card, their plain versions on the CPU) with the
     bf16 gradient wire;
@@ -20,6 +21,12 @@ The port's counterpart of `__graft_entry__.py:dryrun_multichip` and
   * `dp_worker`: K steps of a saved problem (`save_dp_job`) under a list
     of placements, each rank's states written back; the parity tests and
     the smoke use it.
+
+On a card with NCCL, or with no group, every step is a replay of the
+compiled step (parallel/compiled.py) and the schedule leg's densify rounds
+replay the compiled round (train/compiled.py:CompiledDensify); a gloo
+group runs the eager `make_dp_train_step`, whose collectives go through
+the host and cannot be captured (`dp_step`).
 
     python -m hidegs_tpu_torch.parallel --nproc N [--backend nccl|gloo] [--device cuda|cpu]
 
@@ -47,10 +54,13 @@ import torch
 from hidegs_tpu_torch import convert
 from hidegs_tpu_torch.device import DeviceLike, resolve_device
 from hidegs_tpu_torch.parallel import distributed as pdist
+from hidegs_tpu_torch.parallel.compiled import compile_dp_train_step, mesh_backend
 from hidegs_tpu_torch.parallel.mesh import make_mesh
 from hidegs_tpu_torch.parallel.sharded import gather_rows, make_dp_train_step, shard_rows, stack_view_batches
 from hidegs_tpu_torch.raster.api import RasterConfig, render, suggest_max_instances
+from hidegs_tpu_torch.train.compiled import CompiledDensify
 from hidegs_tpu_torch.train.loop import TrainConfig, TrainState, ViewBatch, densify_step, init_train_state
+from hidegs_tpu_torch.utils.graphs import on_card
 
 DRYRUN_TIMEOUT = 1800.0  # seconds for all ranks of `python -m hidegs_tpu_torch.parallel`
 
@@ -116,6 +126,15 @@ def file_init_method(directory: str) -> str:
     collide). The file must not be left from an earlier group."""
     os.makedirs(directory, exist_ok=True)
     return "file://" + str(Path(directory).resolve() / "rendezvous")
+
+
+def dp_step(dev: torch.device, cfg: TrainConfig, mesh=None, **kwargs):
+    """(step, place) of the view-parallel step on `dev` over `mesh`: the
+    compiled step on a card with an NCCL mesh or none, else (a gloo group,
+    the CPU) the eager `make_dp_train_step`."""
+    if on_card(dev) and mesh_backend(mesh) in (None, "nccl"):
+        return compile_dp_train_step(cfg, mesh, **kwargs)
+    return make_dp_train_step(cfg, mesh, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -187,10 +206,9 @@ def dp_worker(rank: int, world: int, init_method: str, backend: str, device: str
                                                           device_type=dev.type)
             shard = run.get("shard", False)
             wire = torch.bfloat16 if run.get("wire") == "bf16" else None
-            step, place = make_dp_train_step(job["cfg"], mesh, use_exposure=job["use_exposure"],
-                                             grad_reduce_dtype=wire,
-                                             replicate_preprocessed=run.get("replicate_preprocessed", False),
-                                             shard_gaussians=shard)
+            step, place = dp_step(dev, job["cfg"], mesh, use_exposure=job["use_exposure"], grad_reduce_dtype=wire,
+                                  replicate_preprocessed=run.get("replicate_preprocessed", False),
+                                  shard_gaussians=shard)
             ts, b = place(ts0, batch)
             out = {"losses": [], "metrics": [], "seconds": [], "states": {}, "collectives": []}
             if shard:  # a state split over "model" refuses a step that keeps the rows whole
@@ -270,6 +288,13 @@ def _views(scene, cams, rcfg) -> List[ViewBatch]:
                           image_idx=torch.tensor(i, device=c.device)) for i, c in enumerate(cams)]
 
 
+def leg_backend(dev: torch.device) -> str:
+    """The render backend of the multichip and schedule legs: "plain" on
+    the CPU; on a card "blend", the kernels, which the compiled step
+    captures (the plain blend reads its tile counts to the host)."""
+    return "blend" if on_card(dev) else "plain"
+
+
 def _model_size(n: int) -> int:
     return 2 if n % 2 == 0 and n > 2 else 1
 
@@ -287,11 +312,11 @@ def dryrun_multichip(world: int, dev: torch.device) -> None:
     n = 16_384
     scene = make_toy_gaussians(n, seed=0, device=dev)
     cams = [ring_camera(i, n_cams=max(V, 2), height=H, width=W, device=dev) for i in range(V)]
-    rcfg = RasterConfig(backend="plain", max_instances=suggest_max_instances(n, mult=8))
+    rcfg = RasterConfig(backend=leg_backend(dev), max_instances=suggest_max_instances(n, mult=8))
     views = _views(scene, cams, rcfg)
     state = init_from_points(scene.means3d, torch.full((n, 3), 0.5, device=dev), capacity=1 << 16)
     cfg = TrainConfig(iterations=10, raster=rcfg, freq_warmup=0, single_view_weight=0.015, single_view_from=0)
-    step, place = make_dp_train_step(cfg, mesh, shard_gaussians=model > 1)
+    step, place = dp_step(dev, cfg, mesh, shard_gaussians=model > 1)
     ts, batch = place(init_train_state(state, num_images=V), stack_view_batches(views))
     ts, metrics = step(ts, batch)
     loss = float(metrics["loss"])
@@ -313,7 +338,7 @@ def dryrun_multichip(world: int, dev: torch.device) -> None:
     pviews = _views(pscene, pcams, pcfg_r)
     pstate = init_from_points(pscene.means3d, torch.full((np_, 3), 0.5, device=dev), capacity=max(128, np_ * 2))
     pcfg = TrainConfig(iterations=10, raster=pcfg_r, freq_warmup=0, single_view_weight=0.015, single_view_from=0)
-    pstep, pplace = make_dp_train_step(pcfg, mesh_dp, grad_reduce_dtype=torch.bfloat16)
+    pstep, pplace = dp_step(dev, pcfg, mesh_dp, grad_reduce_dtype=torch.bfloat16)
     pts, pbatch = pplace(init_train_state(pstate, num_images=world), stack_view_batches(pviews))
     pts, pmetrics = pstep(pts, pbatch)
     ploss = float(pmetrics["loss"])
@@ -340,7 +365,7 @@ def dryrun_schedule_leg(world: int, dev: torch.device, n_steps: int = 50) -> Dic
     n = 512
     scene = make_toy_gaussians(n, seed=3, device=dev)
     cams = [ring_camera(i, n_cams=max(V, 2), height=H, width=W, device=dev) for i in range(V)]
-    rcfg0 = RasterConfig(backend="plain", max_instances=1 << 12)
+    rcfg0 = RasterConfig(backend=leg_backend(dev), max_instances=1 << 12)
     batch = stack_view_batches(_views(scene, cams, rcfg0))
     cfg0 = TrainConfig(
         iterations=n_steps, raster=rcfg0, freq_warmup=0, single_view_weight=0.0,
@@ -353,7 +378,8 @@ def dryrun_schedule_leg(world: int, dev: torch.device, n_steps: int = 50) -> Dic
         state = init_from_points(scene.means3d, torch.full((n, 3), 0.5, device=dev), capacity=1024,
                                  knn_scale=None, spatial_lr_scale=3.0, init_opacity=0.5)
         cfg = cfg0
-        step, place = make_dp_train_step(cfg, mesh, shard_gaussians=shard)
+        step, place = dp_step(dev, cfg, mesh, shard_gaussians=shard)
+        densify = CompiledDensify().densify_step if on_card(dev) else densify_step
         ts, b = place(init_train_state(state, num_images=V, seed=7), batch)
         losses, events, snaps = [], [], []
 
@@ -370,12 +396,12 @@ def dryrun_schedule_leg(world: int, dev: torch.device, n_steps: int = 50) -> Dic
                 # instance-budget regrow mid-run: a new step with twice the
                 # budget; the placed state flows into it unchanged
                 cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_instances=1 << 13))
-                step, _ = make_dp_train_step(cfg, mesh, shard_gaussians=shard)
+                step, _ = dp_step(dev, cfg, mesh, shard_gaussians=shard)
                 events.append(("regrow", it))
             ts, metrics = step(ts, b)
             losses.append(float(metrics["loss"]))
             if it in (10, 30):
-                full, info = densify_step(whole(ts), 3.0, cfg)
+                full, info = densify(whole(ts), 3.0, cfg)
                 ts = shard_rows(full, mesh) if shard else full
                 events.append(("densify", it, int(info["n_alive"])))
                 snap(f"densify@{it}", ts)

@@ -31,6 +31,10 @@ backward per view, accumulated in view order, so a view's blend node
 launches the forward, backward and fold kernels once. There is no
 finite-step gate, as in the JAX DP step. With `mesh=None` the step runs
 in one process with no collective at all.
+
+The step is its draws (`draw_dp_pixels`) and `dp_compute`, which returns
+the new state; `dp_step_in_place` writes that state into the buffers of
+the old one, and is what parallel/compiled.py captures as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from hidegs_tpu_torch.model.schedules import expon_lr, lr_tree
 from hidegs_tpu_torch.raster.preprocess import PreprocessedGaussians
 from hidegs_tpu_torch.train.geometric import sample_pixels
 from hidegs_tpu_torch.train.loop import TrainConfig, TrainState, ViewBatch, compute_losses, fork_generator
+from hidegs_tpu_torch.utils.graphs import copy_into
 
 PARAM_FIELDS = GaussianParams._fields
 ROW_FIELDS = ("alive", "grad_max", "grad_abs_max", "max_radii2d", "protected")
@@ -248,6 +253,179 @@ def _broadcast_generator(gen: torch.Generator, device) -> torch.Generator:
     return out
 
 
+class DPPlan(NamedTuple):
+    """What `make_dp_train_step` decides once: the static part of a
+    view-parallel step."""
+
+    cfg: TrainConfig
+    step_cfg: TrainConfig  # cfg, with the render's gather of the preprocessed rows when they are gathered
+    grp: MeshGroups
+    use_exposure: bool
+    wire: torch.dtype  # of the gradient all-reduce
+    sharded: bool  # the row fields split over "model"
+    gather_pre: bool  # the preprocessed rows gathered inside the render
+
+    @property
+    def split(self) -> int:
+        """The model ranks a state's rows are split over."""
+        return self.grp.n_model if self.sharded else 1
+
+
+def dp_plan(cfg: TrainConfig, mesh=None, use_exposure: bool = False, grad_reduce_dtype: Optional[torch.dtype] = None,
+            replicate_preprocessed: bool = False, shard_gaussians: bool = False) -> DPPlan:
+    """The plan of `make_dp_train_step` with these arguments."""
+    grp = mesh_groups(mesh)
+    sharded = shard_gaussians and grp.n_model > 1
+    gather_pre = sharded and replicate_preprocessed
+    step_cfg = cfg
+    if gather_pre:  # the render gathers the preprocessed rows
+        step_cfg = dataclasses.replace(cfg, raster=dataclasses.replace(
+            cfg.raster, pre_constraint=lambda pre: gather_preprocessed(pre, grp.model, grp.n_model, grp.model_index)))
+    return DPPlan(cfg, step_cfg, grp, bool(use_exposure), grad_reduce_dtype or torch.float32, sharded, gather_pre)
+
+
+def check_placement(plan: DPPlan, ts: TrainState) -> None:
+    """ValueError unless the state's rows are split as the plan splits them."""
+    if ts.rows_split != plan.split:
+        raise ValueError(f"the state's rows are split over {ts.rows_split} model ranks and this step's over "
+                         f"{plan.split}: place the state with the step's own `place`")
+
+
+def draw_dp_pixels(plan: DPPlan, ts: TrainState, batch: ViewBatch):
+    """The multi-view pixel samples of one step, all V views in view order,
+    drawn on the device from a copy of `ts.mv_generator` (so every rank
+    draws the same, C26): (uv (V, n, 2), the advanced copy)."""
+    V = num_views(batch) * plan.grp.n_data
+    gen = fork_generator(ts.mv_generator)
+    uv = torch.stack([sample_pixels(gen, plan.cfg.multi_view_sample_num, batch.cam.height, batch.cam.width,
+                                    plan.cfg.multi_view_patch_half) for _ in range(V)])
+    return uv, gen
+
+
+def dp_compute(plan: DPPlan, ts: TrainState, batch: ViewBatch,
+               uv: Optional[torch.Tensor]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One view-parallel step on the samples `uv`: (new state, metrics).
+    The new state keeps `ts`'s generators; `ts` is left as it was."""
+    cfg, step_cfg, grp, use_exposure, wire = plan.cfg, plan.step_cfg, plan.grp, plan.use_exposure, plan.wire
+    sharded, gather_pre = plan.sharded, plan.gather_pre
+    V_local = num_views(batch)
+    V = V_local * grp.n_data
+    first = grp.data_index * V_local
+    H, W = batch.cam.height, batch.cam.width
+
+    g_local = ts.gaussians
+    R = g_local.capacity
+    lo = grp.model_index * R
+
+    def local(x):  # this rank's block of a row tensor of the render
+        return x if x.shape[0] == R else x[lo:lo + R]
+
+    params = GaussianParams(*(p.detach().requires_grad_(True) for p in g_local.params))
+    g_render = g_local._replace(params=params)
+    scale_rows = None
+    if sharded and not gather_pre:
+        # the rows whole on every rank of the model group; autograd
+        # gives the local block of their gradient
+        cols = list(params) + [g_local.alive, g_local.protected]
+        full = _unpack(_GatherRows.apply(_pack(cols), grp.model, grp.n_model, grp.model_index), cols)
+        n = len(PARAM_FIELDS)
+        g_render = g_local._replace(params=GaussianParams(*full[:n]), alive=full[n], protected=full[n + 1])
+    elif gather_pre:
+        scale_rows = _GatherRows.apply(g_render.scales, grp.model, grp.n_model, grp.model_index)
+    exposure = ts.exposure.detach().requires_grad_(use_exposure)
+    rows = g_render.capacity  # the rows the render holds
+
+    param_grads = expo_grad = loss_local = None
+    metric_sums: Dict[str, torch.Tensor] = {}
+    stats = None  # (R, 4): any-visible, max gradient norm, max abs gradient, max radius
+    for j, view in enumerate(unstack_view_batch(batch)):
+        offset = torch.zeros((rows, 2), dtype=torch.float32, device=params.xyz.device, requires_grad=True)
+        total, aux = compute_losses(g_render, exposure, view, ts.step, step_cfg, offset, use_exposure,
+                                    uv=None if uv is None else uv[first + j], scale_rows=scale_rows)
+        inputs = list(params) + [offset] + ([exposure] if use_exposure else [])
+        # the views share the gather's graph when the rows are split
+        grads = torch.autograd.grad(total / V, inputs, allow_unused=True,
+                                    retain_graph=sharded and j < V_local - 1)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+        n = len(PARAM_FIELDS)
+        param_grads = grads[:n] if param_grads is None else [a + b for a, b in zip(param_grads, grads[:n])]
+        if use_exposure:
+            expo_grad = grads[-1] if expo_grad is None else expo_grad + grads[-1]
+        loss_local = total.detach() if loss_local is None else loss_local + total.detach()
+        for k, val in aux.items():
+            if val.ndim == 0:
+                v32 = val.detach().to(torch.float32)
+                metric_sums[k] = v32 if k not in metric_sums else metric_sums[k] + v32
+
+        # per-view screen-space gradient at single-view magnitude (the
+        # mean loss gives each view 1/V), in the reference's (0.5·W,
+        # 0.5·H) NDC units (backward.cu:604,754)
+        sg = local(grads[n]) * V
+        sg = torch.stack([sg[:, 0] * (0.5 * W), sg[:, 1] * (0.5 * H)], dim=1)
+        vis, radii = local(aux["visibility"]), local(aux["radii"])
+        gnorm = torch.linalg.norm(sg, dim=-1)
+        gabs = torch.sum(torch.abs(sg), dim=-1)
+        zero = torch.zeros_like(gnorm)
+        view_stats = torch.stack([vis.to(torch.float32), torch.where(vis, gnorm, zero),
+                                  torch.where(vis, gabs, zero), torch.where(vis, radii.to(torch.float32), zero)],
+                                 dim=1)
+        stats = view_stats if stats is None else torch.maximum(stats, view_stats)
+        del total, aux, grads
+
+    # one flat SUM over the data group: the gradients (in the wire type),
+    # then the loss and the metric sums (float32)
+    names = sorted(metric_sums)
+    scalars = torch.stack([loss_local / V] + [metric_sums[k] for k in names])
+    flat = [g.reshape(-1) for g in param_grads] + ([expo_grad.reshape(-1)] if use_exposure else [])
+    if wire == torch.float32:
+        buf = _all_reduce(torch.cat(flat + [scalars]), dist.ReduceOp.SUM, grp.data)
+        grad_buf, scalars = buf[:-scalars.numel()], buf[-scalars.numel():]
+    else:
+        grad_buf = _all_reduce(torch.cat(flat).to(wire), dist.ReduceOp.SUM, grp.data).to(torch.float32)
+        scalars = _all_reduce(scalars, dist.ReduceOp.SUM, grp.data)
+    pieces = list(torch.split(grad_buf, [g.numel() for g in flat]))
+    param_grads = GaussianParams(*(p.reshape(g.shape) for p, g in zip(pieces, param_grads)))
+    if use_exposure:
+        expo_grad = pieces[-1].reshape(ts.exposure.shape)
+    stats = _all_reduce(stats, dist.ReduceOp.MAX, grp.data)
+
+    visible_any = stats[:, 0] > 0
+    lrs = lr_tree(ts.step, cfg.lr, g_local.spatial_lr_scale)
+    new_params, new_opt = masked_adam_update(g_local.params, param_grads, ts.opt, lrs, visible_any)
+    g_state = g_local._replace(
+        params=new_params,
+        grad_max=torch.maximum(g_local.grad_max, stats[:, 1]),
+        grad_abs_max=torch.maximum(g_local.grad_abs_max, stats[:, 2]),
+        max_radii2d=torch.maximum(g_local.max_radii2d, stats[:, 3]),
+    )
+
+    if use_exposure:
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        t = torch.clamp(ts.step + 1, min=1).to(torch.float32)
+        m = b1 * ts.exposure_m + (1 - b1) * expo_grad
+        v = b2 * ts.exposure_v + (1 - b2) * expo_grad**2
+        lr_e = expon_lr(ts.step, cfg.lr.exposure_lr_init, cfg.lr.exposure_lr_final, cfg.iterations)
+        new_expo = ts.exposure - lr_e * (m / (1 - b1**t)) / (torch.sqrt(v / (1 - b2**t)) + eps)
+    else:
+        m, v, new_expo = ts.exposure_m, ts.exposure_v, ts.exposure
+
+    new_ts = ts._replace(gaussians=g_state, opt=new_opt, exposure=new_expo.detach(), exposure_m=m.detach(),
+                         exposure_v=v.detach(), step=ts.step + 1)
+    metrics = {k: scalars[i + 1] / V for i, k in enumerate(names)}
+    metrics["loss"] = scalars[0]
+    return new_ts, metrics
+
+
+def dp_step_in_place(plan: DPPlan, ts: TrainState, batch: ViewBatch,
+                     uv: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """What the compiled step (parallel/compiled.py) captures: `dp_compute`
+    whose new state is written into the buffers of `ts` (every tensor the
+    step replaces). Returns the 0-d metrics."""
+    new_ts, metrics = dp_compute(plan, ts, batch, uv)
+    copy_into(ts, new_ts)
+    return metrics
+
+
 def make_dp_train_step(
     cfg: TrainConfig,
     mesh=None,
@@ -267,141 +445,27 @@ def make_dp_train_step(
         rank's stacked views. The state must be split as this step splits
         it (`TrainState.rows_split`), else ValueError. `uv`: the (V, n, 2)
         multi-view pixel samples of ALL V views of the step, in view order;
-        by default a batch with a multi-view part draws them in view order
-        from a copy of `ts.mv_generator`, so every rank draws the same
-        samples, and the new state carries the advanced copy. The metrics
-        are the mean over the V views of each scalar of the loss stack's
-        aux, plus "loss".
+        by default a batch with a multi-view part draws them
+        (`draw_dp_pixels`), and the new state carries the advanced copy of
+        `ts.mv_generator`. The metrics are the mean over the V views of
+        each scalar of the loss stack's aux, plus "loss".
 
     `grad_reduce_dtype` (torch.bfloat16) is the wire of the gradient
     all-reduce (SURVEY §7.3 #7): the flat buffer is cast down, summed in
-    that type and cast back to float32 for Adam; None keeps float32."""
-    grp = mesh_groups(mesh)
-    wire = grad_reduce_dtype or torch.float32
-    sharded = shard_gaussians and grp.n_model > 1
-    split = grp.n_model if sharded else 1
-    gather_pre = sharded and replicate_preprocessed
-    step_cfg = cfg
-    if gather_pre:  # the render gathers the preprocessed rows
-        step_cfg = dataclasses.replace(cfg, raster=dataclasses.replace(
-            cfg.raster, pre_constraint=lambda pre: gather_preprocessed(pre, grp.model, grp.n_model, grp.model_index)))
+    that type and cast back to float32 for Adam; None keeps float32.
+    `parallel.compiled.compile_dp_train_step` is this step captured as a
+    CUDA graph."""
+    plan = dp_plan(cfg, mesh, use_exposure, grad_reduce_dtype, replicate_preprocessed, shard_gaussians)
+    grp = plan.grp
 
     def step(ts: TrainState, batch: ViewBatch,
              uv: Optional[torch.Tensor] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        if ts.rows_split != split:
-            raise ValueError(f"the state's rows are split over {ts.rows_split} model ranks and this step's over "
-                             f"{split}: place the state with the step's own `place`")
-        V_local = num_views(batch)
-        V = V_local * grp.n_data
-        first = grp.data_index * V_local
-        H, W = batch.cam.height, batch.cam.width
+        check_placement(plan, ts)
         mv_generator = ts.mv_generator
         if batch.multi_view is not None and uv is None:
-            mv_generator = fork_generator(ts.mv_generator)
-            uv = torch.stack([sample_pixels(mv_generator, cfg.multi_view_sample_num, H, W,
-                                            cfg.multi_view_patch_half) for _ in range(V)])
-
-        g_local = ts.gaussians
-        R = g_local.capacity
-        lo = grp.model_index * R
-
-        def local(x):  # this rank's block of a row tensor of the render
-            return x if x.shape[0] == R else x[lo:lo + R]
-
-        params = GaussianParams(*(p.detach().requires_grad_(True) for p in g_local.params))
-        g_render = g_local._replace(params=params)
-        scale_rows = None
-        if sharded and not gather_pre:
-            # the rows whole on every rank of the model group; autograd
-            # gives the local block of their gradient
-            cols = list(params) + [g_local.alive, g_local.protected]
-            full = _unpack(_GatherRows.apply(_pack(cols), grp.model, grp.n_model, grp.model_index), cols)
-            n = len(PARAM_FIELDS)
-            g_render = g_local._replace(params=GaussianParams(*full[:n]), alive=full[n], protected=full[n + 1])
-        elif gather_pre:
-            scale_rows = _GatherRows.apply(g_render.scales, grp.model, grp.n_model, grp.model_index)
-        exposure = ts.exposure.detach().requires_grad_(use_exposure)
-        rows = g_render.capacity  # the rows the render holds
-
-        param_grads = expo_grad = loss_local = None
-        metric_sums: Dict[str, torch.Tensor] = {}
-        stats = None  # (R, 4): any-visible, max gradient norm, max abs gradient, max radius
-        for j, view in enumerate(unstack_view_batch(batch)):
-            offset = torch.zeros((rows, 2), dtype=torch.float32, device=params.xyz.device, requires_grad=True)
-            total, aux = compute_losses(g_render, exposure, view, ts.step, step_cfg, offset, use_exposure,
-                                        uv=None if uv is None else uv[first + j], scale_rows=scale_rows)
-            inputs = list(params) + [offset] + ([exposure] if use_exposure else [])
-            # the views share the gather's graph when the rows are split
-            grads = torch.autograd.grad(total / V, inputs, allow_unused=True,
-                                        retain_graph=sharded and j < V_local - 1)
-            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-            n = len(PARAM_FIELDS)
-            param_grads = grads[:n] if param_grads is None else [a + b for a, b in zip(param_grads, grads[:n])]
-            if use_exposure:
-                expo_grad = grads[-1] if expo_grad is None else expo_grad + grads[-1]
-            loss_local = total.detach() if loss_local is None else loss_local + total.detach()
-            for k, val in aux.items():
-                if val.ndim == 0:
-                    v32 = val.detach().to(torch.float32)
-                    metric_sums[k] = v32 if k not in metric_sums else metric_sums[k] + v32
-
-            # per-view screen-space gradient at single-view magnitude (the
-            # mean loss gives each view 1/V), in the reference's (0.5·W,
-            # 0.5·H) NDC units (backward.cu:604,754)
-            sg = local(grads[n]) * V
-            sg = torch.stack([sg[:, 0] * (0.5 * W), sg[:, 1] * (0.5 * H)], dim=1)
-            vis, radii = local(aux["visibility"]), local(aux["radii"])
-            gnorm = torch.linalg.norm(sg, dim=-1)
-            gabs = torch.sum(torch.abs(sg), dim=-1)
-            zero = torch.zeros_like(gnorm)
-            view_stats = torch.stack([vis.to(torch.float32), torch.where(vis, gnorm, zero),
-                                      torch.where(vis, gabs, zero), torch.where(vis, radii.to(torch.float32), zero)],
-                                     dim=1)
-            stats = view_stats if stats is None else torch.maximum(stats, view_stats)
-            del total, aux, grads
-
-        # one flat SUM over the data group: the gradients (in the wire type),
-        # then the loss and the metric sums (float32)
-        names = sorted(metric_sums)
-        scalars = torch.stack([loss_local / V] + [metric_sums[k] for k in names])
-        flat = [g.reshape(-1) for g in param_grads] + ([expo_grad.reshape(-1)] if use_exposure else [])
-        if wire == torch.float32:
-            buf = _all_reduce(torch.cat(flat + [scalars]), dist.ReduceOp.SUM, grp.data)
-            grad_buf, scalars = buf[:-scalars.numel()], buf[-scalars.numel():]
-        else:
-            grad_buf = _all_reduce(torch.cat(flat).to(wire), dist.ReduceOp.SUM, grp.data).to(torch.float32)
-            scalars = _all_reduce(scalars, dist.ReduceOp.SUM, grp.data)
-        pieces = list(torch.split(grad_buf, [g.numel() for g in flat]))
-        param_grads = GaussianParams(*(p.reshape(g.shape) for p, g in zip(pieces, param_grads)))
-        if use_exposure:
-            expo_grad = pieces[-1].reshape(ts.exposure.shape)
-        stats = _all_reduce(stats, dist.ReduceOp.MAX, grp.data)
-
-        visible_any = stats[:, 0] > 0
-        lrs = lr_tree(ts.step, cfg.lr, g_local.spatial_lr_scale)
-        new_params, new_opt = masked_adam_update(g_local.params, param_grads, ts.opt, lrs, visible_any)
-        g_state = g_local._replace(
-            params=new_params,
-            grad_max=torch.maximum(g_local.grad_max, stats[:, 1]),
-            grad_abs_max=torch.maximum(g_local.grad_abs_max, stats[:, 2]),
-            max_radii2d=torch.maximum(g_local.max_radii2d, stats[:, 3]),
-        )
-
-        if use_exposure:
-            b1, b2, eps = 0.9, 0.999, 1e-8
-            t = torch.clamp(ts.step + 1, min=1).to(torch.float32)
-            m = b1 * ts.exposure_m + (1 - b1) * expo_grad
-            v = b2 * ts.exposure_v + (1 - b2) * expo_grad**2
-            lr_e = expon_lr(ts.step, cfg.lr.exposure_lr_init, cfg.lr.exposure_lr_final, cfg.iterations)
-            new_expo = ts.exposure - lr_e * (m / (1 - b1**t)) / (torch.sqrt(v / (1 - b2**t)) + eps)
-        else:
-            m, v, new_expo = ts.exposure_m, ts.exposure_v, ts.exposure
-
-        new_ts = ts._replace(gaussians=g_state, opt=new_opt, exposure=new_expo.detach(), exposure_m=m.detach(),
-                             exposure_v=v.detach(), step=ts.step + 1, mv_generator=mv_generator)
-        metrics = {k: scalars[i + 1] / V for i, k in enumerate(names)}
-        metrics["loss"] = scalars[0]
-        return new_ts, metrics
+            uv, mv_generator = draw_dp_pixels(plan, ts, batch)
+        new_ts, metrics = dp_compute(plan, ts, batch, uv)
+        return new_ts._replace(mv_generator=mv_generator), metrics
 
     def place(ts: TrainState, batch: ViewBatch) -> Tuple[TrainState, ViewBatch]:
         """Rank 0's state on every rank (params replicated), this rank's
@@ -424,7 +488,7 @@ def make_dp_train_step(
                 exposure=bcast(ts.exposure), exposure_m=bcast(ts.exposure_m), exposure_v=bcast(ts.exposure_v),
                 step=bcast(ts.step), generator=_broadcast_generator(ts.generator, dev),
                 mv_generator=_broadcast_generator(ts.mv_generator, dev))
-        if sharded:
+        if plan.sharded:
             ts = shard_rows(ts, mesh)
         V_local = V // grp.n_data
         return ts, select_views(batch, grp.data_index * V_local, (grp.data_index + 1) * V_local)

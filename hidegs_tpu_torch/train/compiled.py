@@ -41,6 +41,9 @@ Launch counts: every replay adds the graph's recorded launches to
 `REPLAY_LAUNCHES`, the capture machinery's one process-wide count
 (utils/graphs.py); the warm-up's launches are real and stay in
 `cuda_blend`'s counters.
+
+`CompiledDensify` compiles the host cadence's densify round and scrub the
+same way (its docstring says how).
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from hidegs_tpu_torch.model.densify import densify_round, scrub_nonfinite, split_draws
 from hidegs_tpu_torch.train.loop import (
     TrainConfig,
     TrainState,
@@ -182,3 +186,115 @@ def compile_train_step(cfg: TrainConfig, use_exposure: bool = False, row_budget:
 
     step.compiled = compiled
     return step
+
+
+def densify_in_place(ts: TrainState, scene_extent: torch.Tensor, cfg: TrainConfig,
+                     draws: tuple) -> Dict[str, torch.Tensor]:
+    """What the densify graph captures: `densify_step` on the given split
+    draws, its new rows and moments written into the buffers of `ts`.
+    Returns the info dict's 0-d tensors."""
+    g, opt, info = densify_round(ts.gaussians, ts.opt, scene_extent, cfg.densify, draws)
+    copy_into((ts.gaussians, ts.opt), (g, opt))
+    return info
+
+
+def scrub_in_place(ts: TrainState) -> torch.Tensor:
+    """What the scrub graph captures: `scrub_nonfinite`, its alive mask
+    written into the state's. Returns the count of rows killed."""
+    g, n_killed = scrub_nonfinite(ts.gaussians)
+    ts.gaussians.alive.copy_(g.alive)
+    return n_killed
+
+
+@dataclasses.dataclass
+class _RoundGraph:
+    graph: Any  # utils.graphs.Graph: the graph, its static outputs and launches
+    inputs: Any  # static (scene extent, draws) of the densify graph; () for the scrub
+
+
+class CompiledDensify:
+    """The densify round and the scrub compiled: the counterparts of the
+    JAX package's `jax.jit(densify_step, static_argnames=("cfg",),
+    donate_argnums=(0,))` (hidegs_tpu/train/loop.py:447) and jitted
+    `scrub_nonfinite` (model/densify.py:254). `densify_step(ts,
+    scene_extent, cfg)` and `scrub_step(ts)` are called as
+    `loop.densify_step` and `loop.scrub_step` are, on a state on a CUDA
+    device, and `maybe_host_side_schedule(compiled=)` calls them:
+
+      * one graph per key: `cfg.densify` and the state's spec for the
+        round (JAX's static `cfg`), the state's spec for the scrub. Both
+        write into one set of static state buffers per state layout, and
+        the returned state is those buffers (donation, C28); the next
+        train-step replay copies them into its own buffers, one copy of
+        the state per round;
+      * the split draws are drawn before the replay from `ts.generator`
+        (`split_draws`, which advances it as the eager round does) and
+        copied into the graph's static draws; `scene_extent` (traced in
+        JAX) is a 0-d float64 input filled before each replay, so the
+        threshold is the eager round's to the bit;
+      * the info dict's 0-d tensors and the scrub's count are the graphs'
+        static outputs, valid until the next replay of either graph.
+
+    There is no fallback: a state off the card raises ValueError, a failed
+    capture RuntimeError. `captures` and `replays` are the record of
+    utils.graphs.GraphSet."""
+
+    def __init__(self):
+        self._set = GraphSet("the densify round")
+        self._graphs: Dict[tuple, _RoundGraph] = {}
+        self._states: Dict[Any, TrainState] = {}  # static state buffers, by the state's spec
+
+    @property
+    def captures(self):
+        return self._set.captures
+
+    @property
+    def replays(self) -> int:
+        return self._set.replays
+
+    def _state(self, ts: TrainState) -> TrainState:
+        spec = _spec(ts)
+        state = self._states.get(spec)
+        if state is None:
+            state = self._states[spec] = _map(torch.clone, ts)
+        return state
+
+    def _replay(self, ts: TrainState, state: TrainState, g: _RoundGraph) -> TrainState:
+        copy_into(state, ts)
+        self._set.replay(g.graph)
+        return state._replace(generator=ts.generator, mv_generator=ts.mv_generator, rows_split=ts.rows_split)
+
+    def densify_step(self, ts: TrainState, scene_extent, cfg: TrainConfig):
+        dev = ts.gaussians.alive.device
+        require_cuda(dev, "the compiled densify round", "densify_step")
+        draws = split_draws(ts.generator, ts.gaussians.capacity, dev)
+        state = self._state(ts)
+        key = ("densify", cfg.densify, _spec(ts))
+        g = self._graphs.get(key)
+        if g is None:
+            extent = torch.zeros((), dtype=torch.float64, device=dev)
+            inputs = (extent, _map(torch.clone, draws))
+            extent.fill_(scene_extent)
+
+            def run(s):
+                return densify_in_place(s, extent, cfg, inputs[1])
+
+            graph = self._set.capture(dev, lambda: run(_map(torch.clone, ts)), lambda: run(state),
+                                      dict(kind="densify", capacity=ts.gaussians.capacity))
+            g = self._graphs[key] = _RoundGraph(graph=graph, inputs=inputs)
+        g.inputs[0].fill_(scene_extent)
+        copy_into(g.inputs[1], draws)
+        return self._replay(ts, state, g), g.graph.outputs
+
+    def scrub_step(self, ts: TrainState):
+        dev = ts.gaussians.alive.device
+        require_cuda(dev, "the compiled scrub", "scrub_step")
+        state = self._state(ts)
+        key = ("scrub", _spec(ts))
+        g = self._graphs.get(key)
+        if g is None:
+            graph = self._set.capture(dev, lambda: scrub_in_place(_map(torch.clone, ts)),
+                                      lambda: scrub_in_place(state),
+                                      dict(kind="scrub", capacity=ts.gaussians.capacity))
+            g = self._graphs[key] = _RoundGraph(graph=graph, inputs=())
+        return self._replay(ts, state, g), g.graph.outputs

@@ -474,21 +474,29 @@ def densify_step(ts: TrainState, scene_extent, cfg: TrainConfig):
     return ts._replace(gaussians=g, opt=opt), info
 
 
-def maybe_host_side_schedule(ts: TrainState, cfg: TrainConfig, scene_extent: float, step: int = None):
+def scrub_step(ts: TrainState):
+    """`scrub_nonfinite` on the state's rows: (state, the rows killed)."""
+    g, n_killed = scrub_nonfinite(ts.gaussians)
+    return ts._replace(gaussians=g), n_killed
+
+
+def maybe_host_side_schedule(ts: TrainState, cfg: TrainConfig, scene_extent: float, step: int = None,
+                             compiled=None):
     """Densify / opacity reset / SH warm-up, called once per iteration with
     the post-increment step as a Python int. Pass `step` when the host loop
-    knows it: reading `int(ts.step)` waits for the device every iteration."""
+    knows it: reading `int(ts.step)` waits for the device every iteration.
+    `compiled`: a train.compiled.CompiledDensify, whose replays take the
+    place of `densify_step` and `scrub_step` (on a card)."""
     step = int(ts.step) if step is None else step
     info = None
     if step % cfg.sh_increase_interval == 0:
         ts = ts._replace(gaussians=oneup_sh_degree(ts.gaussians))
     if step > cfg.densify_until and step % cfg.densify_interval == 0:
         # rows can still diverge after the densify window: keep scrubbing
-        g, _ = scrub_nonfinite(ts.gaussians)
-        ts = ts._replace(gaussians=g)
+        ts, _ = (scrub_step if compiled is None else compiled.scrub_step)(ts)
     if cfg.densify_from <= step <= cfg.densify_until:
         if step % cfg.densify_interval == 0:
-            ts, info = densify_step(ts, scene_extent, cfg)
+            ts, info = (densify_step if compiled is None else compiled.densify_step)(ts, scene_extent, cfg)
         if step % cfg.opacity_reset_interval == 0 and (
             cfg.opacity_reset_until <= 0 or step <= cfg.opacity_reset_until
         ):

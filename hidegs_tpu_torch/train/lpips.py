@@ -19,6 +19,10 @@ The random weights are drawn from a seeded numpy generator: they are not
 the JAX package's `jax.random.PRNGKey(0)` draws, so random-vgg values differ
 between the two packages (ROADMAP C6); carried across with
 `convert.lpips_params_from_jax`, the same weights give the same distance.
+
+On a card `load_lpips` and `default_lpips_fn` return a `CompiledLpips`:
+the distance captured as a CUDA graph per image shape (the counterpart of
+the JAX package's `jax.jit(lambda a, b: lpips_distance(params, a, b))`).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from hidegs_tpu_torch.device import DeviceLike, resolve_device
+from hidegs_tpu_torch.utils.graphs import GraphSet, _spec, copy_into, on_card, require_cuda, same_tensors
 
 # VGG16 conv layout: (out_channels, num_convs) per block
 VGG16_BLOCKS = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
@@ -88,7 +93,72 @@ def params_to_device(arrays: Dict[str, np.ndarray], device: DeviceLike = "cuda")
     return {k: torch.as_tensor(np.asarray(v, np.float32), device=dev) for k, v in arrays.items()}
 
 
+def _held(params: Params) -> tuple:
+    return tuple(sorted(params)), [params[k] for k in sorted(params)]
+
+
+class CompiledLpips:
+    """`lpips(img1, img2)` of the parameter dict `params` captured once per
+    image shape as a CUDA graph and replayed, on a card:
+
+      * the key is the `_spec` of the two images (JAX retraces on their
+        shapes and dtypes); the images are copied into the graph's static
+        inputs before each replay;
+      * the parameters are held by reference, as the JAX package's jitted
+        closure holds its constants: the graphs read the tensors the dict
+        held when it was given, and a call after the dict changed (another
+        dict, or another tensor under a key) raises ValueError;
+      * the distance is the graph's static 0-d output, valid until the
+        next call (evaluate.py reads it at once with `float()`);
+      * TF32 stays off (hidegs_tpu_torch/__init__.py); cuDNN picks its
+        algorithms in the warm-up.
+
+    There is no fallback: images off the card raise ValueError, a failed
+    capture RuntimeError. `captures` and `replays` are the record of
+    utils.graphs.GraphSet."""
+
+    def __init__(self, params: Params):
+        self.params = params
+        self._held = _held(params)
+        self._set = GraphSet("LPIPS")
+        self._graphs = {}
+
+    @property
+    def captures(self):
+        return self._set.captures
+
+    @property
+    def replays(self) -> int:
+        return self._set.replays
+
+    def __call__(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+        names, tensors = _held(self.params)
+        if names != self._held[0] or not same_tensors(self._held[1], tensors):
+            raise ValueError("compiled LPIPS holds its parameters by reference and they changed: "
+                             "make a new CompiledLpips for other parameters")
+        require_cuda(img1.device, "compiled LPIPS", "lpips_distance")
+        images = (img1, img2)
+        key = _spec(images)
+        g = self._graphs.get(key)
+        if g is None:
+            static = tuple(x.clone() for x in images)
+
+            def run():
+                with torch.no_grad():
+                    return lpips_distance(self.params, *static)
+
+            g = self._graphs[key] = (self._set.capture(img1.device, run, run, dict(image=tuple(img1.shape))),
+                                     static)
+        copy_into(g[1], images)
+        self._set.replay(g[0])
+        return g[0].outputs
+
+
 def _fn(params: Params) -> Callable:
+    """The distance of `params`: a `CompiledLpips` on a card, else eager."""
+    if on_card(next(iter(params.values())).device):
+        return CompiledLpips(params)
+
     def lpips(a, b):
         with torch.no_grad():
             return lpips_distance(params, a, b)

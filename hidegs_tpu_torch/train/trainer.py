@@ -11,9 +11,11 @@ checkpoints and metric logging.
 Everything runs on `--device` (default cuda, which raises without a card).
 On a card each iteration is one replay of the train step captured as a CUDA
 graph (train/compiled.py, the JAX trainer's jitted, donated step); on the
-CPU it is the eager `train_step`. Densify, the opacity reset, the SH
-warm-up and scrubbing stay eager on the host's cadence and hand the next
-step a new state, which it copies into its buffers once.
+CPU it is the eager `train_step`. On the host's cadence the densify
+round and the scrub replay their own graphs on a card
+(train/compiled.py:CompiledDensify), the opacity reset and the SH warm-up
+run eagerly; each hands the next step a new state, which it copies into
+its buffers once.
 The flags are the JAX trainer's; `raster_backend` "jnp" and "pallas" train
 with the port's "blend" backend (config.port_backend). The model directory
 is the JAX trainer's layout, so `hidegs_tpu_torch.evaluate` and
@@ -59,7 +61,7 @@ from hidegs_tpu_torch.model.knn import initial_scales
 from hidegs_tpu_torch.model.schedules import LRConfig
 from hidegs_tpu_torch.raster.api import RasterConfig, render, round_budget, suggest_max_instances
 from hidegs_tpu_torch.train.checkpoint import save_train_state
-from hidegs_tpu_torch.train.compiled import CompiledTrainStep
+from hidegs_tpu_torch.train.compiled import CompiledDensify, CompiledTrainStep
 from hidegs_tpu_torch.train.geometric import MultiViewBatch
 from hidegs_tpu_torch.train.loop import (
     TrainConfig,
@@ -460,6 +462,9 @@ def train(
     # captures anew. Its metrics live until the next step: the counters are
     # stacked into a tensor of their own below.
     step_fn = CompiledTrainStep() if on_card(dev) else train_step
+    # and the densify rounds and scrubs replay theirs; their info tensors
+    # live until the next round and are fetched at once below
+    rounds = CompiledDensify() if on_card(dev) else None
     rng = random.Random(seed)
     order = []
     t0 = time.time()
@@ -558,7 +563,7 @@ def train(
             print(f"saved checkpoint → {d}", flush=True)
         pending_overflow.append(torch.stack([metrics[k].to(torch.int64) for k in _COUNTERS]))
         # the step is passed explicitly: int(ts.step) would wait for the device
-        ts, dens_info = maybe_host_side_schedule(ts, cfg, scene_extent=scene.extent, step=it)
+        ts, dens_info = maybe_host_side_schedule(ts, cfg, scene_extent=scene.extent, step=it, compiled=rounds)
         if dens_info is not None or (
             cfg.densify_from <= it <= cfg.densify_until
             and it % cfg.opacity_reset_interval == 0

@@ -1304,3 +1304,236 @@ def test_sharded_rows_on_the_card_equal_the_replicated_run(cuda, tmp_path):
         torch.testing.assert_close(torch.as_tensor(pre[f]), want, rtol=0, atol=1e-6 * float(want.abs().max()) + 1e-30)
     for n in ("repl", "shard", "pre"):
         assert (res[0][n]["digest"] == res[1][n]["digest"]).all(), n
+
+
+# ---------------------------------------------------------------------------
+# the compiled view-parallel step, LPIPS and densify round (parallel/compiled.py,
+# train/lpips.py, train/compiled.py)
+
+
+def _dp_variant(dev, variant):
+    """(state, the V = 4 stacked batch, config, the step's keyword
+    arguments) of a variant of the compiled view-parallel tests."""
+    import dataclasses
+
+    from hidegs_tpu_torch.parallel import sharded
+
+    ts, views, cfg = _dp_problem(dev)
+    kwargs = {"bf16": dict(grad_reduce_dtype=torch.bfloat16), "exposure": dict(use_exposure=True)}.get(variant, {})
+    if variant == "multi-view":
+        cfg = dataclasses.replace(cfg, multi_view_from=0, multi_view_sample_num=2048)
+        views = [_multi_view_batch(views, i, (i + 1) % len(views)) for i in range(len(views))]
+    return ts, sharded.stack_view_batches(views), cfg, kwargs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["f32", "bf16", "exposure", "multi-view", "nccl"])
+def test_compiled_dp_step_is_bitwise_the_eager_step(cuda, variant, tmp_path):
+    """Three replays of the V = 4 step against three eager steps from one
+    state (no group; "nccl": a one-rank NCCL group, whose collectives the
+    graph records): every tensor of the state and every metric bitwise
+    equal (the multi-view samples drawn before each replay from the
+    state's generator, which advances alike); the returned state is the
+    step's own buffers; one capture, whose warm-up launched V of each
+    kernel through the launchers (2V with multi-view terms, whose loss
+    renders the source view); each replay adds as many to
+    REPLAY_LAUNCHES and none to the launchers' counters."""
+    from hidegs_tpu_torch.parallel import compiled as pc
+    from hidegs_tpu_torch.parallel import distributed as pdist
+    from hidegs_tpu_torch.parallel import dryrun, sharded
+    from hidegs_tpu_torch.parallel.mesh import make_mesh
+    from hidegs_tpu_torch.utils import graphs
+
+    ts0, batch, cfg, kwargs = _dp_variant(cuda, variant)
+    V = sharded.num_views(batch) * (2 if batch.multi_view is not None else 1)  # a multi-view loss renders twice
+    mesh = None
+    if variant == "nccl":
+        pdist.initialize_distributed(backend="nccl", device=cuda, init_method=dryrun.file_init_method(str(tmp_path)),
+                                     world_size=1, rank=0)
+        mesh = make_mesh(1, device_type="cuda")
+    try:
+        eager_step, place = sharded.make_dp_train_step(cfg, mesh, **kwargs)
+        step, _ = pc.compile_dp_train_step(cfg, mesh, **kwargs)
+        eager, _ = place(ts0, batch)
+        comp, ptrs = eager, None
+        for k in range(3):
+            eager, em = eager_step(eager, batch)
+            torch.cuda.synchronize()
+            counts, replays = _counts(), _replays()
+            comp, cm = step(comp, batch)
+            torch.cuda.synchronize()
+            assert [a - b for a, b in zip(_counts(), counts)] == ([V] * 3 if k == 0 else [0] * 3)
+            assert [a - b for a, b in zip(_replays(), replays)] == [V] * 3
+            for n, (a, b) in enumerate(zip(graphs._tensors(comp), graphs._tensors(eager), strict=True)):
+                assert torch.equal(a, b), f"{variant} step {k}: tensor {n} of the state"
+            assert em.keys() == cm.keys() and all(torch.equal(em[m], cm[m]) for m in em), variant
+            assert torch.equal(comp.mv_generator.get_state(), eager.mv_generator.get_state())
+            now = [x.data_ptr() for x in graphs._tensors(comp)]
+            assert ptrs is None or now == ptrs, "the replay returned other buffers"
+            ptrs = now
+        assert len(step.captures) == 1 and step.replays == 3
+        assert step.captures[0]["launches"] == dict.fromkeys(graphs.KERNELS, V)
+        del step  # its graph holds the group's collectives
+    finally:
+        torch.cuda.synchronize()
+        pdist.shutdown_distributed()
+
+
+@pytest.mark.cuda
+def test_compiled_dp_replay_makes_no_host_sync(cuda):
+    """After the capture, steady replays of the multi-view V = 4 step (the
+    samples drawn before each replay) under set_sync_debug_mode("error")."""
+    from hidegs_tpu_torch.parallel import compiled as pc
+
+    ts, batch, cfg, _ = _dp_variant(cuda, "multi-view")
+    step, _ = pc.compile_dp_train_step(cfg)
+    ts, _ = step(ts, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            ts, metrics = step(ts, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(metrics["loss"])) and int(ts.step) == 4 and len(step.captures) == 1
+
+
+@pytest.mark.cuda
+def test_compiled_dp_step_refuses_a_gloo_group_on_the_card(cuda, tmp_path):
+    """gloo's collectives on CUDA tensors go through the host and cannot be
+    captured: the compiled step refuses a gloo mesh when it is made, and
+    the dry run's choice on it is the eager step."""
+    from hidegs_tpu_torch.parallel import compiled as pc
+    from hidegs_tpu_torch.parallel import distributed as pdist
+    from hidegs_tpu_torch.parallel import dryrun
+    from hidegs_tpu_torch.parallel.mesh import make_mesh
+
+    _, _, cfg, _ = _dp_variant(cuda, "f32")
+    pdist.initialize_distributed(backend="gloo", device=cuda, init_method=dryrun.file_init_method(str(tmp_path)),
+                                 world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, device_type="cuda")
+        with pytest.raises(ValueError, match="make_dp_train_step"):
+            pc.compile_dp_train_step(cfg, mesh)
+        step, _ = dryrun.dp_step(cuda, cfg, mesh)
+        assert not isinstance(step, pc.CompiledDPStep)
+    finally:
+        pdist.shutdown_distributed()
+
+
+@pytest.mark.cuda
+def test_compiled_lpips_is_bitwise_eager(cuda):
+    """Compiled LPIPS on two pairs of one size and one of another: bitwise
+    the eager distance, one capture per size; a steady call makes no host
+    sync."""
+    from hidegs_tpu_torch.train import lpips
+
+    params = lpips.random_lpips_params(0, cuda)
+    fn, kind = lpips.default_lpips_fn("", device=cuda)
+    assert isinstance(fn, lpips.CompiledLpips) and kind == "random-vgg"
+    comp = lpips.CompiledLpips(params)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    pairs = [tuple(torch.rand((3,) + hw, generator=g, device=cuda) for _ in range(2))
+             for hw in ((96, 128), (96, 128), (64, 80))]
+    for a, b in pairs:
+        with torch.no_grad():
+            want = lpips.lpips_distance(params, a, b)
+        assert torch.equal(comp(a, b), want)
+    assert len(comp.captures) == 2 and comp.replays == 3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = comp(*pairs[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert float(got) > 0
+
+
+def _densified_problem(dev):
+    """A train problem after a few steps, with thresholds that clone and
+    split: (state, config)."""
+    import dataclasses
+
+    from hidegs_tpu_torch.train import loop as tl
+
+    ts, batches, cfg = _train_problem(dev)
+    for k in range(4):
+        ts, _ = tl.train_step(ts, batches[k % 4], cfg)
+    g = ts.gaussians
+    score = g.grad_max * g.max_radii2d * torch.clamp(g.opacities, min=1e-8) ** 0.2
+    max_scale = torch.amax(torch.exp(g.params.scaling), dim=-1)
+    dcfg = cfg.densify._replace(grad_threshold=float(torch.quantile(score[g.alive], 0.8)), clone_min_opacity=0.0,
+                                percent_dense=float(torch.median(max_scale[g.alive])) / 3.0)
+    return ts, dataclasses.replace(cfg, densify=dcfg)
+
+
+@pytest.mark.cuda
+def test_compiled_densify_round_and_scrub_are_bitwise_eager(cuda):
+    """Two densify rounds and a scrub replayed against the eager ones from
+    one state (the draws drawn before each replay from the state's
+    generator, which advances alike): every tensor and info value bitwise
+    equal; one capture each; a steady round and scrub make no host sync."""
+    from hidegs_tpu_torch.train import compiled
+    from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.utils import graphs
+
+    ts, cfg = _densified_problem(cuda)
+    rounds = compiled.CompiledDensify()
+    eager = ts._replace(generator=torch.Generator().manual_seed(5))
+    comp = ts._replace(generator=torch.Generator().manual_seed(5))
+
+    def same(a, b):
+        return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+    for k in range(3):
+        eager, einfo = tl.densify_step(eager, 3.0, cfg) if k < 2 else tl.scrub_step(eager)
+        if k == 2:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            comp, cinfo = rounds.densify_step(comp, 3.0, cfg) if k < 2 else rounds.scrub_step(comp)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for n, (a, b) in enumerate(zip(graphs._tensors(comp), graphs._tensors(eager), strict=True)):
+            assert same(a, b), f"round {k}: tensor {n}"
+        if k < 2:
+            assert all(same(cinfo[m], einfo[m]) for m in einfo), k
+        else:
+            assert torch.equal(cinfo, einfo)
+        assert torch.equal(comp.generator.get_state(), eager.generator.get_state())
+    assert [c["kind"] for c in rounds.captures] == ["densify", "scrub"] and rounds.replays == 3
+    assert int(comp.gaussians.alive.sum()) > int(ts.gaussians.alive.sum())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rounds.densify_step(comp, 3.0, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_trainer_runs_its_densify_round_on_the_compiled_pair(cuda, tmp_path, monkeypatch, capsys):
+    """`trainer.train` on the card replays the compiled densify round: one
+    capture and one replay for a run with one round, which reports its
+    counts."""
+    from hidegs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+    from hidegs_tpu_torch.train import compiled, trainer
+    from torch_scenes import write_two_cluster_scene
+
+    src = write_two_cluster_scene(tmp_path / "scene")
+    made = []
+
+    class Recorded(compiled.CompiledDensify):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    monkeypatch.setattr(trainer, "CompiledDensify", Recorded)
+    opt = OptimizationConfig(iterations=12, densify_from_iter=1, densify_until_iter=10, densification_interval=10,
+                             freq_warmup_iterations=0, single_view_weight_from_iter=0,
+                             multi_view_weight_from_iter=1000)
+    ts = trainer.train(ModelConfig(source_path=src), PipelineConfig(capacity=2048, max_instances=1 << 12),
+                       opt, save_iterations=(), log_every=1000, device="cuda")
+    assert "densify@10" in capsys.readouterr().out
+    assert len(made) == 1 and [c["kind"] for c in made[0].captures] == ["densify"] and made[0].replays == 1
+    assert ts.gaussians.alive.device.type == "cuda"

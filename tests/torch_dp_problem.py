@@ -68,10 +68,11 @@ def tstate(problem):
     return tl.init_train_state(convert.gaussian_state_from_jax(**problem["state"], device="cpu"), V)
 
 
-def jax_dp_runs(problem, data, model, wire, shard_gaussians=False, steps=K):
+def jax_dp_runs(problem, data, model, wire, shard_gaussians=False, steps=K, use_exposure=False):
     """`steps` steps of JAX's DP step on a (data, model) mesh: numpy copies
     of each step's state and metrics (the step donates its input)."""
-    step, place = jmake_dp(JCFG, jmake_mesh(data * model, data=data, model=model), grad_reduce_dtype=wire)
+    step, place = jmake_dp(JCFG, jmake_mesh(data * model, data=data, model=model), grad_reduce_dtype=wire,
+                           use_exposure=use_exposure)
     ts = jl.init_train_state(jax.tree.map(jnp.copy, problem["jstate"]), num_images=V)
     ts, batch = place(ts, problem["jbatch"], shard_gaussians=shard_gaussians)
     out = []
