@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's paths at full width — rendering
-(`hidegs_tpu_torch.raster.api.render`, the hand-written CUDA forward blend),
+(`hidegs_tpu_torch.raster.api.render`, the hand-written CUDA forward blend;
+eager, and replayed as a CUDA graph by `raster.compiled.CompiledRender`,
+as the serving entry points and the viewers replay it),
 the LOD hierarchy (`hier.interp.AdaptiveHierRenderer`: cut select,
 interpolation, then the forward blend, once per frame, eager and replayed
 as a CUDA graph by `hier.interp.CompiledLodFrame`), its post-optimizer
@@ -60,6 +62,21 @@ Phases (run in the order of `main`):
      registers and spills from the loaded library's build log;
   6. render breakdown: preprocess, binning and blend timed alone, and one
      render under torch.profiler for the device busy share and top kernels;
+ 6r. the compiled render (raster/compiled.py:CompiledRender, what evaluate,
+     render_cli and the viewers replay on a card) in the render cell's
+     configuration (render_geo) and the serve one (tile 16, render_cli's
+     budget, no block cap, the two-key sort) on the four views; launch
+     counts are read around those eight calls: one replayed forward launch
+     per view, the warm-up's per capture (two). Checks: every key of every
+     view bitwise the eager render, no overflow, replays under
+     set_sync_debug_mode("error"). Prints per configuration, on view 0,
+     eager and compiled ms in turns (CUDA events, median of 10 after 2),
+     the host ms per compiled call split into the lookup (of it the key),
+     the copy-in and the replay, one call of each mode under the profiler,
+     the warm-up and capture seconds and the pool's growth. Then the KNN
+     scale init (model/knn.py:initial_scales) on the 1,010,240 means: no
+     host sync, within 1e-5 (relative) of the CPU on 100,000 of them, ms
+     (CUDA events) and the device busy share;
  6a. hierarchy: the scene through the port's native builder (compiled with
      g++ from hidegs_tpu_torch/hier/native/hier_builder.cpp into
      build/hier/) on the host: seconds, points, nodes; written as .hier and
@@ -112,14 +129,18 @@ Phases (run in the order of `main`):
      point_cloud.ply with a cfg_args.json (raster_backend "pallas", tile
      16, render_cli's tile, and render_cli's budget), then `evaluate.main`
      (--eval: view 0 is the test set) and `render_cli.main` serve it;
-     launch counts are read around those two calls alone. Checks: PSNR >=
+     launch counts are read around those two calls alone. Both render
+     through a CompiledRender (one each, a capture each). Checks: PSNR >=
      50 dB and SSIM >= 0.99 per view, finite LPIPS, both sets and
      lpips_kind in results.json, render_cli's PNGs equal to evaluate's,
-     render_cli's view 0 (tile 16) held against the plain blend as in
-     phase 4, one forward launch per served view, no budget overflow,
-     every tensor of the path on the card. Prints the seconds of each step
-     and the ms per evaluated view split into render, LPIPS, image I/O and
-     the rest, and whether Pillow imports; then `render_cli --hierarchy
+     every served image (a replay) bitwise the eager render of its inputs,
+     the eager render of render_cli's view 0 (tile 16) held against the
+     plain blend as in phase 4, one replayed forward launch per served
+     view and the warm-up's per capture, no budget overflow, every tensor
+     of the path on the card. Prints the seconds of each step, the ms per
+     evaluated view split into render (the first view's, with the capture,
+     and the replays'), LPIPS, image I/O and the rest, each capture's cost,
+     and whether Pillow imports; then `render_cli --hierarchy
      <the scene's .hier> --tau 6` on the same scene: ms per view, exactly
      one compiled cut-and-render call and one replayed forward launch per
      PNG, and the warm-up's launch per capture, counted on the compiled
@@ -130,8 +151,11 @@ Phases (run in the order of `main`):
  7a. viewers: `python -m hidegs_tpu_torch.viewer`'s render function behind
      both frontends, one 1920x1088 frame each over localhost (HttpViewer on
      port 0 fetched with urllib, NetworkGUI with a socket client speaking
-     the SIBR protocol); each frame's pixels equal render()'s image of the
-     same camera, clipped and quantised; one forward launch per frame;
+     the SIBR protocol), a second HTTP frame at another yaw; the render
+     function replays a CompiledRender, captured in the HTTP handler
+     thread; each frame's pixels equal render()'s image of the same
+     camera, clipped and quantised; one replayed forward launch per frame
+     and the warm-up's per capture;
   8. training at full width: the four rendered views are the targets; the
      trainable state is the scene through the inverse activations, seeded
      noise on sh_dc, opacity logits and xyz, capacity 1.25x. 30 train steps
@@ -274,9 +298,11 @@ In the kernels line, `ms`, `plain_ms`, `bound_ms` and `library_ms` come from
 the render cell (phase 5: blend_fwd) and the train path (phase 11:
 blend_bwd, fold_rows); `launches` is the train path's count (phase 8), as
 in earlier slices; `launches_by_path` holds the count of every path (render,
-serve, train, train_compiled (phase 11a: replays and warm-ups), trainer,
+render_compiled (phase 6r: replays and warm-ups), serve (replays and
+warm-ups), train, train_compiled (phase 11a: replays and warm-ups), trainer,
 hierarchy (the eager renderer), hierarchy_compiled (the compiled renderer
-and render_cli --hierarchy: replays and warm-ups), viewer, post_opt (the
+and render_cli --hierarchy: replays and warm-ups), viewer (replays and
+warm-ups), post_opt (the
 eager steps held beside post_optimize), post_opt_compiled (post_optimize's
 replays and warm-up), pipeline, view_parallel (the eager no-group
 float32 run), view_parallel_compiled (phase 15's compiled steps: replays
@@ -300,6 +326,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -808,6 +835,144 @@ def phase_breakdown(scene, cam, cfg, pre, tb):
     profile_device(lambda: render(*scene, cam, render_geo=True, active_sh_degree=3, config=cfg), "breakdown")
 
 
+def host_split_ms(comp, args, kwargs, iters=ITERS):
+    """Host ms of one compiled render call (the card synchronised before
+    each, not after), and of its parts alone: the key, the lookup (the key,
+    the checks, the graph's dict), the copy-in and the replay; medians of
+    `iters`."""
+    from hidegs_tpu_torch.raster.compiled import render_key
+    from hidegs_tpu_torch.utils.graphs import copy_into
+
+    g = comp.graph_for(*args, **kwargs)
+    cam, bg = args[5], kwargs.get("background")
+    parts = {"call": lambda: comp(*args, **kwargs), "key": lambda: render_key(*args, **kwargs),
+             "lookup": lambda: comp.graph_for(*args, **kwargs),
+             "copy-in": lambda: copy_into(g.inputs, (cam, bg)),
+             "replay": lambda: comp._set.replay(g.graph)}
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = statistics.median(times)
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_render_compiled(scene, cams, cfg):
+    """The serving render compiled (raster/compiled.py:CompiledRender, one
+    CUDA graph per static key) beside the eager render, in the render
+    cell's configuration and the serve one (evaluate's and render_cli's:
+    tile 16, render_cli's budget, no block cap, the two-key sort). Counts
+    are read around the compiled calls on the four views of both; then
+    each is held bitwise against the eager render, replayed under
+    set_sync_debug_mode("error"), timed beside the eager render and run
+    under the profiler; then the KNN scale init at full width."""
+    from hidegs_tpu_torch.model.knn import initial_scales
+    from hidegs_tpu_torch.raster.api import RasterConfig, render
+    from hidegs_tpu_torch.raster.binning import TILE
+    from hidegs_tpu_torch.raster.compiled import CompiledRender
+
+    serve_cfg = RasterConfig(tile=TILE, max_instances=serve_budget(scene, cams, TILE))
+    modes = {"render cell": dict(render_geo=True, active_sh_degree=3, config=cfg), "serve": dict(config=serve_cfg)}
+    comp = CompiledRender()
+    reset_counts()
+    got = {name: [{k: v.clone() for k, v in comp(*scene, cam, **kw).items()} for cam in cams]
+           for name, kw in modes.items()}
+    launches = read_counts()
+    n = len(modes) * len(cams)
+    check(len(comp.captures) == len(modes) and replay_counts() == (n, 0, 0)
+          and direct_counts() == (len(modes), 0, 0),
+          f"compiled render launches {launches} for {n} views and {len(comp.captures)} captures: expected one "
+          f"replayed forward launch per view and the warm-up's per capture")
+    print(f"[render-compiled] launches {launches}: {n} replayed views ({len(cams)} per configuration) and "
+          f"{len(comp.captures)} warm-ups; serve configuration: tile {TILE}, max_instances {serve_cfg.max_instances}, "
+          f"max_blocks 0, depth_sort_bits 0")
+    results = {}
+    for name, kw in modes.items():
+        with torch.no_grad():
+            for i, cam in enumerate(cams):
+                want = render(*scene, cam, **kw)
+                check(set(want) == set(got[name][i]), f"compiled render ({name}) view {i}: other keys")
+                for key, val in want.items():
+                    check(torch.equal(got[name][i][key], val),
+                          f"compiled render ({name}) view {i}: {key} is not the eager render's")
+                over = {key: int(want[key]) for key in ("overflow", "block_overflow", "visible_overflow")}
+                check(not any(over.values()), f"compiled render ({name}) view {i}: {over}")
+        del want
+        got[name] = None
+        sync(scene.means3d.device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for cam in cams:
+                comp(*scene, cam, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        cam = cams[0]
+
+        def eager():
+            with torch.no_grad():
+                return render(*scene, cam, **kw)
+
+        def compiled():
+            return comp(*scene, cam, **kw)
+
+        eager_ms = time_ms(eager)
+        compiled_ms = time_ms(compiled)
+        compiled_ms2 = time_ms(compiled)
+        eager_ms2 = time_ms(eager)
+        host = host_split_ms(comp, (*scene, cam), kw)
+        profs = {mode: profile_device(fn, f"render-{mode} {name}") for mode, fn in (("eager", eager),
+                                                                                      ("compiled", compiled))}
+        busy = {mode: "not measured" if p is None else
+                f"{p['busy_ms']:.3f} ms busy of {p['wall_ms']:.3f} ({p['busy_ms'] / p['wall_ms']:.1%}, {p['ops']} ops)"
+                for mode, p in profs.items()}
+        info = next(c for c in comp.captures if c["tile"] == kw["config"].tile)
+        # a first view costs the warm-up and the capture on top of its
+        # replay; each later one saves eager - compiled
+        capture_ms = 1e3 * (info["warmup_s"] + info["capture_s"])
+        saved_ms = (eager_ms + eager_ms2 - compiled_ms - compiled_ms2) / 2
+        break_even = math.ceil(capture_ms / saved_ms) if saved_ms > 0 else None
+        print(f"[render-compiled] {name}: the four views bitwise the eager render (every key), replays made no "
+              f"host sync; view 0, CUDA events, median of {ITERS} after {WARMUP}, in turns: eager {eager_ms:.3f} / "
+              f"{eager_ms2:.3f} ms, compiled {compiled_ms:.3f} / {compiled_ms2:.3f} ms; host ms per compiled call "
+              f"(synchronised before, median of {ITERS}) {host['call']:.3f}: lookup {host['lookup']:.3f} (of it the "
+              f"key {host['key']:.3f}), copy-in {host['copy-in']:.3f}, replay {host['replay']:.3f}; under the "
+              f"profiler eager {busy['eager']}, compiled {busy['compiled']}; warm-up {info['warmup_s']:.3f} s, "
+              f"capture {info['capture_s']:.3f} s, graph pool +{info['pool_reserved_bytes'] / 2**30:.3f} GiB reserved; "
+              f"the capture's {capture_ms:.3f} ms pay back after {break_even} views at {saved_ms:.3f} ms saved "
+              f"a view")
+        results[name] = dict(eager_ms=(eager_ms, eager_ms2), compiled_ms=(compiled_ms, compiled_ms2), host=host,
+                             busy={m: p and p["busy_ms"] / p["wall_ms"] for m, p in profs.items()},
+                             break_even=break_even)
+    del comp, got
+    torch.cuda.empty_cache()
+
+    # the KNN scale init (model/knn.py) at full width: no host sync, held
+    # on a 100,000-point slice against the CPU, timed
+    pts = scene.means3d
+    sync(pts.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scales = initial_scales(pts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(tuple(scales.shape) == (pts.shape[0],) and bool(torch.isfinite(scales).all()) and float(scales.min()) > 0,
+          "knn: initial scales not finite and positive")
+    part = pts[:100_000]
+    err = float(((initial_scales(part).cpu() - initial_scales(part.cpu())).abs() / initial_scales(part.cpu())).max())
+    check(err <= 1e-5, f"knn: the card's scales depart {err:.3e} (relative) from the CPU's on 100,000 points")
+    knn_ms = time_ms(lambda: initial_scales(pts))
+    prof = profile_device(lambda: initial_scales(pts), "knn")
+    print(f"[knn] initial_scales on {pts.shape[0]} points: {knn_ms:.3f} ms (CUDA events, median of {ITERS} after "
+          f"{WARMUP}), no host sync, within {err:.2e} (relative) of the CPU on {part.shape[0]} points; device busy "
+          f"{'not measured' if prof is None else format(prof['busy_ms'] / prof['wall_ms'], '.1%')}")
+    return dict(launches=launches, modes=results, knn_ms=knn_ms)
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -867,8 +1032,9 @@ def phase_serve(scene, cams, cfg, hier_path):
     from hidegs_tpu_torch.data import scene as scene_io
     from hidegs_tpu_torch.data.synthetic import write_synthetic_colmap_scene
     from hidegs_tpu_torch.raster import blend_autograd, blend_plain
-    from hidegs_tpu_torch.raster.api import RasterConfig
+    from hidegs_tpu_torch.raster.api import RasterConfig, render
     from hidegs_tpu_torch.raster.binning import TILE
+    from hidegs_tpu_torch.raster.compiled import CompiledRender
     from hidegs_tpu_torch.train import lpips
     from hidegs_tpu_torch.utils import png
     from hidegs_tpu_torch.utils.ply import gaussian_properties, write_ply
@@ -911,14 +1077,14 @@ def phase_serve(scene, cams, cfg, hier_path):
           f"same budget) in {t_model:.2f} s")
 
     timers = {k: [] for k in ("load_scene", "read_ply", "render", "lpips", "decode", "png_write")}
-    renders = []
-    blend_in = {}  # the blend's inputs and planes in render_cli's first view, held below
+    renders = []  # each served view: its image (a replay's, cloned) and the render's arguments
+    served = []  # the CompiledRender of each entry point
+    blend_in = {}  # the blend's inputs and planes in the eager render of render_cli's first view, held below
 
-    def keep_first_blend(blend_tiles):
+    def keep_blend(blend_tiles):
         def call(*args, **kwargs):
             res = blend_tiles(*args, **kwargs)
-            if len(renders) == n_eval and not blend_in:
-                blend_in.update(args=args, planes=res)
+            blend_in.update(args=args, planes=res)
             return res
         return call
 
@@ -937,11 +1103,19 @@ def phase_serve(scene, cams, cfg, hier_path):
                     for t in tensors_of(res):
                         check(t.device == dev, f"serve: a {key} output lies on {t.device}")
                 if key == "render":
-                    renders.append(dict(image=res["render"], **{
+                    renders.append(dict(image=res["render"].clone(), args=args, kwargs=kwargs, **{
                         k: int(res[k]) for k in ("overflow", "block_overflow", "visible_overflow")}))
                 return res
             return call
         return wrap
+
+    def timed_serving(make):
+        def call(device, config):
+            fn = make(device, config)
+            check(isinstance(fn, CompiledRender), f"serve: an entry point renders with {type(fn)}, not CompiledRender")
+            served.append(fn)
+            return timed("render", check_devices=True)(fn)
+        return call
 
     def timed_lpips(default_fn):
         def make(*args, **kwargs):
@@ -960,13 +1134,12 @@ def phase_serve(scene, cams, cfg, hier_path):
             (scene_io, "load_scene", timed("load_scene")),
             (evaluate, "load_gaussian_state_from_ply", timed("read_ply", check_devices=True)),
             (render_cli, "load_gaussian_state_from_ply", timed("read_ply", check_devices=True)),
-            (evaluate, "render", timed("render", check_devices=True)),
-            (render_cli, "render", timed("render", check_devices=True)),
+            (evaluate, "serving_render", timed_serving),
+            (render_cli, "serving_render", timed_serving),
             (lpips, "default_lpips_fn", timed_lpips),
             (cam_io, "load_camera", timed("decode")),
             (evaluate, "save_png", timed("png_write")),
             (render_cli, "save_png", timed("png_write")),
-            (blend_autograd, "blend_tiles", keep_first_blend),
         ):
             stack.enter_context(patched(obj, name, wrapper))
         reset_counts()
@@ -981,12 +1154,28 @@ def phase_serve(scene, cams, cfg, hier_path):
         t_cli = time.perf_counter() - t0
         launches = read_counts()
     n_served = len(renders)
-    print(f"[serve] launches on the serve path: {launches} for {n_served} served views")
-    check(launches == {"blend_fwd": n_served, "blend_bwd": 0, "fold_rows": 0} and n_served == 2 * len(cams),
-          f"serve path launches {launches}, expected one forward blend per served view ({2 * len(cams)})")
+    n_captures = sum(len(fn.captures) for fn in served)
+    print(f"[serve] launches on the serve path: {launches} for {n_served} served views: replayed "
+          f"{dict(zip(launches, replay_counts()))}, the warm-ups of {n_captures} captures {dict(zip(launches, direct_counts()))}")
+    check(len(served) == 2 and n_served == 2 * len(cams) and replay_counts() == (n_served, 0, 0)
+          and direct_counts() == (n_captures, 0, 0),
+          f"serve path launches {launches}, expected one replayed forward blend per served view ({2 * len(cams)}) "
+          f"and the warm-up's per capture ({n_captures}) through one CompiledRender per entry point ({len(served)})")
     for i, r in enumerate(renders):
-        over = {k: v for k, v in r.items() if k != "image"}
+        over = {k: r[k] for k in ("overflow", "block_overflow", "visible_overflow")}
         check(all(v == 0 for v in over.values()), f"serve: view {i} overflows its budget: {over}")
+    # every served image (a replay) is the eager render of the same inputs,
+    # to the bit; render_cli's first view's eager blend is kept for the hold
+    for i, r in enumerate(renders):
+        with contextlib.ExitStack() as stack, torch.no_grad():
+            if i == n_eval:
+                stack.enter_context(patched(blend_autograd, "blend_tiles", keep_blend))
+            want = render(*r["args"], **r["kwargs"])["render"]
+        check(torch.equal(r["image"], want), f"serve: served view {i} (a replay) is not the eager render")
+    del want
+    print("[serve] every served view (a replay) bitwise the eager render of its inputs; captures: " + "; ".join(
+        f"{c['image'][1]}x{c['image'][0]} tile {c['tile']}: warm-up {c['warmup_s']:.3f} s, capture "
+        f"{c['capture_s']:.3f} s, pool +{c['pool_reserved_bytes'] / 2**30:.3f} GiB" for fn in served for c in fn.captures))
 
     saved = json.loads((model / f"eval_{SERVE_ITER}" / "results.json").read_text())
     check(set(saved) == {"lpips_kind", "train", "test"}, f"serve: results.json keys {sorted(saved)}")
@@ -1014,8 +1203,9 @@ def phase_serve(scene, cams, cfg, hier_path):
     print(f"[serve] render_cli's {len(eval_pngs)} PNGs equal evaluate's, to the bit")
 
     # render_cli's view 0 (tile 16, the budget above): the kernel's planes
-    # against the plain blend on the same inputs, as phase 4 holds tile 32;
-    # the served image is the held kernel output
+    # in the eager render of its inputs against the plain blend on the same
+    # inputs, as phase 4 holds tile 32; the served image is the held kernel
+    # output
     pre, tb, ty, tx, tile, max_blocks, _bf16 = blend_in["args"]
     k = blend_in["planes"]
     p = blend_plain.blend_tiles(pre, tb, ty, tx, tile, max_blocks)
@@ -1044,9 +1234,12 @@ def phase_serve(scene, cams, cfg, hier_path):
           f"+ LPIPS {lpips_ms:.2f} + image I/O {decode_ms + write_ms:.2f} (decode the ground truth "
           f"{decode_ms:.2f}, write 2 PNGs {write_ms:.2f}) + the rest (PSNR, SSIM, host) "
           f"{per_view - render_ms - lpips_ms - decode_ms - write_ms:.2f} (host clock, the card synchronised "
-          f"around each timed call)")
+          f"around each timed call); the render averages {render_ms:.2f} ms a view with the capture: "
+          f"{1e3 * timers['render'][0]:.2f} ms in the first view (warm-up and capture), then "
+          f"{1e3 * np.mean(timers['render'][1:n_eval]):.2f} ms per replayed view")
     print(f"[serve] render_cli: {t_cli:.2f} s for {n_served - n_eval} views: render "
-          f"{1e3 * np.mean(timers['render'][n_eval:]):.2f} ms and PNG write "
+          f"{1e3 * np.mean(timers['render'][n_eval:]):.2f} ms ({1e3 * timers['render'][n_eval]:.2f} in the first "
+          f"view, then {1e3 * np.mean(timers['render'][n_eval + 1:]):.2f} per replayed view) and PNG write "
           f"{1e3 * np.mean(timers['png_write'][2 * n_eval:]):.2f} ms per view")
     phase_lpips(renders[0]["image"], renders[1]["image"])
     hier_launches = serve_hierarchy(src, hier_path, dev)
@@ -3650,7 +3843,11 @@ def phase_viewer(scene, cams, max_instances):
     hidegs_tpu_torch.viewer` builds: HttpViewer on port 0 fetched with
     urllib, NetworkGUI with a socket client speaking the SIBR protocol.
     Each frame's pixels must equal render()'s image of the same camera,
-    clipped and quantised. Counts are read around the two frames."""
+    clipped and quantised. The render function replays a CompiledRender:
+    the HTTP server's first frame captures it in a handler thread, a second
+    HTTP frame (another yaw) and the SIBR frame replay it. Counts are read
+    around the three frames: one replayed forward launch per frame and the
+    warm-up's per capture."""
     import socket
     import struct
     import threading
@@ -3658,6 +3855,7 @@ def phase_viewer(scene, cams, max_instances):
 
     from hidegs_tpu_torch.core.camera_math import focal_to_fov
     from hidegs_tpu_torch.raster.api import RasterConfig, render
+    from hidegs_tpu_torch.raster.compiled import CompiledRender
     from hidegs_tpu_torch.utils import png
     from hidegs_tpu_torch.viewer import __main__ as viewer_main
     from hidegs_tpu_torch.viewer.http_viewer import HttpViewer, orbit_camera
@@ -3666,6 +3864,19 @@ def phase_viewer(scene, cams, max_instances):
     dev = scene.means3d.device
     cfg = RasterConfig(max_instances=max_instances)  # the viewer's defaults but --max_instances
     render_fn = viewer_main.make_render_fn(scene, cfg)
+    comp = render_fn.compiled
+    check(isinstance(comp, CompiledRender), f"viewer: the render function replays {type(comp)}, not CompiledRender")
+    capture_threads = []
+
+    def note_thread(graph_for):
+        def call(*args, **kwargs):
+            n = len(comp.captures)
+            g = graph_for(*args, **kwargs)
+            if len(comp.captures) > n:
+                capture_threads.append(threading.current_thread().name)
+            return g
+        return call
+
     xyz = scene.means3d.cpu().numpy()
     center = np.median(xyz, axis=0)
     view = (0.6, 1.2, 16.0)  # yaw, pitch, dist: the scene seen from above and aside
@@ -3698,42 +3909,59 @@ def phase_viewer(scene, cams, max_instances):
             got["gui"] = np.frombuffer(buf[:FULL_W * FULL_H * 3], np.uint8).reshape(FULL_H, FULL_W, 3)
 
     http.serve_background()
+    yaw2 = view[0] + 0.3  # the second HTTP frame: another yaw, a cache miss
     try:
         reset_counts()
-        t0 = time.perf_counter()
-        url = (f"http://127.0.0.1:{http.port}/frame?yaw={view[0]}&pitch={view[1]}&dist={view[2]}"
-               f"&cx={center[0]:.2f}&cy={center[1]:.2f}&cz={center[2]:.2f}&w={FULL_W}&h={FULL_H}")
-        frame = urllib.request.urlopen(url, timeout=300).read()
-        http_s = time.perf_counter() - t0
-        th = threading.Thread(target=client)
-        th.start()
-        t0 = time.perf_counter()
-        deadline = time.monotonic() + 120
-        while gui.poll(render_fn, verify="smoke") is None:
-            check(time.monotonic() < deadline, "viewer: the GUI never served its client")
-            time.sleep(0.002)
-        th.join(timeout=120)
-        gui_s = time.perf_counter() - t0
+        with patched(comp, "graph_for", note_thread):
+            url, frames, http_s = {}, {}, []
+            for yaw in (view[0], yaw2):
+                t0 = time.perf_counter()
+                url[yaw] = (f"http://127.0.0.1:{http.port}/frame?yaw={yaw}&pitch={view[1]}&dist={view[2]}"
+                            f"&cx={center[0]:.2f}&cy={center[1]:.2f}&cz={center[2]:.2f}&w={FULL_W}&h={FULL_H}")
+                frames[yaw] = urllib.request.urlopen(url[yaw], timeout=300).read()
+                http_s.append(time.perf_counter() - t0)
+            frame = frames[view[0]]
+            th = threading.Thread(target=client)
+            th.start()
+            t0 = time.perf_counter()
+            deadline = time.monotonic() + 120
+            while gui.poll(render_fn, verify="smoke") is None:
+                check(time.monotonic() < deadline, "viewer: the GUI never served its client")
+                time.sleep(0.002)
+            th.join(timeout=120)
+            gui_s = time.perf_counter() - t0
         launches = read_counts()
     finally:
         http.shutdown()
         gui.close()
-    check(launches == {"blend_fwd": 2, "blend_bwd": 0, "fold_rows": 0},
-          f"viewer path launches {launches}, expected one forward blend per served frame (2)")
-    arr = png.decode_png(frame)
-    hcam = orbit_camera(view[0], view[1], view[2], tuple(float(f"{c:.2f}") for c in center), FULL_H, FULL_W,
-                        device=dev)
+    n_captures = len(comp.captures)
+    check(replay_counts() == (3, 0, 0) and direct_counts() == (n_captures, 0, 0) and comp.replays == 3,
+          f"viewer path launches {launches}, expected one replayed forward blend per served frame (3) and the "
+          f"warm-up's per capture ({n_captures})")
+    check(bool(capture_threads) and capture_threads[0] != threading.main_thread().name,
+          f"viewer: the first capture ran in {capture_threads or 'no thread'}, not in the HTTP server's handler "
+          "thread")
+    gcam = camera_from_message(msg, dev)
+    for yaw, data in frames.items():
+        arr = png.decode_png(data)
+        hcam = orbit_camera(yaw, view[1], view[2], tuple(float(f"{c:.2f}") for c in center), FULL_H, FULL_W,
+                            device=dev)
+        with torch.no_grad():
+            want_http = image_bytes(torch.clamp(render(*scene, hcam, config=cfg)["render"], 0, 1))
+        check(arr.shape == (FULL_H, FULL_W, 3) and np.array_equal(arr, want_http) and arr.std() > 1,
+              f"viewer: the HTTP frame at yaw {yaw} is not render()'s image, clipped and quantised")
     with torch.no_grad():
-        want_http = image_bytes(torch.clamp(render(*scene, hcam, config=cfg)["render"], 0, 1))
-        want_gui = image_bytes(torch.clamp(render(*scene, camera_from_message(msg, dev), config=cfg)["render"], 0, 1))
-    check(arr.shape == (FULL_H, FULL_W, 3) and np.array_equal(arr, want_http),
-          "viewer: the HTTP frame is not render()'s image, clipped and quantised")
+        want_gui = image_bytes(torch.clamp(render(*scene, gcam, config=cfg)["render"], 0, 1))
     check(np.array_equal(got["gui"], want_gui), "viewer: the SIBR frame is not render()'s image, clipped and quantised")
-    check(arr.std() > 1 and got["gui"].std() > 1, "viewer: a blank frame")
-    print(f"[viewer] HttpViewer: one {FULL_W}x{FULL_H} frame over localhost in {1e3 * http_s:.1f} ms (render, "
-          f"PNG encode of {len(frame) / 2 ** 20:.2f} MiB, HTTP), pixels equal render()'s; NetworkGUI: one frame in "
-          f"{1e3 * gui_s:.1f} ms (accept, render, {FULL_W * FULL_H * 3 / 2 ** 20:.2f} MiB of RGB), pixels equal "
-          f"render()'s; launches {launches}")
+    check(got["gui"].std() > 1, "viewer: a blank frame")
+    info = comp.captures[0]
+    print(f"[viewer] HttpViewer: {FULL_W}x{FULL_H} frames over localhost in {1e3 * http_s[0]:.1f} ms (the first: "
+          f"warm-up and capture of the render in thread {capture_threads[0]!r}, {info['warmup_s']:.3f} + "
+          f"{info['capture_s']:.3f} s, pool +{info['pool_reserved_bytes'] / 2**30:.3f} GiB) and {1e3 * http_s[1]:.1f} "
+          f"ms (a replay; render, PNG encode of {len(frames[yaw2]) / 2 ** 20:.2f} MiB, HTTP), pixels equal "
+          f"render()'s; NetworkGUI: one frame in {1e3 * gui_s:.1f} ms (accept, replay, "
+          f"{FULL_W * FULL_H * 3 / 2 ** 20:.2f} MiB of RGB), pixels equal render()'s; {n_captures} capture(s) in "
+          f"threads {capture_threads}; launches {launches} ({comp.replays} replayed)")
     return dict(launches=launches)
 
 
@@ -3752,6 +3980,7 @@ def main() -> int:
     pre, tb, err = phase_hold_full_width(scene, cams, cfg, outs)
     times = phase_times(scene, cams[0], cfg, pre, tb)
     phase_breakdown(scene, cams[0], cfg, pre, tb)
+    rcomp = phase_render_compiled(scene, cams, cfg)
     leaf_renders = [torch.clamp(out["render"], 0, 1) for out in outs]
     del outs
     hier, hier_path = build_scene_hierarchy(scene)
@@ -3777,7 +4006,8 @@ def main() -> int:
     vp = phase_view_parallel(scene, cams, cfg)
     del scene
     launches = train_launches
-    by_path = {name: {"render": render_launches[name], "serve": serve["launches"][name],
+    by_path = {name: {"render": render_launches[name], "render_compiled": rcomp["launches"][name],
+                      "serve": serve["launches"][name],
                       "train": train_launches[name], "train_compiled": comp["launches"][name],
                       "trainer": trainer_run_launches[name],
                       "hierarchy": lod["launches"][name],

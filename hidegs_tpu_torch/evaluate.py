@@ -11,7 +11,10 @@ as `lpips_kind`. A model directory written by the JAX package
 
     python -m hidegs_tpu_torch.evaluate --model_path <model> --source_path <scene> --resolution 1 [--device cuda]
 
-Everything runs on `--device` (default cuda, which raises without a card).
+Everything runs on `--device` (default cuda, which raises without a card);
+on a card every view of the "blend" backend is a replay of the render's
+CUDA graph (raster/compiled.py:CompiledRender), one capture per image
+size; the "oracle" renders eagerly.
 The snapshot's `raster_backend` "jnp" and "pallas" render with the port's
 "blend" backend (its CUDA kernel on the card, the plain blend on the CPU):
 all three compute the same function; "oracle" stays "oracle".
@@ -28,7 +31,8 @@ import torch
 from hidegs_tpu_torch.config import ModelConfig, add_group, extract_group, get_combined_args, port_backend
 from hidegs_tpu_torch.convert import load_gaussian_state_from_ply
 from hidegs_tpu_torch.device import resolve_device
-from hidegs_tpu_torch.raster.api import RasterConfig, render
+from hidegs_tpu_torch.raster.api import RasterConfig
+from hidegs_tpu_torch.raster.compiled import serving_render
 from hidegs_tpu_torch.train.checkpoint import find_latest_iteration
 from hidegs_tpu_torch.train.losses import psnr, ssim
 from hidegs_tpu_torch.utils.png import write_png
@@ -52,9 +56,12 @@ def save_png(path: str, img_chw: torch.Tensor):
     write_png(path, (arr * 255).astype(np.uint8))
 
 
-def evaluate_set(name, dataset, arrays, cfg: RasterConfig, out_dir, lpips_fn=None, save_images=True):
+def evaluate_set(name, dataset, arrays, cfg: RasterConfig, out_dir, lpips_fn=None, save_images=True, *,
+                 render_fn):
     """Render, score and (optionally) save every view of `dataset` with the
-    render inputs `arrays`, on the device those lie on."""
+    render inputs `arrays`, on the device those lie on. `render_fn` renders
+    as `render` does (`serving_render`'s: a CUDA graph replayed per view
+    for the "blend" backend on a card)."""
     dev = arrays[0].device
     results = []
     if save_images:
@@ -63,8 +70,8 @@ def evaluate_set(name, dataset, arrays, cfg: RasterConfig, out_dir, lpips_fn=Non
     for i in range(len(dataset)):
         cam = dataset[i]
         with torch.no_grad():
-            out = render(*arrays, cam.cam_params(dev), config=cfg)
-        img = torch.clamp(out["render"], 0.0, 1.0)
+            out = render_fn(*arrays, cam.cam_params(dev), config=cfg)
+        img = torch.clamp(out["render"], 0.0, 1.0)  # a new tensor: the next replay overwrites `out`
         gt = torch.as_tensor(cam.image, device=dev)
         mask = torch.as_tensor(cam.alpha_mask, device=dev) if cam.alpha_mask is not None else None
         if mask is not None:
@@ -126,13 +133,16 @@ def main(argv=None):
 
     out_dir = os.path.join(model_cfg.model_path, f"eval_{it}")
     report = {"lpips_kind": lpips_kind}
+    render_fn = serving_render(dev, cfg)  # both sets replay its graphs
     if not args.skip_train:
         report["train"] = evaluate_set(
-            "train", scene.train_cameras, arrays, cfg, out_dir, lpips_fn, not args.no_images
+            "train", scene.train_cameras, arrays, cfg, out_dir, lpips_fn, not args.no_images,
+            render_fn=render_fn,
         )
     if not args.skip_test and len(scene.test_cameras):
         report["test"] = evaluate_set(
-            "test", scene.test_cameras, arrays, cfg, out_dir, lpips_fn, not args.no_images
+            "test", scene.test_cameras, arrays, cfg, out_dir, lpips_fn, not args.no_images,
+            render_fn=render_fn,
         )
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "results.json"), "w") as f:

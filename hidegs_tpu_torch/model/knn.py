@@ -35,13 +35,12 @@ def morton_codes(points: torch.Tensor) -> torch.Tensor:
 
 def mean_knn_sq_dist(points: torch.Tensor, window: int = 16, k: int = 3) -> torch.Tensor:
     """Per-point mean squared distance to its ~k nearest neighbours, searched
-    within ±window positions in Morton order; (N,)."""
+    within ±window positions in Morton order; (N,). Makes no host sync."""
     n = points.shape[0]
     dev = points.device
     order = torch.argsort(morton_codes(points), stable=True)
     sorted_pts = points[order]
     ar = torch.arange(n, device=dev)
-    inf = torch.tensor(float("inf"), dtype=points.dtype, device=dev)
     cands = []
     for d in range(1, window + 1):
         for sign in (-1, 1):
@@ -49,7 +48,7 @@ def mean_knn_sq_dist(points: torch.Tensor, window: int = 16, k: int = 3) -> torc
             valid = (idx >= 0) & (idx < n)
             diff = sorted_pts - sorted_pts[torch.clamp(idx, 0, n - 1)]
             d2 = torch.sum(diff * diff, dim=-1)
-            cands.append(torch.where(valid, d2, inf))
+            cands.append(d2.masked_fill(~valid, float("inf")))
     d2 = torch.sort(torch.stack(cands, dim=-1), dim=-1).values[:, :k]
     finite = torch.isfinite(d2)
     mean_d2 = torch.sum(torch.where(finite, d2, torch.zeros_like(d2)), dim=-1) / torch.clamp(

@@ -8,7 +8,10 @@ JAX package works as is.
     python -m hidegs_tpu_torch.render_cli --model_path <model> --source_path <scene> --output_path <dir> [--device cuda]
     python -m hidegs_tpu_torch.render_cli --hierarchy <file.hier> --tau <px> --source_path <scene> --output_path <dir>
 
-Everything runs on `--device` (default cuda, which raises without a card).
+Everything runs on `--device` (default cuda, which raises without a card);
+on a card each view of the "blend" backend is a replay of a CUDA graph (a
+model's render: raster/compiled.py:CompiledRender; a hierarchy's frame:
+hier/interp.py:CompiledLodFrame); the "oracle" renders eagerly.
 `--backend` takes the JAX package's names: "jnp" and "pallas" render with
 the port's "blend" backend (its CUDA kernel on the card, the plain blend on
 the CPU), all three computing the same function; "oracle" stays "oracle".
@@ -27,7 +30,8 @@ from hidegs_tpu_torch.config import ModelConfig, add_group, extract_group, port_
 from hidegs_tpu_torch.convert import load_gaussian_state_from_ply
 from hidegs_tpu_torch.device import resolve_device
 from hidegs_tpu_torch.evaluate import save_png
-from hidegs_tpu_torch.raster.api import RasterConfig, render
+from hidegs_tpu_torch.raster.api import RasterConfig
+from hidegs_tpu_torch.raster.compiled import serving_render
 from hidegs_tpu_torch.train.checkpoint import find_latest_iteration
 
 
@@ -78,10 +82,11 @@ def main(argv=None):
     arrays = load_gaussian_state_from_ply(
         os.path.join(root, f"iteration_{it}", "point_cloud.ply"), device=dev
     )
+    render_fn = serving_render(dev, cfg)  # a CUDA graph replayed per view on a card: written out before the next
     for i in range(len(scene.train_cameras)):
         cam = scene.train_cameras[i]
         with torch.no_grad():
-            out = render(*arrays, cam.cam_params(dev), config=cfg)
+            out = render_fn(*arrays, cam.cam_params(dev), config=cfg)
         save_png(os.path.join(args.output_path, f"{i:05d}.png"), torch.clamp(out["render"], 0, 1))
     print(f"rendered {len(scene.train_cameras)} views → {args.output_path}")
 

@@ -5,8 +5,8 @@ then replayed.
 The JAX package compiles its hot boundaries with `jax.jit`: one XLA
 executable per static key that the host issues with one call. The port's
 counterparts (`train.compiled.CompiledTrainStep`,
-`train.hier_trainer.CompiledHierTrainStep`, `hier.interp.CompiledLodFrame`)
-share what is here:
+`train.hier_trainer.CompiledHierTrainStep`, `hier.interp.CompiledLodFrame`,
+`raster.compiled.CompiledRender` and the rest) share what is here:
 
   * `_map`, `_tensors` and `_spec` walk the NamedTuples, tuples, lists and
     dataclasses of a call's arguments; `_spec` is the static part (each
@@ -138,12 +138,15 @@ class GraphSet:
         self.replays = 0
 
     def capture(self, dev: torch.device, warmup: Callable[[], Any], body: Callable[[], Any],
-                info: Dict[str, Any]) -> Graph:
+                info: Dict[str, Any], capture_error_mode: str = "global") -> Graph:
         """Run `warmup()` on a side stream, then capture `body()` (which
         reads and writes only static tensors) into a new graph of the pool.
         `info` (a summary of the key) is recorded in `captures` with the
         warm-up and capture seconds, the launches of both and the pool's
-        growth. A capture that fails raises RuntimeError."""
+        growth. `capture_error_mode` is `torch.cuda.graph`'s: "global"
+        forbids unsafe CUDA calls in every thread while the capture runs,
+        "thread_local" in the capturing thread only. A capture that fails
+        raises RuntimeError."""
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -163,7 +166,7 @@ class GraphSet:
             counts = _kernel_counts()
             t0 = time.perf_counter()
             try:
-                with torch.cuda.graph(graph, pool=self._pool):
+                with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=capture_error_mode):
                     outputs = body()
                 recorded = dict(zip(KERNELS, (b - a for a, b in zip(counts, _kernel_counts()))))
             except Exception as e:

@@ -9,13 +9,17 @@ the trained model's latest (or `--iteration`) PLY rendered on `--device`
   * the browser viewer (viewer/http_viewer.py):
         python -m hidegs_tpu_torch.viewer --model_path /out/run1 --http 8080
 
-`--backend` takes the JAX package's names ("jnp", the default, and
-"pallas" render with the port's "blend" backend; see config.port_backend).
+On a card every frame of both frontends replays the render's CUDA graph
+(raster/compiled.py:CompiledRender: one capture per frame size, the four
+most recent kept); `--backend oracle` renders eagerly. `--backend` takes
+the JAX package's names ("jnp", the default, and "pallas" render with the
+port's "blend" backend; see config.port_backend).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import threading
 import time
 
 import numpy as np
@@ -24,7 +28,8 @@ import torch
 from hidegs_tpu_torch.config import port_backend
 from hidegs_tpu_torch.convert import load_gaussian_state_from_ply
 from hidegs_tpu_torch.device import resolve_device
-from hidegs_tpu_torch.raster.api import RasterConfig, render
+from hidegs_tpu_torch.raster.api import RasterConfig
+from hidegs_tpu_torch.raster.compiled import CompiledRender, serving_render
 from hidegs_tpu_torch.train.checkpoint import find_latest_iteration
 from hidegs_tpu_torch.viewer.network_gui import NetworkGUI
 
@@ -44,10 +49,20 @@ def parse_args(argv=None):
 
 
 def make_render_fn(arrays, cfg: RasterConfig):
-    """render_fn(cam, msg=None) → the clipped (3, H, W) image on the model's device."""
+    """render_fn(cam, msg=None) → the clipped (3, H, W) image on the model's
+    device. On a card each frame of the "blend" backend is a replay of
+    `render_fn.compiled`, a CompiledRender (None where `serving_render`
+    gives the eager render: off the card, or the "oracle"); frames are
+    rendered one at a time, the clip copying the replay's image out
+    before the next frame may overwrite it."""
+    fn = serving_render(arrays[0].device, cfg)
+    lock = threading.Lock()
+
     def render_fn(cam, msg=None):
-        with torch.no_grad():
-            return torch.clamp(render(*arrays, cam, config=cfg)["render"], 0, 1)
+        with lock, torch.no_grad():
+            return torch.clamp(fn(*arrays, cam, config=cfg)["render"], 0, 1)
+
+    render_fn.compiled = fn if isinstance(fn, CompiledRender) else None
     return render_fn
 
 

@@ -22,10 +22,15 @@ variants, replays with no host sync, keeps an old graph across a new
 key's capture, and runs the trainer (visible-row compaction included)
 with no sync in a step that captures nothing. The post-opt
 step of the hierarchy (train/hier_trainer.py) holds the same way, and
-the pipeline runs on the card end to end.
+the pipeline runs on the card end to end. The compiled serving render
+(raster/compiled.py) is bitwise the eager render in the serve
+configuration and the render cell's, replays with no host sync, and is
+what evaluate, render_cli and the viewers render through; the KNN scale
+init makes no host sync.
 """
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -1537,3 +1542,206 @@ def test_trainer_runs_its_densify_round_on_the_compiled_pair(cuda, tmp_path, mon
     assert "densify@10" in capsys.readouterr().out
     assert len(made) == 1 and [c["kind"] for c in made[0].captures] == ["densify"] and made[0].replays == 1
     assert ts.gaussians.alive.device.type == "cuda"
+
+
+# the serve configuration (evaluate, render_cli: tile 16, no block cap, the
+# exact two-key sort) and the render cell's (tile 32, a block cap, one key)
+RENDER_CONFIGS = {"serve": RasterConfig(tile=16, max_instances=1 << 14),
+                  "render cell": RasterConfig(tile=32, max_instances=1 << 14, max_blocks=64, depth_sort_bits=-1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", list(RENDER_CONFIGS))
+def test_compiled_render_is_bitwise_the_eager_render(cuda, config):
+    """The compiled render (raster/compiled.py) against the eager render on
+    four views, with render_geo off and on and with a background: every
+    key bitwise, one capture per key and one replayed forward launch per
+    view, the warm-up's launch once per capture."""
+    from hidegs_tpu_torch.raster.compiled import CompiledRender
+
+    cfg = RENDER_CONFIGS[config]
+    scene = make_toy_gaussians(600, seed=3, device=cuda)
+    cams = [ring_camera(i, height=72, width=96, device=cuda) for i in range(4)]
+    comp = CompiledRender()
+    bg = torch.tensor([0.2, 0.1, 0.3], device=cuda)
+    direct, replays = cuda_blend.LAUNCHES, _replays()
+    got = []
+    for geo, background in ((False, None), (True, None), (True, bg)):
+        for cam in cams:
+            out = comp(*scene, cam, background=background, render_geo=geo, config=cfg)
+            got.append({k: v.clone() for k, v in out.items()})
+    torch.cuda.synchronize()
+    assert len(comp.captures) == 3 and comp.replays == 12
+    assert cuda_blend.LAUNCHES - direct == 3 and _replays()[0] - replays[0] == 12
+    n = 0
+    with torch.no_grad():
+        for geo, background in ((False, None), (True, None), (True, bg)):
+            for cam in cams:
+                want = render(*scene, cam, background=background, render_geo=geo, config=cfg)
+                assert set(got[n]) == set(want)
+                for key in want:
+                    assert torch.equal(got[n][key], want[key]), (config, geo, key)
+                n += 1
+    assert float(got[0]["alpha"].mean()) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", list(RENDER_CONFIGS))
+def test_compiled_render_replay_makes_no_host_sync(cuda, config):
+    """After the capture, replays on other cameras and backgrounds under
+    set_sync_debug_mode("error"); the "plain" backend and another model's
+    arrays are refused."""
+    from hidegs_tpu_torch.raster.compiled import CompiledRender
+
+    cfg = RENDER_CONFIGS[config]
+    scene = make_toy_gaussians(600, seed=3, device=cuda)
+    comp = CompiledRender()
+    bg = torch.zeros(3, device=cuda)
+    comp(*scene, ring_camera(0, height=72, width=96, device=cuda), background=bg, render_geo=True, config=cfg)
+    cams = [ring_camera(i, height=72, width=96, device=cuda) for i in range(1, 4)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i, cam in enumerate(cams):
+            out = comp(*scene, cam, background=bg + 0.1 * i, render_geo=True, config=cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out["overflow"]) == 0 and len(comp.captures) == 1 and comp.replays == 4
+    with pytest.raises(ValueError, match="plain"):
+        comp(*scene, cams[0], config=RasterConfig(backend="plain"))
+    with pytest.raises(ValueError, match="by reference"):
+        comp(*(x.clone() for x in scene), cams[0], background=bg, render_geo=True, config=cfg)
+
+
+def _served_model(tmp_path, raster_backend):
+    """A COLMAP scene of four 48x64 views of a 400-gaussian toy model and
+    the model's directory (PLY, cfg_args at tile 16 with `raster_backend`)."""
+    from hidegs_tpu_torch import config as tconfig
+    from hidegs_tpu_torch.data.synthetic import write_synthetic_colmap_scene
+    from hidegs_tpu_torch.utils.ply import gaussian_properties, write_ply
+
+    s = make_toy_gaussians(400, seed=2, device="cpu")
+    cams = [ring_camera(i, n_cams=6, height=48, width=64, device="cpu") for i in range(4)]
+    write_synthetic_colmap_scene(str(tmp_path / "scene"), s, cams, render_config=RasterConfig(max_instances=1 << 13))
+    model = tmp_path / "model"
+    (model / "point_cloud" / "iteration_7").mkdir(parents=True)
+    op = s.opacities.double()
+    write_ply(str(model / "point_cloud" / "iteration_7" / "point_cloud.ply"), gaussian_properties(
+        s.means3d.numpy(), s.shs[:, 0].numpy(), s.shs[:, 1:].numpy(),
+        torch.log(op / (1.0 - op)).float().numpy(), torch.log(s.scales).numpy(), s.quats.numpy()))
+    tconfig.save_cfg_args(str(model), tconfig.ModelConfig(source_path=str(tmp_path / "scene")),
+                          tconfig.PipelineConfig(raster_backend=raster_backend, tile=16, max_instances=1 << 13),
+                          tconfig.OptimizationConfig())
+    return cams, model
+
+
+def _record_serving(monkeypatch, *modules):
+    """The renders `serving_render` makes for `modules`, in order."""
+    from hidegs_tpu_torch.raster import compiled
+
+    made = []
+
+    def recording(device, config):
+        fn = compiled.serving_render(device, config)
+        made.append(fn)
+        return fn
+
+    for m in modules:
+        monkeypatch.setattr(m, "serving_render", recording)
+    return made
+
+
+@pytest.mark.cuda
+def test_serving_entry_points_render_through_replays(cuda, tmp_path, monkeypatch):
+    """`evaluate.main`, `render_cli.main` and the viewers' render function
+    on the card: each renders through a CompiledRender, one replay per
+    view or frame and one capture; render_cli's PNGs equal evaluate's (the
+    same tile and budget), the viewer's frames the eager render's."""
+    from hidegs_tpu_torch import evaluate, render_cli
+    from hidegs_tpu_torch.raster import compiled
+    from hidegs_tpu_torch.utils import png
+    from hidegs_tpu_torch.viewer import __main__ as viewer_main
+
+    cams, model = _served_model(tmp_path, "pallas")
+    made = _record_serving(monkeypatch, evaluate, render_cli)
+    direct, replays = cuda_blend.LAUNCHES, _replays()
+    evaluate.main(["--model_path", str(model), "--source_path", str(tmp_path / "scene"), "--resolution", "1"])
+    render_cli.main(["--model_path", str(model), "--source_path", str(tmp_path / "scene"), "--resolution", "1",
+                     "--max_instances", str(1 << 13), "--output_path", str(tmp_path / "cli")])
+    torch.cuda.synchronize()
+    assert len(made) == 2 and all(isinstance(fn, compiled.CompiledRender) for fn in made)
+    assert [(len(fn.captures), fn.replays) for fn in made] == [(1, 4), (1, 4)]
+    assert cuda_blend.LAUNCHES - direct == 2 and _replays()[0] - replays[0] == 8
+    for i in range(4):
+        assert np.array_equal(png.read_image(str(tmp_path / "cli" / f"{i:05d}.png")),
+                              png.read_image(str(model / "eval_7" / "train" / "renders" / f"{i:05d}.png"))), i
+
+    scene = make_toy_gaussians(400, seed=2, device=cuda)
+    cfg = RasterConfig(max_instances=1 << 13)
+    fn = viewer_main.make_render_fn(scene, cfg)
+    assert isinstance(fn.compiled, compiled.CompiledRender)
+    for cam in cams:
+        cam = cam.to(cuda)
+        with torch.no_grad():
+            want = torch.clamp(render(*scene, cam, config=cfg)["render"], 0, 1)
+        assert torch.equal(fn(cam), want)
+    assert len(fn.compiled.captures) == 1 and fn.compiled.replays == 4
+
+
+@pytest.mark.cuda
+def test_oracle_entry_points_render_eagerly_on_the_card(cuda, tmp_path, monkeypatch):
+    """`evaluate.main` of a model whose cfg_args asks for the "oracle",
+    `render_cli.main --backend oracle` and the viewers' render function
+    with the oracle, on the card: each keeps the backend the user picked
+    and renders it eagerly (no CompiledRender, no capture, no forward
+    blend launched); render_cli's PNGs equal evaluate's, the viewer's
+    frames the eager oracle's."""
+    from hidegs_tpu_torch import evaluate, render_cli
+    from hidegs_tpu_torch.utils import png
+    from hidegs_tpu_torch.viewer import __main__ as viewer_main
+
+    cams, model = _served_model(tmp_path, "oracle")
+    made = _record_serving(monkeypatch, evaluate, render_cli)
+    direct, replays = cuda_blend.LAUNCHES, _replays()
+    evaluate.main(["--model_path", str(model), "--source_path", str(tmp_path / "scene"), "--resolution", "1"])
+    render_cli.main(["--model_path", str(model), "--source_path", str(tmp_path / "scene"), "--resolution", "1",
+                     "--backend", "oracle", "--max_instances", str(1 << 13), "--output_path", str(tmp_path / "cli")])
+    torch.cuda.synchronize()
+    assert made == [render, render]
+    assert cuda_blend.LAUNCHES == direct and _replays() == replays
+    for i in range(4):
+        got = png.read_image(str(tmp_path / "cli" / f"{i:05d}.png"))
+        assert got.std() > 0 and np.array_equal(
+            got, png.read_image(str(model / "eval_7" / "train" / "renders" / f"{i:05d}.png"))), i
+
+    scene = make_toy_gaussians(400, seed=2, device=cuda)
+    cfg = RasterConfig(backend="oracle", max_instances=1 << 13)
+    fn = viewer_main.make_render_fn(scene, cfg)
+    assert fn.compiled is None
+    for cam in cams:
+        cam = cam.to(cuda)
+        with torch.no_grad():
+            want = torch.clamp(render(*scene, cam, config=cfg)["render"], 0, 1)
+        assert torch.equal(fn(cam), want)
+
+
+@pytest.mark.cuda
+def test_knn_init_makes_no_host_sync(cuda):
+    """`mean_knn_sq_dist` on the card under set_sync_debug_mode("error"),
+    within float32 rounding of the CPU result."""
+    from hidegs_tpu_torch.model.knn import initial_scales, mean_knn_sq_dist
+
+    g = torch.Generator().manual_seed(0)
+    pts = torch.rand((5000, 3), generator=g) * 4.0 - 2.0
+    want = mean_knn_sq_dist(pts)
+    dev_pts = pts.to(cuda)
+    mean_knn_sq_dist(dev_pts)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = mean_knn_sq_dist(dev_pts)
+        scales = initial_scales(dev_pts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
+    assert bool(torch.isfinite(scales).all())

@@ -37,7 +37,7 @@ class _Replayed:
         graphs._set_kernel_counts(counts)  # a replay counts in REPLAY_LAUNCHES
 
 
-def _capture(self, dev, warmup, body, info):
+def _capture(self, dev, warmup, body, info, capture_error_mode="global"):
     counts = graphs._kernel_counts()
     warmup()
     warmup_launches = dict(zip(graphs.KERNELS, (b - a for a, b in zip(counts, graphs._kernel_counts()))))
