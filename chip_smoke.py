@@ -60,8 +60,16 @@ Phases (run in the order of `main`):
      the warp-block mask keeps and the pixel pairs the kernel evaluates at
      most (blend_plain.block_masks, block_pair_counts); and the ptxas
      registers and spills from the loaded library's build log;
+ 5p. the preprocess forward kernel (csrc/preprocess.cu, preprocess_fwd) on
+     the four views against preprocess_plain on the same inputs, one launch
+     per call: floats at atol 1e-5 / rtol 1e-5, the radius within 1 on at
+     most 1% of the rows, the visible mask differing only where the radius
+     does, two launches bitwise equal; view 0's kernel timed alone beside
+     the plain forward and its bound (bytes);
   6. render breakdown: preprocess, binning and blend timed alone, and one
-     render under torch.profiler for the device busy share and top kernels;
+     render under torch.profiler for the device busy share, the top
+     kernels and the device ops by kind (every profile prints them: the
+     accumulation adds, scans, fills, copies and the port's kernels);
  6r. the compiled render (raster/compiled.py:CompiledRender, what evaluate,
      render_cli and the viewers replay on a card) in the render cell's
      configuration (render_geo) and the serve one (tile 16, render_cli's
@@ -175,6 +183,12 @@ Phases (run in the order of `main`):
      and the PSNR it cost in each view;
  10. full-width hold: view 0's backward + fold kernels against the plain
      versions, on the cotangents one train step gives its blend;
+ 10p. the preprocess backward kernel (preprocess_bwd) on the cotangents one
+     train step gives the PreprocessFn node: its gradients against torch
+     autograd of preprocess_plain on the node's inputs, within 5e-3 of each
+     leaf's max |grad|; one backward launch in the step; the kernel timed
+     alone beside the plain closed-form backward (preprocess_plain_bwd)
+     and its bound (bytes);
  10a. B3, the bf16 attribute stream, through the path a user turns on:
      RasterConfig(bf16_stream=True) in render() on the render cell's view 0
      with the loss of the JAX package's bf16 test, mean(render²), and in
@@ -293,10 +307,13 @@ Phases (run in the order of `main`):
      `python -m hidegs_tpu_torch.parallel --nproc 1 --backend nccl` and
      `--nproc 4 --backend gloo --device cuda` pass their asserts.
 
+Every launch gate counts the five kernels (chip_smoke.KERNEL_NAMES): a
+render launches a preprocess forward beside its forward blend, a
+differentiated render a preprocess backward beside its backward blend.
 Prints a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 In the kernels line, `ms`, `plain_ms`, `bound_ms` and `library_ms` come from
-the render cell (phase 5: blend_fwd) and the train path (phase 11:
-blend_bwd, fold_rows); `launches` is the train path's count (phase 8), as
+the render cell (phase 5: blend_fwd; 5p: preprocess_fwd) and the train path
+(phase 11: blend_bwd, fold_rows; 10p: preprocess_bwd); `launches` is the train path's count (phase 8), as
 in earlier slices; `launches_by_path` holds the count of every path (render,
 render_compiled (phase 6r: replays and warm-ups), serve (replays and
 warm-ups), train, train_compiled (phase 11a: replays and warm-ups), trainer,
@@ -311,7 +328,10 @@ graph counts the launches it recorded (utils/graphs.py:REPLAY_LAUNCHES);
 `max_abs_err` is the largest error of the kernel's full-width holds in
 phases 4 and 6a (forward), 10 (backward, fold), 13 (all three, on both
 nodes of a multi-view step), 6b (all three, the post-opt step) and 15
-(all three, the four nodes of a view-parallel step). Each blend entry has a `bf16` object from
+(all three, the four nodes of a view-parallel step) for the blends, and
+5p (preprocess_fwd, with `radius_flips`: flipped rows and rows held) and
+10p (preprocess_bwd, with `grad_err_of_max`) for the preprocess kernels.
+Each blend entry has a `bf16` object from
 phase 10a: the bf16 mode's `ms` (median of its two turns), the float32
 kernel's time in the same turns (`f32_ms_in_turns`), `plain_ms`,
 `bound_ms`, `bound_by`, `max_abs_err` against the plain bf16 version, and
@@ -340,6 +360,7 @@ import numpy as np
 import torch
 
 BLEND_TOL = dict(atol=3e-4, rtol=1e-3)  # the JAX suite's Pallas-vs-plain tolerance
+KERNEL_NAMES = ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd")  # utils/graphs.py:KERNELS
 PLANE_KEYS = ["render", "invdepth", "alpha", "T_final", "normal", "distance"]
 RENDER_KEYS = ["render", "invdepth", "alpha", "T_final", "rendered_normal", "rendered_distance"]
 
@@ -389,6 +410,12 @@ DENSIFY_AT = 10  # the training run's one densify round follows this step
 N_GROUND, N_STRUCTS, FULL_H, FULL_W = 1_000_000, 64, 1088, 1920
 
 WARMUP, ITERS = 2, 10
+# profile_device's op kinds, by substrings of the device ops' names: autograd's
+# accumulation adds, binning's scans (C40's cummax), fills, copies, and the
+# port's kernels
+OP_KINDS = (("adds", ("CUDAFunctor_add",)), ("scans", ("scan",)), ("fills", ("FillFunctor", "fill_kernel")),
+            ("copies", ("copy_kernel", "Memcpy", "CatArrayBatchedCopy")), ("preprocess kernels", ("preprocess_",)),
+            ("blend kernels", ("blend_fwd", "blend_bwd", "fold_rows")))
 ROOT = Path(__file__).resolve().parent
 # the fold design the package's fold kernel replaced, built and timed beside it
 SCALAR_FOLD_SRC = ROOT / "tools" / "csrc" / "fold_rows_scalar.cu"
@@ -460,19 +487,21 @@ def time_per_launch_ms(fn, launches=20, warmup=WARMUP, iters=ITERS):
 
 
 def reset_counts():
-    from hidegs_tpu_torch.raster import cuda_blend
+    from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
     from hidegs_tpu_torch.utils import graphs
 
     cuda_blend.LAUNCHES = cuda_blend.BWD_LAUNCHES = cuda_blend.FOLD_LAUNCHES = 0
+    preprocess_autograd.FWD_LAUNCHES = preprocess_autograd.BWD_LAUNCHES = 0
     graphs.REPLAY_LAUNCHES.update(dict.fromkeys(graphs.REPLAY_LAUNCHES, 0))
 
 
 def direct_counts():
-    """The launchers' own counts (kernel by kernel), which a graph replay
-    does not reach."""
-    from hidegs_tpu_torch.raster import cuda_blend
+    """The launchers' own counts (kernel by kernel, KERNEL_NAMES' order),
+    which a graph replay does not reach."""
+    from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
 
-    return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+    return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES,
+            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES)
 
 
 def replay_counts():
@@ -486,8 +515,19 @@ def replay_counts():
 def read_counts():
     """Every launch since reset_counts: the launchers' and the replays'."""
     torch.cuda.synchronize()
-    return dict(zip(("blend_fwd", "blend_bwd", "fold_rows"),
-                    (a + b for a, b in zip(direct_counts(), replay_counts()))))
+    return dict(zip(KERNEL_NAMES, (a + b for a, b in zip(direct_counts(), replay_counts()))))
+
+
+def per_kernel(fwd, bwd):
+    """The five kernels' launches on a path where every render blends with
+    the kernels: `fwd` renders (a forward blend and a preprocess forward
+    each), `bwd` of them differentiated (a backward blend, a fold and a
+    preprocess backward each)."""
+    return (fwd, bwd, bwd, fwd, bwd)
+
+
+def kernel_dict(counts):
+    return dict(zip(KERNEL_NAMES, counts))
 
 
 def profile_device(fn, label):
@@ -517,11 +557,16 @@ def profile_device(fn, label):
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) in {n_ops} device ops")
     for name, (n, ms) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"[{label}]   {ms:8.3f} ms  x{n:<4d} {name[:100]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, ops=n_ops)
+    kinds = {}
+    for kind, keys in OP_KINDS:
+        picked = [v for name, v in by_name.items() if any(k in name for k in keys)]
+        kinds[kind] = (sum(n for n, _ in picked), sum(ms for _, ms in picked))
+    print(f"[{label}] device ops by kind: " + ", ".join(f"{kind} x{n} {ms:.3f} ms" for kind, (n, ms) in kinds.items()))
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, ops=n_ops, kinds=kinds)
 
 
 def phase_environment():
-    from hidegs_tpu_torch.raster import cuda_blend
+    from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -530,7 +575,7 @@ def phase_environment():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = cuda_blend.build({**cuda_blend.SOURCES, "fold_rows_scalar": SCALAR_FOLD_SRC})
+    libs = cuda_blend.build({**cuda_blend.SOURCES, **preprocess_autograd.SOURCES, "fold_rows_scalar": SCALAR_FOLD_SRC})
     print(f"[env] built {', '.join(lib.name for lib in libs.values())} in {time.perf_counter() - t0:.2f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -707,8 +752,9 @@ def phase_full_width(scene, cams, cfg):
         outs = [render(*scene, cam, render_geo=True, active_sh_degree=3, config=cfg) for cam in cams]
     launches = read_counts()
     print(f"[full] launches on the render path: {launches}")
-    check(launches == {"blend_fwd": len(cams), "blend_bwd": 0, "fold_rows": 0},
-          f"render path launches {launches}, expected {len(cams)} forward blends and nothing else")
+    check(launches == kernel_dict(per_kernel(len(cams), 0)),
+          f"render path launches {launches}, expected {len(cams)} forward blends and preprocess forwards and "
+          f"nothing else")
     for i, out in enumerate(outs):
         for key in ("overflow", "block_overflow", "visible_overflow"):
             check(int(out[key]) == 0, f"view {i}: {key} = {int(out[key])}")
@@ -812,6 +858,227 @@ def phase_times(scene, cam, cfg, pre, tb):
                 render_ms=render_ms)
 
 
+# the preprocess kernels (csrc/preprocess.cu): the holds' tolerances are
+# tests/test_torch_raster.py's preprocess ones (floats atol 1e-5 / rtol
+# 1e-5, the integer radius within 1 on a share of the rows) and the JAX
+# suite's gradient tolerance (5e-3 of each leaf's max |grad|)
+PRE_FIELDS = ("mean2d", "conic", "depth", "inv_depth", "opacity", "rgb", "normal", "distance")
+PRE_TOL = dict(atol=1e-5, rtol=1e-5)
+RADIUS_FLIP_SHARE = 0.01
+PRE_GRAD_TOL = 5e-3
+# float operations a row, counted from csrc/preprocess.cu and rounded up
+# (SH degree 3, render_geo): the operations' bound, far below the bytes'
+OPS_PER_PRE_FWD_ROW = 450
+OPS_PER_PRE_BWD_ROW = 1100
+
+
+def pre_bound(bytes_moved, ops):
+    """The least time of a preprocess kernel: its bytes over the memory rate
+    or its float operations over the FP32 rate, whichever is longer."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = ops / FP32_FLOP_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                text=f"{bytes_moved / 1e6:.1f} MB moved: {t_bytes:.4f} ms; {ops / 1e9:.2f} GFLOP: {t_ops:.4f} ms")
+
+
+def hold_preprocess_forward(got, want, what):
+    """The kernel's ten outputs against the plain forward's on the same
+    inputs: the radius within 1 on at most RADIUS_FLIP_SHARE of the rows,
+    the visible mask differing only where the radius does, every float at
+    PRE_TOL (opacity and inv_depth, which the mask zeroes, on the rows
+    where the masks agree)."""
+    N = got.visible.shape[0]
+    dr = (got.radius - want.radius).abs()
+    flips = int((dr > 0).sum())
+    check(int(dr.max()) <= 1 and flips <= RADIUS_FLIP_SHARE * N,
+          f"{what}: the radius departs by up to {int(dr.max())} on {flips} of {N} rows")
+    vis_diff = got.visible != want.visible
+    check(not bool((vis_diff & (dr == 0)).any()), f"{what}: the visible mask differs where the radius does not")
+    same = ~vis_diff
+    errs = {}
+    for k in PRE_FIELDS:
+        a, b = getattr(got, k), getattr(want, k)
+        if k in ("opacity", "inv_depth"):
+            a, b = a[same], b[same]
+        n_bad = int((~torch.isclose(a, b, **PRE_TOL)).sum())
+        errs[k] = max_abs_err(a, b)
+        check(n_bad == 0, f"{what}: {k} outside atol 1e-5 / rtol 1e-5 on {n_bad} elements (max abs err {errs[k]:.3e})")
+    return dict(err=max(errs.values()), errs=errs, flips=flips, vis_diff=int(vis_diff.sum()), rows=N)
+
+
+def phase_preprocess(scene, cams, cfg):
+    """preprocess_fwd on the render cell's four full-width views against
+    preprocess_plain on the same inputs (one launch per call), then view
+    0's kernel timed alone beside the plain version and its bound."""
+    from hidegs_tpu_torch.core.ewa import H_VAR, NEAR_Z
+    from hidegs_tpu_torch.core.sh import degree_mask
+    from hidegs_tpu_torch.raster import binning, preprocess_autograd as pa
+    from hidegs_tpu_torch.raster.preprocess import camera_pack, preprocess_gaussians, preprocess_plain
+
+    tile = cfg.tile
+    held = []
+    for i, cam in enumerate(cams):
+        ty, tx = binning.tile_grid(cam.height, cam.width, tile)
+        kw = dict(active_sh_degree=3, render_geo=True, screen_bounds=(tx * tile, ty * tile))
+        with torch.no_grad():
+            before = pa.FWD_LAUNCHES
+            got = preprocess_gaussians(*scene, cam, **kw)
+            check(pa.FWD_LAUNCHES == before + 1, f"preprocess view {i}: {pa.FWD_LAUNCHES - before} forward launches")
+            want = preprocess_plain(*scene, cam, **kw)
+            again = preprocess_gaussians(*scene, cam, **kw)
+        h = hold_preprocess_forward(got, want, f"preprocess_fwd view {i}")
+        check(all(torch.equal(a, b) for a, b in zip(got.tensors(), again.tensors())),
+              f"preprocess_fwd view {i}: two launches differ")
+        held.append(h)
+        print(f"[preprocess] view {i}: kernel vs plain forward, max abs err per field "
+              + ", ".join(f"{k} {e:.3e}" for k, e in h["errs"].items())
+              + f" (atol 1e-5 / rtol 1e-5 holds); radius flips {h['flips']} of {h['rows']} rows "
+              f"({h['flips'] / h['rows']:.2e}), visible differs on {h['vis_diff']} (each a flipped radius); "
+              f"{int(got.visible.sum())} visible; two launches bitwise equal")
+        del got, want, again
+
+    cam = cams[0]
+    ty, tx = binning.tile_grid(cam.height, cam.width, tile)
+    N = scene.means3d.shape[0]
+    K = scene.shs.shape[-2]
+    kw = dict(active_sh_degree=3, render_geo=True, screen_bounds=(tx * tile, ty * tile))
+    flags = pa.USE_SH | pa.ANTIALIAS | pa.RENDER_GEO | pa.SCREEN
+    params, mask = camera_pack(cam), degree_mask(3, K, device=scene.means3d.device)
+    color = scene.shs.reshape(N, 3 * K)
+    out = {k: torch.empty((N, pa.WIDTHS[k]) if k in pa.WIDTHS else (N,), device=color.device,
+                          dtype={"radius": torch.int32, "visible": torch.bool}.get(k, torch.float32))
+           for k in pa.FIELDS}
+
+    def launch():
+        pa.launch_preprocess_fwd(scene.means3d, scene.scales, scene.quats, scene.opacities, color, None, params,
+                                 mask, None, None, None, K, flags, H_VAR, NEAR_Z, float(tx * tile), float(ty * tile),
+                                 out)
+
+    def plain():
+        with torch.no_grad():
+            return preprocess_plain(*scene, cam, **kw)
+
+    ms = time_ms(launch)
+    plain_ms = time_ms(plain)
+    bytes_moved = N * (11 + 3 * K) * 4 + N * 15 * 4 + N * 5 + 4 * (len(params) + K)
+    bound = pre_bound(bytes_moved, N * OPS_PER_PRE_FWD_ROW)
+    print(f"[preprocess] forward kernel, view 0 ({N} rows, SH degree 3, render_geo): {ms:.4f} ms one launch at a "
+          f"time (CUDA events, median of {ITERS} after {WARMUP}), plain forward {plain_ms:.3f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['text']}), the kernel at "
+          f"{bound['bound_ms'] / ms:.1%} of it; ptxas (build log): {ptxas_report(pa.SOURCES['preprocess'])}")
+    return dict(err=max(h["err"] for h in held), flips=sum(h["flips"] for h in held), rows=sum(h["rows"] for h in held),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+
+def ptxas_report(src):
+    """Registers, stack and spills of each kernel of `src`'s library, from its build log."""
+    from hidegs_tpu_torch.raster import cuda_blend
+
+    log = cuda_blend.build({"src": src})["src"].with_suffix(".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    kernels = [re.search(r"(\w+_kernel)", ln).group(1) for ln in lines if "Compiling entry" in ln]
+    regs = [re.search(r"Used (\d+) registers", ln).group(1) for ln in lines if "registers" in ln]
+    spills = [ln.strip() for ln in lines if "spill" in ln]
+    return "; ".join(f"{k}: {r} registers, {s}" for k, r, s in zip(kernels, regs, spills)) or "no build log"
+
+
+def phase_preprocess_backward(train):
+    """preprocess_bwd on the train cell's step: the cotangents one train
+    step gives the PreprocessFn node (train_step's own stages, view 0 of
+    the trained state), its gradients against torch autograd of
+    preprocess_plain on the node's inputs and cotangents; then the kernel
+    timed alone beside the plain closed-form backward and its bound."""
+    from hidegs_tpu_torch.raster import preprocess_autograd as pa
+    from hidegs_tpu_torch.raster.preprocess import preprocess_plain, preprocess_plain_bwd
+    from hidegs_tpu_torch.train import loop as tl
+
+    calls = []
+
+    def record(fn):
+        def call(*args, **kwargs):
+            calls.append((args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    ts, tcfg = train["ts"], train["tcfg"]
+    with patched(pa, "preprocess_cuda", record):
+        loss, _, inputs = tl.step_forward(ts, train["batches"][0], tcfg)
+    check(len(calls) == 1, f"the train step preprocessed {len(calls)} times")
+    node = find_node(loss.grad_fn, "PreprocessFnBackward")
+    got = {}
+
+    def keep(grad_outputs):
+        got.update(cts=tuple(None if g is None else g.detach().contiguous() for g in grad_outputs),
+                   saved=tuple(None if x is None else x.detach() for x in node.saved_tensors))
+
+    def keep_result(grad_inputs, _grad_outputs):
+        got.update(grads=grad_inputs)
+
+    handles = node.register_prehook(keep), node.register_hook(keep_result)
+    before = pa.BWD_LAUNCHES
+    tl.step_backward(loss, inputs)
+    for h in handles:
+        h.remove()
+    check(pa.BWD_LAUNCHES == before + 1 and "grads" in got,
+          f"the train step's backward launched preprocess_bwd {pa.BWD_LAUNCHES - before} times")
+    args, kwargs = calls[0]
+    cam = args[5]
+    leaves = [x.detach().clone().requires_grad_(True) for x in args[:5]]
+    kw = dict(kwargs)
+    if kw.get("mean2d_offset") is not None:
+        kw["mean2d_offset"] = kw["mean2d_offset"].detach().clone().requires_grad_(True)
+    names = ["means3d", "scales", "quats", "opacities", "shs" if kw.get("colors_precomp") is None else None,
+             "mean2d_offset" if kw.get("mean2d_offset") is not None else None]
+    wrt = [x for x, n in zip(leaves + [kw.get("mean2d_offset")], names) if n is not None]
+    pre = preprocess_plain(*leaves, cam, **kw)
+    outs = [(getattr(pre, k), ct) for k, ct in zip(PRE_FIELDS, got["cts"]) if ct is not None
+            and getattr(pre, k).requires_grad]
+    want = torch.autograd.grad([o for o, _ in outs], wrt, [ct for _, ct in outs])
+    errs, abs_err = {}, 0.0
+    for name, w, g in zip([n for n in names if n is not None], want, [g for g, n in zip(got["grads"], names)
+                                                                    if n is not None]):
+        scale = float(w.abs().max())
+        abs_err = max(abs_err, max_abs_err(g, w))
+        errs[name] = max_abs_err(g, w) / scale
+        check(scale > 0 and errs[name] <= PRE_GRAD_TOL,
+              f"preprocess_bwd, train step: {name} departs {errs[name]:.3e} of its max |grad|")
+    present = [k for k, ct in zip(PRE_FIELDS, got["cts"]) if ct is not None]
+    N = args[0].shape[0]
+    print(f"[preprocess] backward kernel on the train cell's step (view 0, {N} rows, cotangents of {present}) "
+          f"vs torch autograd of the plain forward: departure of each leaf's max |grad| "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (<= {PRE_GRAD_TOL}); max abs err {abs_err:.3e}")
+
+    means3d, scales, quats, opacities, color, params, mask, visible = got["saved"]
+    K, flags, h_var, near_z, _, _ = node.static
+    cts = dict(zip(PRE_FIELDS, got["cts"]))
+    grads = {k: torch.empty_like(x) for k, x in (("means3d", means3d), ("scales", scales), ("quats", quats),
+                                                   ("opacities", opacities), ("color", color))}
+    grads["mean2d_offset"] = torch.empty((N, 2), device=means3d.device) if node.has_offset else None
+
+    def launch():
+        pa.launch_preprocess_bwd(means3d, scales, quats, opacities, color, params, mask, visible, cts, K, flags,
+                                 h_var, near_z, grads)
+
+    plain_kw = {k: v for k, v in kw.items() if k not in ("boxmin", "boxmax", "box_exempt", "screen_bounds")}
+
+    def plain():
+        with torch.no_grad():
+            return preprocess_plain_bwd(cts, visible, *(x.detach() for x in args[:5]), cam, **plain_kw)
+
+    ms = time_ms(launch)
+    plain_ms = time_ms(plain)
+    width = color.shape[1]
+    ct_floats = sum(x.shape[1] if x.ndim == 2 else 1 for x in cts.values() if x is not None)
+    out_floats = 11 + width + (2 if node.has_offset else 0)
+    bytes_moved = N * (11 + width) * 4 + N + N * ct_floats * 4 + N * out_floats * 4 + 4 * (len(params) + K)
+    bound = pre_bound(bytes_moved, N * OPS_PER_PRE_BWD_ROW)
+    print(f"[preprocess] backward kernel ({N} rows, {ct_floats} cotangent floats a row): {ms:.4f} ms one launch at "
+          f"a time, plain closed-form backward {plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']} ({bound['text']}), the kernel at {bound['bound_ms'] / ms:.1%} of it")
+    return dict(err=abs_err, rel_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
+                bound_by=bound["bound_by"])
+
+
 def phase_breakdown(scene, cam, cfg, pre, tb):
     """Where a full render's time goes: each stage timed alone with CUDA
     events, then one render under torch.profiler for the device busy share
@@ -884,8 +1151,8 @@ def phase_render_compiled(scene, cams, cfg):
            for name, kw in modes.items()}
     launches = read_counts()
     n = len(modes) * len(cams)
-    check(len(comp.captures) == len(modes) and replay_counts() == (n, 0, 0)
-          and direct_counts() == (len(modes), 0, 0),
+    check(len(comp.captures) == len(modes) and replay_counts() == per_kernel(n, 0)
+          and direct_counts() == per_kernel(len(modes), 0),
           f"compiled render launches {launches} for {n} views and {len(comp.captures)} captures: expected one "
           f"replayed forward launch per view and the warm-up's per capture")
     print(f"[render-compiled] launches {launches}: {n} replayed views ({len(cams)} per configuration) and "
@@ -1157,8 +1424,8 @@ def phase_serve(scene, cams, cfg, hier_path):
     n_captures = sum(len(fn.captures) for fn in served)
     print(f"[serve] launches on the serve path: {launches} for {n_served} served views: replayed "
           f"{dict(zip(launches, replay_counts()))}, the warm-ups of {n_captures} captures {dict(zip(launches, direct_counts()))}")
-    check(len(served) == 2 and n_served == 2 * len(cams) and replay_counts() == (n_served, 0, 0)
-          and direct_counts() == (n_captures, 0, 0),
+    check(len(served) == 2 and n_served == 2 * len(cams) and replay_counts() == per_kernel(n_served, 0)
+          and direct_counts() == per_kernel(n_captures, 0),
           f"serve path launches {launches}, expected one replayed forward blend per served view ({2 * len(cams)}) "
           f"and the warm-up's per capture ({n_captures}) through one CompiledRender per entry point ({len(served)})")
     for i, r in enumerate(renders):
@@ -1575,7 +1842,7 @@ def phase_train(scene, cams, cfg):
     launches = read_counts()
     wall_s = time.perf_counter() - t0
     print(f"[train] {TRAIN_STEPS} steps in {wall_s:.2f} s host wall; launches on the train path: {launches}")
-    check(launches == {"blend_fwd": TRAIN_STEPS, "blend_bwd": TRAIN_STEPS, "fold_rows": TRAIN_STEPS},
+    check(launches == kernel_dict(per_kernel(TRAIN_STEPS, TRAIN_STEPS)),
           f"train path launches {launches}, expected one of each kernel per step")
     for k, m in enumerate(metrics):
         check(bool(torch.isfinite(m["total"])), f"train step {k}: loss {float(m['total'])}")
@@ -1797,7 +2064,7 @@ def scalar_fold_fn():
     from hidegs_tpu_torch.raster import cuda_blend
 
     lib = cuda_blend.build({"fold_rows_scalar": SCALAR_FOLD_SRC})["fold_rows_scalar"]
-    return cuda_blend.bind(lib, "hidegs_fold_rows_scalar", 2, 1, 2)
+    return cuda_blend.bind(lib, "hidegs_fold_rows_scalar", 2, 1, 0, 2)
 
 
 def fold_ab(rows_exp, tb, N):
@@ -1992,7 +2259,7 @@ def phase_compiled(scene, cams, cfg):
           f"compaction budget {ccfg.raster.max_visible} (peak visible {peak}); {COMPILED_STEPS} single- and "
           f"multi-view steps, {COMPILED_SHORT} of each other variant")
     step = compiled.CompiledTrainStep()
-    launches = dict.fromkeys(("blend_fwd", "blend_bwd", "fold_rows"), 0)
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
     results = {}
     for name, vcfg, use_exposure, rb, vbatches in variants:
         eager = comp = ts0
@@ -2018,7 +2285,7 @@ def phase_compiled(scene, cams, cfg):
             r = tuple(b - a for a, b in zip(replayed, replay_counts()))
             captured = len(step.captures) > n_captures
             check(captured == (k == 0), f"compiled {name} step {k}: captured {captured}")
-            check(r == (per_step,) * 3 and d == ((per_step,) * 3 if captured else (0, 0, 0)),
+            check(r == per_kernel(per_step, per_step) and d == per_kernel(*(per_step, per_step) if captured else (0, 0)),
                   f"compiled {name} step {k}: replayed launches {r}, the launchers' {d}")
             for j, key in enumerate(launches):
                 launches[key] += d[j] + r[j]
@@ -2228,8 +2495,8 @@ def phase_trainer(scene, cams, cfg):
     check(mv == [False] * (TRAINER_MV_FROM - 1) + [True] * (TRAINER_ITERS - TRAINER_MV_FROM + 1),
           f"trainer: multi-view steps at {[i + 1 for i, m in enumerate(mv) if m]}")
     for i, s in enumerate(steps):
-        want = (2, 2, 2) if s["mv"] else (1, 1, 1)
-        check(s["replayed"] == want and s["direct"] == (want if s["captured"] else (0, 0, 0)),
+        want = per_kernel(2, 2) if s["mv"] else per_kernel(1, 1)
+        check(s["replayed"] == want and s["direct"] == (want if s["captured"] else per_kernel(0, 0)),
               f"trainer iteration {i + 1}: replayed launches {s['replayed']}, the launchers' {s['direct']} "
               f"(captured: {s['captured']}), expected {want} replayed and the warm-up's on a capture")
     names = list(launches)
@@ -2300,8 +2567,8 @@ def phase_trainer(scene, cams, cfg):
     # the same run on the eager step: the times of both in one call
     eager = run_trainer(args_for(work / "model_eager"), dev, stamp_its, eager=True)
     for i, s in enumerate(eager["steps"]):
-        want = (2, 2, 2) if s["mv"] else (1, 1, 1)
-        check(s["direct"] == want and s["replayed"] == (0, 0, 0),
+        want = per_kernel(2, 2) if s["mv"] else per_kernel(1, 1)
+        check(s["direct"] == want and s["replayed"] == per_kernel(0, 0),
               f"eager trainer iteration {i + 1}: launches {s['direct']}, expected {want}")
     check(all(bool(torch.isfinite(s["metrics"]["total"])) for s in eager["steps"]), "eager trainer: a non-finite loss")
     window = {}
@@ -2491,7 +2758,7 @@ def hold_compiled_dp(estep, cstep, ts, batch, n, what):
     V = sharded.num_views(batch)
     dev = ts.gaussians.alive.device
     eager = comp = ts
-    launches = dict.fromkeys(("blend_fwd", "blend_bwd", "fold_rows"), 0)
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
     for k in range(n):
         eager, em = estep(eager, batch)
         sync(dev)
@@ -2507,7 +2774,7 @@ def hold_compiled_dp(estep, cstep, ts, batch, n, what):
         r = tuple(b - a for a, b in zip(replayed, replay_counts()))
         captured = len(cstep.captures) > n_captures
         check(captured == (k == 0), f"{what} step {k}: captured {captured}")
-        check(r == (V,) * 3 and d == ((V,) * 3 if captured else (0, 0, 0)),
+        check(r == per_kernel(V, V) and d == per_kernel(*(V, V) if captured else (0, 0)),
               f"{what} step {k}: replayed launches {r}, the launchers' {d}, expected {V} of each a replay")
         for j, key in enumerate(launches):
             launches[key] += d[j] + r[j]
@@ -2570,7 +2837,7 @@ def phase_view_parallel(scene, cams, cfg):
         runs[name] = dict(ts=ts, kept=kept, losses=losses, launches=launches)
     # the compiled step beside the eager one, from the same state
     comp = {}
-    comp_launches = dict.fromkeys(("blend_fwd", "blend_bwd", "fold_rows"), 0)
+    comp_launches = dict.fromkeys(KERNEL_NAMES, 0)
     for wire in (None, torch.bfloat16):
         name = "f32" if wire is None else "bf16"
         estep, _ = sharded.make_dp_train_step(tcfg, None, grad_reduce_dtype=wire)
@@ -2928,8 +3195,8 @@ def check_frame_launches(calls, launches, replays, n_frames, mode, what):
     launch per capture), nothing else."""
     captures = sum(n for _, n in calls)
     direct = {k: launches[k] - replays[k] for k in launches}
-    want_direct = {"blend_fwd": n_frames if mode == "eager" else captures, "blend_bwd": 0, "fold_rows": 0}
-    want_replays = {"blend_fwd": 0 if mode == "eager" else n_frames, "blend_bwd": 0, "fold_rows": 0}
+    want_direct = kernel_dict(per_kernel(n_frames if mode == "eager" else captures, 0))
+    want_replays = kernel_dict(per_kernel(0 if mode == "eager" else n_frames, 0))
     check(len(calls) == n_frames and all(m == mode for m, _ in calls) and direct == want_direct
           and replays == want_replays,
           f"{what}: {len(calls)} {sorted(set(m for m, _ in calls))} cut-and-render calls, launches {direct} through "
@@ -3224,7 +3491,7 @@ def phase_bf16(scene, cams, cfg, train):
     reset_counts()
     r16 = render_grads(scene, cams[0], dataclasses.replace(cfg, bf16_stream=True))
     launches = read_counts()
-    check(launches == {"blend_fwd": 1, "blend_bwd": 1, "fold_rows": 1},
+    check(launches == kernel_dict(per_kernel(1, 1)),
           f"bf16 render and backward launched {launches}, expected one of each kernel")
     r32 = render_grads(scene, cams[0], cfg)
     check(r16["overflow"] == 0 and r32["overflow"] == 0, "bf16 render: overflow")
@@ -3421,7 +3688,7 @@ def phase_post_opt(h, cams, targets):
           f"cut per view {cut_sizes} (budget {POST_OPT_BUDGET}), instances {inst} → max_instances {cfg.max_instances}")
 
     losses, counters, last, owner, diverged = [], [], {}, {}, []
-    path = {"eager": (0, 0, 0), "compiled": (0, 0, 0)}
+    path = {"eager": per_kernel(0, 0), "compiled": per_kernel(0, 0)}
 
     def hold_select(select):
         def call(self, ts, cam, target_size, budget):
@@ -3456,8 +3723,8 @@ def phase_post_opt(h, cams, targets):
             d = tuple(b - a for a, b in zip(d1, direct_counts()))
             r = tuple(b - a for a, b in zip(r1, replay_counts()))
             captured = [c["kind"] for c in self.captures[n_caps:]]
-            check(eager == (1, 1, 1), f"post-opt step {k}: the eager step launched {eager}")
-            check(r == (1, 1, 1) and d == ((1, 1, 1) if "step" in captured else (0, 0, 0)),
+            check(eager == per_kernel(1, 1), f"post-opt step {k}: the eager step launched {eager}")
+            check(r == per_kernel(1, 1) and d == per_kernel(*(1, 1) if "step" in captured else (0, 0)),
                   f"post-opt step {k}: replayed launches {r}, the launchers' {d} (captured {captured})")
             path["eager"] = tuple(a + b for a, b in zip(path["eager"], eager))
             path["compiled"] = tuple(a + b + c for a, b, c in zip(path["compiled"], d, r))
@@ -3487,14 +3754,14 @@ def phase_post_opt(h, cams, targets):
     losses = torch.stack(losses).tolist()
     counters = torch.stack(counters).sum(0).tolist()
     n_step_captures = sum(c["kind"] == "step" for c in comp.captures)
-    want_compiled = (POST_OPT_ITERS + n_step_captures,) * 3
+    want_compiled = per_kernel(*(POST_OPT_ITERS + n_step_captures,) * 2)
     print(f"[post-opt] launches: {path['compiled']} on the compiled path ({POST_OPT_ITERS} steps: replays and "
           f"{n_step_captures} capture's warm-up), {path['eager']} of the eager steps held beside them; losses "
           f"{losses[0]:.4f} → {losses[-1]:.4f}; budget counters (overflow, block, visible; the graph's outputs) "
           f"summed {counters}; {1e3 * wall / POST_OPT_ITERS:.1f} ms per held iteration on the host clock (an eager "
           f"and a compiled step, the checks), peak device memory {peak_gb:.2f} GiB")
     check(diverged == [], f"post-opt: the compiled and eager steps part: {diverged}")
-    check(path["eager"] == (POST_OPT_ITERS,) * 3 and path["compiled"] == want_compiled
+    check(path["eager"] == per_kernel(POST_OPT_ITERS, POST_OPT_ITERS) and path["compiled"] == want_compiled
           and tuple(launches.values()) == tuple(a + b for a, b in zip(path["eager"], want_compiled)),
           f"post-opt launches {path}, {launches} in all; expected one of each kernel per eager step and per replay, "
           f"and one per capture's warm-up")
@@ -3705,9 +3972,10 @@ def phase_pipeline(dev):
                     sync(dev)
                     seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t
                     delta = [b - a for a, b in zip(before, counts())]
-                    prev = launches.get(name, (0, 0, 0))
-                    launches[name] = tuple(p + d + r for p, d, r in zip(prev, delta[:3], delta[3:]))
-                    replayed[name] = tuple(p + r for p, r in zip(replayed.get(name, (0, 0, 0)), delta[3:]))
+                    n = len(KERNEL_NAMES)
+                    prev = launches.get(name, per_kernel(0, 0))
+                    launches[name] = tuple(p + d + r for p, d, r in zip(prev, delta[:n], delta[n:]))
+                    replayed[name] = tuple(p + r for p, r in zip(replayed.get(name, per_kernel(0, 0)), delta[n:]))
             return call
         return wrap
 
@@ -3805,16 +4073,17 @@ def phase_pipeline(dev):
           and all(c["launches"] == c["warmup_launches"] for c in captures),
           f"pipeline: captures {[(c['what'], c['launches'], c['warmup_launches']) for c in captures]}")
     warm = {stage: tuple(sum(c["warmup_launches"][k] for c in captures if c["what"] == what)
-                         for k in ("blend_fwd", "blend_bwd", "fold_rows")) for stage, what in kinds.items()}
+                         for k in KERNEL_NAMES) for stage, what in kinds.items()}
     for stage, steps in (("coarse", PIPE_COARSE), ("post-opt", PIPE_POST)):
-        check(replayed.get(stage) == (steps,) * 3,
+        check(replayed.get(stage) == per_kernel(steps, steps),
               f"pipeline: the {stage} stage replayed {replayed.get(stage)} launches, expected {steps} of each")
     want = {"coarse": tuple(PIPE_COARSE + w for w in warm["coarse"]),
-            "post-opt": tuple(PIPE_POST + w for w in warm["post-opt"]), "eval": (n_eval, 0, 0)}
+            "post-opt": tuple(PIPE_POST + w for w in warm["post-opt"]), "eval": per_kernel(n_eval, 0)}
     for key, expect in want.items():
         check(launches.get(key) == expect, f"pipeline: {key} launched {launches.get(key)}, expected {expect}")
-    by_stage = [sum(v[k] for v in launches.values()) for k in range(3)]
-    check(list(total.values()) == by_stage and by_stage == [sum(v[k] for v in want.values()) for k in range(3)],
+    by_stage = [sum(v[k] for v in launches.values()) for k in range(len(KERNEL_NAMES))]
+    check(list(total.values()) == by_stage
+          and by_stage == [sum(v[k] for v in want.values()) for k in range(len(KERNEL_NAMES))],
           f"pipeline: {total} launches in the parent process, {launches} by stage; expected only {want}")
 
     print(f"[pipeline] {len(chunks)} chunks {chunks}; chunk hierarchy points {sizes}; merged {merged.num_points} "
@@ -3935,7 +4204,7 @@ def phase_viewer(scene, cams, max_instances):
         http.shutdown()
         gui.close()
     n_captures = len(comp.captures)
-    check(replay_counts() == (3, 0, 0) and direct_counts() == (n_captures, 0, 0) and comp.replays == 3,
+    check(replay_counts() == per_kernel(3, 0) and direct_counts() == per_kernel(n_captures, 0) and comp.replays == 3,
           f"viewer path launches {launches}, expected one replayed forward blend per served frame (3) and the "
           f"warm-up's per capture ({n_captures})")
     check(bool(capture_threads) and capture_threads[0] != threading.main_thread().name,
@@ -3979,6 +4248,7 @@ def main() -> int:
     render_launches, outs = phase_full_width(scene, cams, cfg)
     pre, tb, err = phase_hold_full_width(scene, cams, cfg, outs)
     times = phase_times(scene, cams[0], cfg, pre, tb)
+    pre_fwd = phase_preprocess(scene, cams, cfg)
     phase_breakdown(scene, cams[0], cfg, pre, tb)
     rcomp = phase_render_compiled(scene, cams, cfg)
     leaf_renders = [torch.clamp(out["render"], 0, 1) for out in outs]
@@ -3992,6 +4262,7 @@ def main() -> int:
     viewer = phase_viewer(scene, cams, serve["cli_budget"])
     train = phase_train(scene, cams, cfg)
     held = phase_hold_train(train)
+    pre_bwd = phase_preprocess_backward(train)
     train_launches = train["launches"]
     bf16 = phase_bf16(scene, cams, cfg, train)
     del pre, tb
@@ -4059,6 +4330,35 @@ def main() -> int:
         "bound_ms": ttimes["fold"]["bound_ms"],
         "bound_by": ttimes["fold"]["bound_by"],
         "library_ms": ttimes["fold"]["library_ms"],  # index_add_ (atomics: not deterministic)
+    }, {
+        "name": "preprocess_fwd",
+        "route": "cuda",
+        "source": "hidegs_tpu_torch/raster/csrc/preprocess.cu",
+        # no Pallas kernel: XLA's fusion of the JAX preprocess (with core/ewa.py, core/sh.py)
+        "replaces": "hidegs_tpu/raster/preprocess.py:37",
+        "launches": launches["preprocess_fwd"],
+        "launches_by_path": by_path["preprocess_fwd"],
+        "max_abs_err": pre_fwd["err"],  # phase 5p: the render cell's four views
+        "radius_flips": [pre_fwd["flips"], pre_fwd["rows"]],
+        "ms": pre_fwd["ms"],
+        "plain_ms": pre_fwd["plain_ms"],
+        "bound_ms": pre_fwd["bound_ms"],
+        "bound_by": pre_fwd["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes it
+    }, {
+        "name": "preprocess_bwd",
+        "route": "cuda",
+        "source": "hidegs_tpu_torch/raster/csrc/preprocess.cu",
+        "replaces": "hidegs_tpu/raster/preprocess.py:37",  # its jax.vjp
+        "launches": launches["preprocess_bwd"],
+        "launches_by_path": by_path["preprocess_bwd"],
+        "max_abs_err": pre_bwd["err"],  # phase 10p: the train cell's step, against autograd of the plain forward
+        "grad_err_of_max": pre_bwd["rel_err"],
+        "ms": pre_bwd["ms"],
+        "plain_ms": pre_bwd["plain_ms"],
+        "bound_ms": pre_bwd["bound_ms"],
+        "bound_by": pre_bwd["bound_by"],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

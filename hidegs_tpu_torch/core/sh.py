@@ -83,16 +83,16 @@ def eval_sh(active_degree, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor
     """
     dirs = dirs * torch.rsqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True) + 1e-24)
     if sh.ndim == dirs.ndim:
+        # flat (..., 3K): one (..., 3) row of coefficients per k, summed in
+        # k order
         K = sh.shape[-1] // 3
+        cols = sh.reshape(sh.shape[:-1] + (K, 3)).unbind(-2)
         basis = _sh_basis_components(dirs)
         mask = degree_mask(active_degree, K, device=sh.device)
-        rgb = []
-        for c in range(3):
-            acc = (basis[0] * mask[0]) * sh[..., c]
-            for k in range(1, K):
-                acc = acc + (basis[k] * mask[k]) * sh[..., 3 * k + c]
-            rgb.append(acc)
-        return torch.stack(rgb, dim=-1)
+        acc = (basis[0] * mask[0])[..., None] * cols[0]
+        for k in range(1, K):
+            acc = acc + (basis[k] * mask[k])[..., None] * cols[k]
+        return acc
     K = sh.shape[-2]
     basis = sh_basis(dirs)[..., :K]
     mask = degree_mask(active_degree, K, device=sh.device)

@@ -27,8 +27,10 @@ outside the blend kernels, on the group of one mesh dimension:
     cotangents over the group, which would scale it by the model size.)
 
 A rank loops over its local views (JAX vmaps them): one forward and one
-backward per view, accumulated in view order, so a view's blend node
-launches the forward, backward and fold kernels once. There is no
+backward per view, so a view's blend node launches the forward, backward
+and fold kernels once. The views' gradients add as halves, (v0 + v1) +
+(v2 + v3) for four, so one process and a data group of two ranks give the
+same sums. There is no
 finite-step gate, as in the JAX DP step. With `mesh=None` the step runs
 in one process with no collective at all.
 
@@ -302,6 +304,18 @@ def draw_dp_pixels(plan: DPPlan, ts: TrainState, batch: ViewBatch):
     return uv, gen
 
 
+def _halves_sum(items, n: int) -> List[torch.Tensor]:
+    """The elementwise sum of the next `n` lists of `items`, as the sum of
+    its halves (the first ceil(n/2) lists, then the rest): four views add
+    as (v0 + v1) + (v2 + v3). A data group of two ranks, each holding half
+    of the views, adds the two halves once more, so one process and two
+    ranks round alike."""
+    if n == 1:
+        return next(items)
+    first = _halves_sum(items, (n + 1) // 2)
+    return [a + b for a, b in zip(first, _halves_sum(items, n // 2), strict=True)]
+
+
 def dp_compute(plan: DPPlan, ts: TrainState, batch: ViewBatch,
                uv: Optional[torch.Tensor]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One view-parallel step on the samples `uv`: (new state, metrics).
@@ -335,47 +349,54 @@ def dp_compute(plan: DPPlan, ts: TrainState, batch: ViewBatch,
     exposure = ts.exposure.detach().requires_grad_(use_exposure)
     rows = g_render.capacity  # the rows the render holds
 
-    param_grads = expo_grad = loss_local = None
-    metric_sums: Dict[str, torch.Tensor] = {}
+    n = len(PARAM_FIELDS)
+    names: List[str] = []  # the scalar metrics, sorted
     stats = None  # (R, 4): any-visible, max gradient norm, max abs gradient, max radius
-    for j, view in enumerate(unstack_view_batch(batch)):
-        offset = torch.zeros((rows, 2), dtype=torch.float32, device=params.xyz.device, requires_grad=True)
-        total, aux = compute_losses(g_render, exposure, view, ts.step, step_cfg, offset, use_exposure,
-                                    uv=None if uv is None else uv[first + j], scale_rows=scale_rows)
-        inputs = list(params) + [offset] + ([exposure] if use_exposure else [])
-        # the views share the gather's graph when the rows are split
-        grads = torch.autograd.grad(total / V, inputs, allow_unused=True,
-                                    retain_graph=sharded and j < V_local - 1)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
-        n = len(PARAM_FIELDS)
-        param_grads = grads[:n] if param_grads is None else [a + b for a, b in zip(param_grads, grads[:n])]
-        if use_exposure:
-            expo_grad = grads[-1] if expo_grad is None else expo_grad + grads[-1]
-        loss_local = total.detach() if loss_local is None else loss_local + total.detach()
-        for k, val in aux.items():
-            if val.ndim == 0:
-                v32 = val.detach().to(torch.float32)
-                metric_sums[k] = v32 if k not in metric_sums else metric_sums[k] + v32
 
-        # per-view screen-space gradient at single-view magnitude (the
-        # mean loss gives each view 1/V), in the reference's (0.5·W,
-        # 0.5·H) NDC units (backward.cu:604,754)
-        sg = local(grads[n]) * V
-        sg = torch.stack([sg[:, 0] * (0.5 * W), sg[:, 1] * (0.5 * H)], dim=1)
-        vis, radii = local(aux["visibility"]), local(aux["radii"])
-        gnorm = torch.linalg.norm(sg, dim=-1)
-        gabs = torch.sum(torch.abs(sg), dim=-1)
-        zero = torch.zeros_like(gnorm)
-        view_stats = torch.stack([vis.to(torch.float32), torch.where(vis, gnorm, zero),
-                                  torch.where(vis, gabs, zero), torch.where(vis, radii.to(torch.float32), zero)],
-                                 dim=1)
-        stats = view_stats if stats is None else torch.maximum(stats, view_stats)
-        del total, aux, grads
+    def views():
+        """Each local view's parameter gradients (then the exposure's), loss
+        total and scalar metrics, in view order; folds the view's
+        densification statistics into `stats`."""
+        nonlocal stats
+        for j, view in enumerate(unstack_view_batch(batch)):
+            offset = torch.zeros((rows, 2), dtype=torch.float32, device=params.xyz.device, requires_grad=True)
+            total, aux = compute_losses(g_render, exposure, view, ts.step, step_cfg, offset, use_exposure,
+                                        uv=None if uv is None else uv[first + j], scale_rows=scale_rows)
+            inputs = list(params) + [offset] + ([exposure] if use_exposure else [])
+            # the views share the gather's graph when the rows are split
+            grads = torch.autograd.grad(total / V, inputs, allow_unused=True,
+                                        retain_graph=sharded and j < V_local - 1)
+            grads = [torch.zeros_like(x) if g is None else g for x, g in zip(inputs, grads)]
+            scalars = {k: val.detach().to(torch.float32) for k, val in aux.items() if val.ndim == 0}
+            if not names:
+                names.extend(sorted(scalars))
+
+            # per-view screen-space gradient at single-view magnitude (the
+            # mean loss gives each view 1/V), in the reference's (0.5·W,
+            # 0.5·H) NDC units (backward.cu:604,754)
+            sg = local(grads[n]) * V
+            sg = torch.stack([sg[:, 0] * (0.5 * W), sg[:, 1] * (0.5 * H)], dim=1)
+            vis, radii = local(aux["visibility"]), local(aux["radii"])
+            gnorm = torch.linalg.norm(sg, dim=-1)
+            gabs = torch.sum(torch.abs(sg), dim=-1)
+            zero = torch.zeros_like(gnorm)
+            view_stats = torch.stack([vis.to(torch.float32), torch.where(vis, gnorm, zero),
+                                      torch.where(vis, gabs, zero), torch.where(vis, radii.to(torch.float32), zero)],
+                                     dim=1)
+            stats = view_stats if stats is None else torch.maximum(stats, view_stats)
+            item = grads[:n] + grads[n + 1:] + [total.detach()] + [scalars[k] for k in names]
+            del total, aux, grads, scalars
+            yield item
+
+    summed = _halves_sum(views(), V_local)
+    param_grads = summed[:n]
+    expo_grad = summed[n] if use_exposure else None
+    loss_local = summed[n + int(use_exposure)]
+    metric_sums = summed[n + int(use_exposure) + 1:]
 
     # one flat SUM over the data group: the gradients (in the wire type),
     # then the loss and the metric sums (float32)
-    names = sorted(metric_sums)
-    scalars = torch.stack([loss_local / V] + [metric_sums[k] for k in names])
+    scalars = torch.stack([loss_local / V] + metric_sums)
     flat = [g.reshape(-1) for g in param_grads] + ([expo_grad.reshape(-1)] if use_exposure else [])
     if wire == torch.float32:
         buf = _all_reduce(torch.cat(flat + [scalars]), dist.ReduceOp.SUM, grp.data)

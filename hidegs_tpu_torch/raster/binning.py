@@ -118,19 +118,16 @@ def bin_gaussians(
     h = y1 - y0
     touched = torch.where(pre.visible, w * h, torch.zeros_like(w))
 
-    starts = torch.cumsum(touched, 0, dtype=torch.int32) - touched  # exclusive
-    total = (starts[-1] + touched[-1]) if N > 0 else torch.zeros((), dtype=torch.int32, device=dev)
+    ends = torch.cumsum(touched, 0, dtype=torch.int32)  # inclusive
+    starts = ends - touched  # exclusive
+    total = ends[-1] if N > 0 else torch.zeros((), dtype=torch.int32, device=dev)
 
-    # Expansion: slot j belongs to the last gaussian with start ≤ j and at
-    # least one touched tile. Write each such gaussian's index at its start
-    # slot (starts are distinct there) and take a running max; the rest write
-    # into a discarded spare slot.
+    # Expansion: slot j < total belongs to the one gaussian with
+    # start ≤ j < start + touched, the first whose inclusive end passes j
+    # (zero-touched gaussians own no slot). Slots past the total clamp to
+    # row N - 1 and are masked below.
     slots = torch.arange(max_instances, dtype=torch.int32, device=dev)
-    rows_n = torch.arange(N, dtype=torch.int32, device=dev)
-    dest = torch.where((touched > 0) & (starts < max_instances), starts, max_instances)
-    owner_at = torch.zeros((max_instances + 1,), dtype=torch.int32, device=dev)
-    owner_at.scatter_(0, dest.long(), rows_n)
-    g = torch.cummax(owner_at[:max_instances], 0).values
+    g = torch.clamp(torch.searchsorted(ends, slots, right=True, out_int32=True), max=max(N - 1, 0))
     gl = g.long()
     valid = slots < total
 

@@ -111,11 +111,12 @@ def build(sources: Dict[str, Path] = SOURCES) -> Dict[str, Path]:
 
 
 @functools.cache
-def bind(lib: Path, symbol: str, n_ptr_head: int, n_int: int, n_ptr_tail: int):
+def bind(lib: Path, symbol: str, n_ptr_head: int, n_int: int, n_float: int, n_ptr_tail: int):
     """C entry point `symbol` of library `lib`: n_ptr_head pointers, n_int
-    ints, n_ptr_tail pointers (the stream last); returns a cudaError code."""
+    ints, n_float floats, n_ptr_tail pointers (the stream last); returns a
+    cudaError code."""
     fn = getattr(ctypes.CDLL(str(lib)), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr_head + [ctypes.c_int] * n_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr_head + [ctypes.c_int] * n_int + [ctypes.c_float] * n_float
                    + [ctypes.c_void_p] * n_ptr_tail)
     fn.restype = ctypes.c_int
     return fn
@@ -123,7 +124,7 @@ def bind(lib: Path, symbol: str, n_ptr_head: int, n_int: int, n_ptr_tail: int):
 
 @functools.cache
 def _fn(name: str, symbol: str, n_ptr_head: int, n_int: int, n_ptr_tail: int):
-    return bind(build()[name], symbol, n_ptr_head, n_int, n_ptr_tail)
+    return bind(build()[name], symbol, n_ptr_head, n_int, 0, n_ptr_tail)
 
 
 def _check(name, x, dtype, shape, device):

@@ -19,12 +19,13 @@ counterparts (`train.compiled.CompiledTrainStep`,
     `GraphSet` share one memory pool, since they never run at once, and
     `GraphSet.captures` records what each capture cost (warm-up and
     capture seconds, the pool's growth, the launches);
-  * launch accounting: `cuda_blend`'s counters count its launchers' calls,
-    which a replay does not make. A capture records how often the body
+  * launch accounting: the counters of `cuda_blend` and
+    `preprocess_autograd` count their launchers' calls, which a replay
+    does not make. A capture records how often the body
     launched each kernel and leaves those counters as they were (it
     launches nothing); every replay adds the graph's launches to
     `REPLAY_LAUNCHES`, one process-wide count for every compiled callable.
-    The warm-up's launches are real and stay in `cuda_blend`'s counters.
+    The warm-up's launches are real and stay in the launchers' counters.
 
 A graph's outputs are its static tensors: a replay of any graph of the
 same `GraphSet` may overwrite them (the pool is shared), so a caller that
@@ -38,19 +39,21 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
-from hidegs_tpu_torch.raster import cuda_blend
+from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
 
-KERNELS = ("blend_fwd", "blend_bwd", "fold_rows")
+KERNELS = ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd")
 # launches of each kernel made by graph replays in this process
 REPLAY_LAUNCHES = {k: 0 for k in KERNELS}
 
 
 def _kernel_counts() -> tuple:
-    return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES)
+    return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES,
+            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES)
 
 
 def _set_kernel_counts(counts: tuple) -> None:
-    cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES = counts
+    (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES,
+     preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES) = counts
 
 
 def _map(fn, x):

@@ -73,7 +73,7 @@ def _scalar_fold(rows_exp, g_start, num_gaussians):
     """The scalar fold of tools/csrc/fold_rows_scalar.cu on expansion-order rows."""
     src = pathlib.Path(__file__).resolve().parents[1] / "tools" / "csrc" / "fold_rows_scalar.cu"
     fn = cuda_blend.bind(cuda_blend.build({"fold_rows_scalar": src})["fold_rows_scalar"],
-                         "hidegs_fold_rows_scalar", 2, 1, 2)
+                         "hidegs_fold_rows_scalar", 2, 1, 0, 2)
     out = torch.empty((num_gaussians, cuda_blend.ATTR), device=rows_exp.device)
     rc = fn(rows_exp.data_ptr(), g_start.data_ptr(), num_gaussians, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
@@ -786,7 +786,7 @@ def test_lod_frame_kernel_holds_against_plain(cuda, mode):
             again = r.render(cam, 2.0)
             want = eager.render(cam, 2.0)
         torch.cuda.synchronize()
-        assert tuple(b - a for a, b in zip(replays, _replays())) == (2, 0, 0)
+        assert tuple(b - a for a, b in zip(replays, _replays())) == (2, 0, 0, 2, 0)
         assert cuda_blend.LAUNCHES == before[0] + 1 + 1  # the warm-up's and the eager frame's
         assert len(r.compiled.captures) == 1 and r.compiled.replays == 2 and int(out["overflow"]) == 0
         for key in out:
@@ -962,7 +962,7 @@ def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
         for k in range(2):
             got, gm = step(ts, step.select(ts, cams[0], target, budget), cams[0], gts[0], lrs, rcfg, **kw)
             torch.cuda.synchronize()
-            assert tuple(b - a for a, b in zip(replays, _replays())) == (k + 1,) * 3
+            assert tuple(b - a for a, b in zip(replays, _replays())) == (k + 1,) * 5
             assert tuple(b - a for a, b in zip(before, _counts())) == ((1, 1, 1) if k == 0 else (0, 0, 0))
             want, wm = ht.hier_train_step(ts, cut, cams[0], gts[0], lrs, rcfg, **kw)
             for x, y in zip(_post_opt_leaves(got), _post_opt_leaves(want)):
@@ -971,7 +971,7 @@ def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
             before = _counts()
         assert [c["kind"] for c in step.captures] == ["cut", "step"]
         assert step.captures[1]["launches"] == step.captures[1]["warmup_launches"] == dict.fromkeys(
-            ("blend_fwd", "blend_bwd", "fold_rows"), 1)
+            ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd"), 1)
         assert all(int(c) == 0 for c in step.counters.values())
         return
     before = _counts()
@@ -1135,7 +1135,7 @@ def test_compiled_post_opt_step_is_bitwise_the_eager_step(cuda, variant):
         torch.cuda.synchronize()
         if k > 0:
             assert _counts() == counts, "a replay went through the launchers"
-        assert tuple(b - a for a, b in zip(replays, _replays())) == (1, 1, 1)
+        assert tuple(b - a for a, b in zip(replays, _replays())) == (1,) * 5
         for n, (a, b) in enumerate(zip(_post_opt_leaves(comp), _post_opt_leaves(eager))):
             assert torch.equal(a, b), f"{variant} step {k}: leaf {n}"
         assert all(torch.equal(em[m], cm[m]) for m in em), variant
@@ -1179,7 +1179,7 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
     assert len(meta["chunks"]) == 2 and len(meta["lod_eval"]) == 2
     n_eval = 2 * 8  # two taus, eight of the ten views
     # one capture per chunk and one of the post-opt step: each warm-up is one launch of each
-    assert replayed == (3 * 2 + 3,) * 3, replayed
+    assert replayed == (3 * 2 + 3,) * 5, replayed
     assert bwd == fold == 2 + 1 and fwd == bwd + n_eval, (fwd, bwd, fold)
     for name in ("merged.hier", "merged_opt.hier"):
         h = hio.read_hier(os.path.join(out, name))
@@ -1191,11 +1191,11 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
 # the view-parallel step (parallel/sharded.py) on the card
 
 
-def _dp_problem(dev, n=2000, hw=128, views=4):
+def _dp_problem(dev, n=2000, hw=128, views=4, seed=0):
     from hidegs_tpu_torch.model.gaussians import init_from_points
     from hidegs_tpu_torch.train import loop as tl
 
-    scene = make_toy_gaussians(n, seed=0, device=dev)
+    scene = make_toy_gaussians(n, seed=seed, device=dev)
     cams = [ring_camera(i, n_cams=views, height=hw, width=hw, device=dev) for i in range(views)]
     rcfg = RasterConfig(max_instances=1 << 17)
     with torch.no_grad():
@@ -1258,10 +1258,10 @@ def test_one_rank_nccl_step_is_bitwise_the_step_without_group(cuda, tmp_path):
     assert not torch.equal(a.opt.m.xyz, b.opt.m.xyz)
 
 
-def _two_gloo_ranks(dev, runs, tmp_path):
+def _two_gloo_ranks(dev, runs, tmp_path, seed=0):
     from hidegs_tpu_torch.parallel import dryrun
 
-    ts0, views, cfg = _dp_problem(dev)
+    ts0, views, cfg = _dp_problem(dev, seed=seed)
     job = tmp_path / "job.pt"
     dryrun.save_dp_job(str(job), ts0, views, cfg, runs)
     dryrun.launch(dryrun.dp_worker, 2, (dryrun.file_init_method(str(tmp_path / "rdv")), "gloo", "cuda", str(job),
@@ -1290,6 +1290,27 @@ def test_two_gloo_ranks_on_the_card_match_one_rank(cuda, tmp_path):
     for f in sharded.PARAM_FIELDS:
         torch.testing.assert_close(torch.as_tensor(got["states"][3]["gaussians"]["params"][f]),
                                    getattr(ts.gaussians.params, f).cpu(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_two_gloo_ranks_on_the_card_are_bitwise_one_rank(cuda, tmp_path, seed):
+    """Two ranks of two views each add their halves of the views'
+    gradients as the one-process V = 4 step adds them, (v0 + v1) + (v2 +
+    v3): three steps' losses and parameters bitwise equal, on three toy
+    scenes."""
+    from hidegs_tpu_torch.parallel import sharded
+
+    runs = [dict(name="dp", data=2, model=1, steps=3, save_steps=[1, 2, 3])]
+    ts, views, cfg, res = _two_gloo_ranks(cuda, runs, tmp_path, seed=seed)
+    step, _ = sharded.make_dp_train_step(cfg, None)
+    got = res[0]["dp"]
+    for k in range(3):
+        ts, m = step(ts, sharded.stack_view_batches(views))
+        assert got["losses"][k] == float(m["loss"]), k
+        for f in sharded.PARAM_FIELDS:
+            assert torch.equal(torch.as_tensor(got["states"][k + 1]["gaussians"]["params"][f]),
+                               getattr(ts.gaussians.params, f).cpu()), (k, f)
 
 
 @pytest.mark.cuda
@@ -1368,7 +1389,7 @@ def test_compiled_dp_step_is_bitwise_the_eager_step(cuda, variant, tmp_path):
             comp, cm = step(comp, batch)
             torch.cuda.synchronize()
             assert [a - b for a, b in zip(_counts(), counts)] == ([V] * 3 if k == 0 else [0] * 3)
-            assert [a - b for a, b in zip(_replays(), replays)] == [V] * 3
+            assert [a - b for a, b in zip(_replays(), replays)] == [V] * 5
             for n, (a, b) in enumerate(zip(graphs._tensors(comp), graphs._tensors(eager), strict=True)):
                 assert torch.equal(a, b), f"{variant} step {k}: tensor {n} of the state"
             assert em.keys() == cm.keys() and all(torch.equal(em[m], cm[m]) for m in em), variant
@@ -1745,3 +1766,154 @@ def test_knn_init_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=0)
     assert bool(torch.isfinite(scales).all())
+
+
+# ---------------------------------------------------------------------------
+# the preprocess kernels (csrc/preprocess.cu, raster/preprocess_autograd.py)
+
+RADIUS_FLIP_SHARE = 0.01  # tests/test_torch_raster.py
+PRE_FLOATS = ("mean2d", "conic", "depth", "inv_depth", "opacity", "rgb", "normal", "distance")
+PRE_CASES = {
+    "sh_flat_geo": dict(layout="flat", render_geo=True),
+    "sh_stacked_deg1": dict(layout="stacked", render_geo=False, active_sh_degree=1),
+    "no_antialias": dict(layout="flat", render_geo=True, antialias=False),
+    "colors_offset_box": dict(layout="flat", render_geo=True, colors=True, offset=True, box=True),
+}
+
+
+def _pre_problem(dev, case, n=3000, h=72, w=96):
+    """A toy scene with random rotations, its leaves requiring grad, and the
+    preprocess keywords of `case`."""
+    spec = dict(PRE_CASES[case])
+    scene = make_toy_gaussians(n, seed=4, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    quats = torch.randn((n, 4), generator=g).to(dev)
+    shs = scene.shs + 0.2 * torch.randn(scene.shs.shape, generator=g).to(dev)
+    if spec.pop("layout") == "flat":
+        shs = shs.reshape(n, -1)
+    leaves = dict(means3d=scene.means3d, scales=scene.scales, quats=quats, opacities=scene.opacities, shs=shs)
+    kw = dict(screen_bounds=(w, h), active_sh_degree=spec.pop("active_sh_degree", 3))
+    if spec.pop("colors", False):
+        leaves["colors_precomp"] = torch.rand((n, 3), generator=g).to(dev)
+    if spec.pop("offset", False):
+        leaves["mean2d_offset"] = torch.zeros((n, 2), device=dev)
+    if spec.pop("box", False):
+        kw.update(boxmin=torch.full((3,), -1.2, device=dev), boxmax=torch.full((3,), 1.0, device=dev),
+                  box_exempt=(torch.arange(n, device=dev) % 5) == 0)
+    kw.update(spec)
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in leaves.items()}
+    return leaves, kw, ring_camera(2, height=h, width=w, device=dev)
+
+
+def _pre_call(fn, leaves, kw, cam):
+    extra = {k: leaves[k] for k in ("colors_precomp", "mean2d_offset") if k in leaves}
+    return fn(leaves["means3d"], leaves["scales"], leaves["quats"], leaves["opacities"], leaves["shs"], cam,
+              **kw, **extra)
+
+
+def _pre_grads(pre, leaves, seed=6):
+    dev = pre.mean2d.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cts = [torch.randn(getattr(pre, k).shape, generator=g, device=dev) for k in PRE_FLOATS]
+    names = [k for k in leaves if k != "shs" or "colors_precomp" not in leaves]
+    outs = [(getattr(pre, k), ct) for k, ct in zip(PRE_FLOATS, cts) if getattr(pre, k).requires_grad]
+    grads = torch.autograd.grad([o for o, _ in outs], [leaves[k] for k in names], [ct for _, ct in outs])
+    return dict(zip(names, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PRE_CASES))
+def test_preprocess_kernel_matches_plain_forward(cuda, case):
+    """preprocess_gaussians on the card (one preprocess_fwd launch) against
+    preprocess_plain on the card: floats at atol 1e-5 / rtol 1e-5, the
+    visible mask equal, the radius within 1 on RADIUS_FLIP_SHARE of the
+    rows at most."""
+    from hidegs_tpu_torch.raster import preprocess_autograd
+
+    leaves, kw, cam = _pre_problem(cuda, case)
+    before = (preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES)
+    got = _pre_call(tpp.preprocess_gaussians, leaves, kw, cam)
+    torch.cuda.synchronize()
+    assert (preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES) == (before[0] + 1, before[1])
+    with torch.no_grad():
+        want = _pre_call(tpp.preprocess_plain, leaves, kw, cam)
+    assert torch.equal(got.visible, want.visible) and 0 < int(got.visible.sum()) < got.visible.shape[0]
+    dr = (got.radius - want.radius).abs()
+    assert int(dr.max()) <= 1 and float((dr > 0).float().mean()) <= RADIUS_FLIP_SHARE
+    for k in PRE_FLOATS:
+        torch.testing.assert_close(getattr(got, k), getattr(want, k), atol=1e-5, rtol=1e-5, msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PRE_CASES))
+def test_preprocess_backward_kernel_matches_autograd_of_plain(cuda, case):
+    """The Function's gradients (one preprocess_bwd launch) against torch
+    autograd of preprocess_plain on the card, on the same cotangents of all
+    eight float outputs: within 5e-3 of each leaf's max |grad| (the JAX
+    suite's gradient tolerance)."""
+    from hidegs_tpu_torch.raster import preprocess_autograd
+
+    leaves, kw, cam = _pre_problem(cuda, case)
+    pre = _pre_call(tpp.preprocess_gaussians, leaves, kw, cam)
+    before = preprocess_autograd.BWD_LAUNCHES
+    got = _pre_grads(pre, leaves)
+    torch.cuda.synchronize()
+    assert preprocess_autograd.BWD_LAUNCHES == before + 1
+    want = _pre_grads(_pre_call(tpp.preprocess_plain, leaves, kw, cam), leaves)
+    assert got.keys() == want.keys()
+    for k in want:
+        scale = float(want[k].abs().max())
+        err = float((got[k] - want[k]).abs().max()) / scale
+        assert scale > 0 and err <= 5e-3, f"{case} {k}: {err:.3e} of the max |grad|"
+
+
+@pytest.mark.cuda
+def test_preprocess_kernels_are_bitwise_reproducible_and_sync_free(cuda):
+    """Two forward and backward runs of the kernels on the same inputs are
+    bitwise equal (no atomics), the second under
+    set_sync_debug_mode("error"); absent cotangents are taken as they are."""
+    leaves, kw, cam = _pre_problem(cuda, "colors_offset_box")
+    runs = []
+    for k in range(2):
+        if k:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            pre = _pre_call(tpp.preprocess_gaussians, leaves, kw, cam)
+            grads = _pre_grads(pre, leaves)
+            again = _pre_call(tpp.preprocess_gaussians, leaves, kw, cam)
+            partial = torch.autograd.grad(again.conic.sum() + again.opacity.sum(), [leaves["scales"]])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        runs.append((pre.tensors(), list(grads.values()) + list(partial)))
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_binning_owner_is_the_cummax_owner_on_the_render_cell(cuda):
+    """C40: on the render cell's rows (the 1,010,240-gaussian UAV scene,
+    view 0 at 1920x1088, tile 32), the searchsorted owner of every
+    expansion slot is bitwise the owner of the scatter-and-cummax form it
+    replaced."""
+    from hidegs_tpu_torch.data.synthetic import make_uav_gaussians, nadir_grid_camera
+
+    scene = make_uav_gaussians(n_ground=1_000_000, n_structs=64, seed=0, device=cuda)
+    cam = nadir_grid_camera(0, 0, 2, 2, altitude=14.0, height=1088, width=1920, device=cuda)
+    tile, max_instances = 32, 1 << 21
+    ty, tx = tbin.tile_grid(1088, 1920, tile)
+    with torch.no_grad():
+        pre = tpp.preprocess_gaussians(*scene, cam, render_geo=True, screen_bounds=(tx * tile, ty * tile))
+    tb = tbin.bin_gaussians(pre, ty, tx, max_instances, tile, depth_bits=-1)
+    x0, y0, x1, y1 = tbin.compute_tight_rects(pre.mean2d, pre.conic, pre.opacity, pre.radius, ty, tx, tile)
+    touched = torch.where(pre.visible, (x1 - x0) * (y1 - y0), torch.zeros_like(x0))
+    starts = torch.cumsum(touched, 0, dtype=torch.int32) - touched
+    total = starts[-1] + touched[-1]
+    N = touched.shape[0]
+    dest = torch.where((touched > 0) & (starts < max_instances), starts, max_instances)
+    owner_at = torch.zeros((max_instances + 1,), dtype=torch.int32, device=cuda)
+    owner_at.scatter_(0, dest.long(), torch.arange(N, dtype=torch.int32, device=cuda))
+    slots = torch.arange(max_instances, dtype=torch.int32, device=cuda)
+    old = torch.where(slots < total, torch.cummax(owner_at[:max_instances], 0).values, N).to(torch.int32)
+    assert int(tb.overflow) == 0 and int(total) > 100_000
+    assert torch.equal(tb.owner, old)

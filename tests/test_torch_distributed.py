@@ -122,6 +122,25 @@ def test_two_ranks_match_the_one_process_run(problem, two_ranks):
         normalised_close(run["states"][1]["m"][f], getattr(first.opt.m, f).numpy(), 1e-6, f"m {f}")
 
 
+def test_two_ranks_are_bitwise_the_one_process_run(problem, two_ranks):
+    """Each rank adds its two views and the all-reduce adds the two halves;
+    the one-process step adds its four views as the same halves, (v0 + v1)
+    + (v2 + v3): every step's loss, and the parameters and moments after
+    steps 1 and K, bitwise equal."""
+    step, _ = sharded.make_dp_train_step(TCFG, None)
+    ts = tstate(problem)
+    run = two_ranks[0]["f32"]
+    for k in range(1, K + 1):
+        ts, m = step(ts, problem["tbatch"])
+        assert run["losses"][k - 1] == float(m["loss"]), k
+        if k in (1, K):
+            want = run["states"][k]
+            for f in sharded.PARAM_FIELDS:
+                np.testing.assert_array_equal(want["gaussians"]["params"][f], getattr(ts.gaussians.params, f).numpy())
+                np.testing.assert_array_equal(want["m"][f], getattr(ts.opt.m, f).numpy())
+                np.testing.assert_array_equal(want["v"][f], getattr(ts.opt.v, f).numpy())
+
+
 def test_sharded_gradient_is_not_scaled_by_the_model_size(mesh_ranks):
     """Rows split over a model group of 2 give the replicated run's
     gradients (Adam's m after one step = 0.1·g): the gathered rows' slice,

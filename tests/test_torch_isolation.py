@@ -366,3 +366,38 @@ def test_render_refuses_mixed_devices():
     cam = tsyn.ring_camera(0, height=16, width=16, device="cpu")
     with pytest.raises(ValueError, match="one device"):
         render(*scene, cam, background=torch.zeros(3, dtype=torch.float64).to("meta"))
+
+
+def test_the_scan_covers_the_preprocess_kernels():
+    """The preprocess kernels' module is scanned for jax imports; its
+    source sits beside the blend kernels', builds into build/kernels/ and
+    uses no atomics."""
+    from hidegs_tpu_torch.raster import preprocess_autograd
+
+    assert "hidegs_tpu_torch.raster.preprocess_autograd" in _modules()
+    src = preprocess_autograd.SOURCES["preprocess"]
+    assert src.parent == cuda_blend.CSRC and src.exists() and "atomicAdd" not in src.read_text()
+    assert cuda_blend._lib_path(src).parent == cuda_blend.BUILD_DIR
+
+
+def test_preprocess_on_cpu_tensors_takes_the_plain_path():
+    """On CPU tensors preprocess_gaussians is the plain forward under
+    autograd (no PreprocessFn node); the kernels' launchers refuse CPU
+    tensors."""
+    from hidegs_tpu_torch.raster import preprocess_autograd
+
+    scene = tsyn.make_toy_gaussians(40, seed=1, device="cpu")
+    cam = tsyn.ring_camera(0, height=32, width=32, device="cpu")
+    means = scene.means3d.clone().requires_grad_(True)
+    pre = tpp.preprocess_gaussians(means, *scene[1:], cam, screen_bounds=(32, 32))
+    assert type(pre.conic.grad_fn).__name__ != "PreprocessFnBackward"
+    n = 4
+    f32 = torch.zeros((n, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        preprocess_autograd.launch_preprocess_fwd(f32, f32, torch.zeros((n, 4)), torch.zeros(n), f32, None,
+                                                  torch.zeros(23), None, None, None, None, 0, 0, 0.1, 0.2, 0.0,
+                                                  0.0, {})
+    with pytest.raises(ValueError, match="CUDA"):
+        preprocess_autograd.launch_preprocess_bwd(f32, f32, torch.zeros((n, 4)), torch.zeros(n), f32,
+                                                  torch.zeros(23), None, torch.zeros(n, dtype=torch.bool), {}, 0,
+                                                  0, 0.1, 0.2, {})

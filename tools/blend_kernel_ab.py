@@ -71,7 +71,7 @@ def main() -> int:
     for key, lib in libs.items():
         print(f"[ptxas] {key}: {chip_smoke.usage_report(chip_smoke.ptxas_usage(lib))}")
     by_slot = {tag: "slot_s" in srcs["blend_bwd"].read_text() for tag, srcs in versions.items()}
-    fns = {(tag, name): cuda_blend.bind(libs[f"{tag}:{name}"], f"hidegs_{name}", 4, 3,
+    fns = {(tag, name): cuda_blend.bind(libs[f"{tag}:{name}"], f"hidegs_{name}", 4, 3, 0,
                                         4 if name == "blend_bwd" and by_slot[tag] else 3)
            for tag in versions for name in ("blend_fwd", "blend_bwd")}
     refs = [tag for tag in versions if tag != NEW]
@@ -151,7 +151,7 @@ def main() -> int:
     # every version's fold on this checkout's expansion-order rows
     rows_exp, g_start, N = rows[NEW][1], tb.g_start.contiguous(), stream_in[0].shape[0]
     del rows, g_aug
-    folds = {tag: (cuda_blend.bind(libs[f"{tag}:blend_bwd"], "hidegs_fold_rows", 2, 1, 2),
+    folds = {tag: (cuda_blend.bind(libs[f"{tag}:blend_bwd"], "hidegs_fold_rows", 2, 1, 0, 2),
                    torch.empty((N, blend_plain.ATTR), device=dev)) for tag in versions}
 
     def fold(tag):
