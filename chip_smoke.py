@@ -291,7 +291,8 @@ Phases (run in the order of `main`):
      alone in float32 and bf16 with its bytes, the masked Adam update, one
      step under the profiler and the peak memory. (d) one step under
      utils.profiling.trace: the trace must name the three kernels and the
-     annotated range. The compiled step (parallel/compiled.py) beside the
+     range of a utils.profiling.span. The compiled step
+     (parallel/compiled.py) beside the
      eager one, 10 steps each, from the same state: no group on both wires
      and a one-rank NCCL group on both (the all-reduces recorded in the
      graph); after every step both states and the metrics bitwise equal,
@@ -3031,7 +3032,7 @@ def phase_view_parallel(scene, cams, cfg):
     # (d) the trace
     tdir = work / "trace"
     with profiling.trace(str(tdir), device=dev):
-        with profiling.annotate("dp_step", device=dev):
+        with profiling.span("dp_step"):
             step32(ts, batch)
     tfile = tdir / profiling.TRACE_FILE
     names = {e.get("name", "") for e in json.loads(tfile.read_text())["traceEvents"]}

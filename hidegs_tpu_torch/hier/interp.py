@@ -38,6 +38,7 @@ from hidegs_tpu_torch.hier.lod import (
 )
 from hidegs_tpu_torch.raster.api import RasterConfig, render, round_budget
 from hidegs_tpu_torch.utils.graphs import Graph, GraphSet, _map, _spec, copy_into, on_card, require_cuda, same_tensors
+from hidegs_tpu_torch.utils.profiling import span
 
 
 class InterpolatedGaussians(NamedTuple):
@@ -336,6 +337,7 @@ class AdaptiveHierRenderer:
         self._budget = 0
         self._max_inst = 0
         self.compiled = CompiledLodFrame() if on_card(boxes.device) else None
+        self.frames = 0  # frames rendered: the next frame's number
 
     @classmethod
     def from_hierarchy(cls, h: Hierarchy, device, **kwargs) -> "AdaptiveHierRenderer":
@@ -361,54 +363,65 @@ class AdaptiveHierRenderer:
 
     def render(self, cam, tau_px: float, render_geo: bool = False, background=None,
                active_sh_degree: int = 3):
-        """One frame at pixel granularity `tau_px` (0 = exact leaf cut)."""
-        target = self.target_size(cam, tau_px)
-        vp = cam.camera_center
-        vp_np = vp.to(torch.float64).cpu().numpy()
+        """One frame at pixel granularity `tau_px` (0 = exact leaf cut): a
+        `lod.frame` span (utils/profiling.py) whose request is the frame's
+        number, with `count_pass` (whether the count pass ran) and
+        `attempts` (cut-and-render calls); each host read of the device
+        inside it is a wait span."""
+        with span("lod.frame", request=self.frames, count_pass=0) as frame_span:
+            self.frames += 1
+            target = self.target_size(cam, tau_px)
+            vp = cam.camera_center
+            with span("lod.read_viewpoint", wait=True):
+                vp_np = vp.to(torch.float64).cpu().numpy()
 
-        # frame-coherent count reuse: skip the count pass and its host read
-        # when the camera is near the last counted viewpoint at the same τ
-        c = self._count_cache
-        if (
-            c is not None
-            and c["tau"] == tau_px
-            and c["frames"] < self.recount_every
-            and float(np.linalg.norm(vp_np - c["vp"])) <= self.recount_dist
-        ):
-            c["frames"] += 1
-            n_cut = c["n_cut"]
-        else:
-            n_cut = int(cut_size_packed(self._packed, target, vp))
-            self._count_cache = {"tau": tau_px, "vp": vp_np, "frames": 0, "n_cut": n_cut}
-        budget = self._fit_budget(n_cut)
-        want = round_budget(max(2 * (budget + self.skybox_count), 1 << 14))
-        if want > self._max_inst or want * 4 <= self._max_inst:
-            self._max_inst = want
-        frame = fused_lod_frame if self.compiled is None else self.compiled
-        for _ in range(5):
-            config = RasterConfig(backend=self.backend, tile=self.tile, depth_sort_bits=-1,
-                                  max_instances=self._max_inst)
-            out = frame(
-                self._packed, target, cam, *self.arrays, budget=budget, num_points=self.num_points,
-                skybox_count=self.skybox_count, background=background, config=config,
-                render_geo=render_geo, active_sh_degree=active_sh_degree, attrs=self._attrs)
-            counters = torch.stack([out["num_selected"].to(torch.int64), out["overflow"].to(torch.int64),
-                                    out["num_instances"].to(torch.int64)]).cpu()
-            n_sel, overflow, n_inst = (int(x) for x in counters)
-            if n_sel > budget:
-                # a stale cached count under-budgeted the cut: refresh the
-                # cache from the true demand and re-expand
-                self._count_cache = {"tau": tau_px, "vp": vp_np, "frames": 0, "n_cut": n_sel}
-                budget = self._fit_budget(n_sel)
-                continue
-            if overflow == 0:
-                return out
-            self._max_inst = round_budget(n_inst + 1)
-        print(
-            f"WARNING: AdaptiveHierRenderer gave up after 5 attempts "
-            f"with overflow={overflow} cut={n_sel}/{budget} "
-            f"(instance budget {self._max_inst}, demand {n_inst}) "
-            f"— frame is missing content",
-            flush=True,
-        )
-        return out
+            # frame-coherent count reuse: skip the count pass and its host read
+            # when the camera is near the last counted viewpoint at the same τ
+            c = self._count_cache
+            if (
+                c is not None
+                and c["tau"] == tau_px
+                and c["frames"] < self.recount_every
+                and float(np.linalg.norm(vp_np - c["vp"])) <= self.recount_dist
+            ):
+                c["frames"] += 1
+                n_cut = c["n_cut"]
+            else:
+                with span("lod.count", wait=True):
+                    n_cut = int(cut_size_packed(self._packed, target, vp))
+                frame_span.set(count_pass=1)
+                self._count_cache = {"tau": tau_px, "vp": vp_np, "frames": 0, "n_cut": n_cut}
+            budget = self._fit_budget(n_cut)
+            want = round_budget(max(2 * (budget + self.skybox_count), 1 << 14))
+            if want > self._max_inst or want * 4 <= self._max_inst:
+                self._max_inst = want
+            frame = fused_lod_frame if self.compiled is None else self.compiled
+            for attempt in range(1, 6):
+                frame_span.set(attempts=attempt)
+                config = RasterConfig(backend=self.backend, tile=self.tile, depth_sort_bits=-1,
+                                      max_instances=self._max_inst)
+                out = frame(
+                    self._packed, target, cam, *self.arrays, budget=budget, num_points=self.num_points,
+                    skybox_count=self.skybox_count, background=background, config=config,
+                    render_geo=render_geo, active_sh_degree=active_sh_degree, attrs=self._attrs)
+                counters = torch.stack([out["num_selected"].to(torch.int64), out["overflow"].to(torch.int64),
+                                        out["num_instances"].to(torch.int64)])
+                with span("lod.read_counters", wait=True):
+                    n_sel, overflow, n_inst = (int(x) for x in counters.cpu())
+                if n_sel > budget:
+                    # a stale cached count under-budgeted the cut: refresh the
+                    # cache from the true demand and re-expand
+                    self._count_cache = {"tau": tau_px, "vp": vp_np, "frames": 0, "n_cut": n_sel}
+                    budget = self._fit_budget(n_sel)
+                    continue
+                if overflow == 0:
+                    return out
+                self._max_inst = round_budget(n_inst + 1)
+            print(
+                f"WARNING: AdaptiveHierRenderer gave up after 5 attempts "
+                f"with overflow={overflow} cut={n_sel}/{budget} "
+                f"(instance budget {self._max_inst}, demand {n_inst}) "
+                f"— frame is missing content",
+                flush=True,
+            )
+            return out

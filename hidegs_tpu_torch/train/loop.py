@@ -52,6 +52,7 @@ from hidegs_tpu_torch.train.geometric import (
     single_view_normal_loss,
 )
 from hidegs_tpu_torch.train.losses import abs_, clip, dssim_l1, maximum
+from hidegs_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -496,7 +497,8 @@ def maybe_host_side_schedule(ts: TrainState, cfg: TrainConfig, scene_extent: flo
         ts, _ = (scrub_step if compiled is None else compiled.scrub_step)(ts)
     if cfg.densify_from <= step <= cfg.densify_until:
         if step % cfg.densify_interval == 0:
-            ts, info = (densify_step if compiled is None else compiled.densify_step)(ts, scene_extent, cfg)
+            with span("densify.round"):
+                ts, info = (densify_step if compiled is None else compiled.densify_step)(ts, scene_extent, cfg)
         if step % cfg.opacity_reset_interval == 0 and (
             cfg.opacity_reset_until <= 0 or step <= cfg.opacity_reset_until
         ):

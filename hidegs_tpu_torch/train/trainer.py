@@ -25,6 +25,13 @@ The host reads the device in windows: the budget counters of
 OVERFLOW_CHECK_EVERY steps are fetched in one copy, and the loss only at the
 log, densify and save iterations. The Pallas-only block budget of the JAX
 trainer is not carried over: the port's blend needs none (max_blocks 0).
+
+Each iteration is a `train.iteration` span (utils/profiling.py) whose
+request is the iteration: inside it `train.batch` (with `cache_miss`, the
+views copied to the device), `train.step`, `train.schedule` (and
+`densify.round` in it), and the host's reads of the device as wait spans,
+`train.read_budgets` (with `refit`, 1 when a budget grew or shrank),
+`train.read_densify` and `train.read_log`.
 """
 from __future__ import annotations
 
@@ -72,6 +79,7 @@ from hidegs_tpu_torch.train.loop import (
     train_step,
 )
 from hidegs_tpu_torch.utils.graphs import on_card
+from hidegs_tpu_torch.utils.profiling import span
 
 
 def train_config_from_opt(opt: OptimizationConfig, pipe: PipelineConfig, n_init: int) -> TrainConfig:
@@ -251,6 +259,7 @@ class ViewCache:
         self._entries: "collections.OrderedDict" = collections.OrderedDict()
         self._indices: Dict[int, torch.Tensor] = {}
         self.nbytes = 0
+        self.copies = 0  # views (and gray images) copied to the device
 
     @staticmethod
     def _key(cam):
@@ -289,6 +298,7 @@ class ViewCache:
         }
         self._entries[key] = entry
         self.nbytes += self._entry_nbytes(entry)
+        self.copies += 1
         while self.nbytes > self.budget and len(self._entries) > 1:
             _, old = self._entries.popitem(last=False)
             self.nbytes -= self._entry_nbytes(old)
@@ -299,6 +309,7 @@ class ViewCache:
         if entry["gray"] is None:
             entry["gray"] = torch.as_tensor(cam.grayscale(), device=self.device)
             self.nbytes += entry["gray"].nbytes
+            self.copies += 1
         return entry["gray"]
 
     def image_index(self, idx: int) -> torch.Tensor:
@@ -478,129 +489,141 @@ def train(
     last_schedule_event = 0  # last densify / opacity-reset step (shrink cooldown)
     budget_log = [(start_iter, cfg.raster.max_instances, cfg.raster.max_blocks)]
     for it in range(start_iter, cfg.iterations + 1):
-        if len(pending_overflow) >= OVERFLOW_CHECK_EVERY:
-            vals = [tuple(int(x) for x in row) for row in torch.stack(pending_overflow).tolist()]
-            pending_overflow = []
-            ov = sum(v[0] for v in vals)
-            bov = sum(v[1] for v in vals)
-            bad = sum(1 for v in vals if v[4] == 0)
-            if bad:
-                total_skipped_steps += bad
-                print(f"  {bad} non-finite steps skipped in window ending @{it}", flush=True)
-            v_ov = sum(v[5] for v in vals)
-            v_peak = max([0] + [v[6] for v in vals])
-            changed = False
-            if v_ov > 0:
-                # visible-row compaction overflow drops rows from the render:
-                # grow now (2x, capped at the row prefix)
-                new_vb = min(cfg.raster.max_visible * 2, row_budget)
-                print(f"  visible budget overflow ({v_ov} rows) — growing max_visible "
-                      f"{cfg.raster.max_visible} → {new_vb}", flush=True)
-                cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=new_vb))
-                changed = True
-            elif cfg.raster.max_visible == 0 and v_peak > 0 and pipe_cfg.visible_compaction:
-                # first demand observation: enable compaction if it pays
-                fit = _fit_visible_budget(v_peak, row_budget)
-                if fit:
-                    print(f"  enabling visible-row compaction: max_visible={fit} "
-                          f"(peak visible {v_peak} of {row_budget} rows)", flush=True)
-                    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=fit))
+        with span("train.iteration", request=it):
+            if len(pending_overflow) >= OVERFLOW_CHECK_EVERY:
+                with span("train.read_budgets", wait=True, refit=0) as read:
+                    vals = [tuple(int(x) for x in row) for row in torch.stack(pending_overflow).tolist()]
+                pending_overflow = []
+                ov = sum(v[0] for v in vals)
+                bov = sum(v[1] for v in vals)
+                bad = sum(1 for v in vals if v[4] == 0)
+                if bad:
+                    total_skipped_steps += bad
+                    print(f"  {bad} non-finite steps skipped in window ending @{it}", flush=True)
+                v_ov = sum(v[5] for v in vals)
+                v_peak = max([0] + [v[6] for v in vals])
+                changed = False
+                if v_ov > 0:
+                    # visible-row compaction overflow drops rows from the render:
+                    # grow now (2x, capped at the row prefix)
+                    new_vb = min(cfg.raster.max_visible * 2, row_budget)
+                    print(f"  visible budget overflow ({v_ov} rows) — growing max_visible "
+                          f"{cfg.raster.max_visible} → {new_vb}", flush=True)
+                    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=new_vb))
                     changed = True
-            if ov > 0:
-                total_dropped_inst += ov
-                new_budget = cfg.raster.max_instances * 2
-                print(f"  instance budget overflow ({ov} dropped) — growing max_instances "
-                      f"{cfg.raster.max_instances} → {new_budget}", flush=True)
-                cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_instances=new_budget))
-                changed = True
-            if bov > 0 and cfg.raster.max_blocks:
-                total_dropped_blocks += bov
-                new_blocks = cfg.raster.max_blocks * 2
-                print(f"  block budget overflow ({bov} blocks) — growing max_blocks "
-                      f"{cfg.raster.max_blocks} → {new_blocks}", flush=True)
-                cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_blocks=new_blocks))
-                changed = True
-            if changed:
-                clean_steps = win_max_inst = win_max_blocks = win_max_visible = 0
-                budget_log.append((it, cfg.raster.max_instances, cfg.raster.max_blocks))
-            else:
-                clean_steps += len(vals)
-                win_max_inst = max([win_max_inst] + [v[2] for v in vals])
-                win_max_blocks = max([win_max_blocks] + [v[3] for v in vals])
-                win_max_visible = max([win_max_visible] + [v[6] for v in vals])
-                # no shrinking near schedule events: new splats are still
-                # growing into their footprint, and a shrink there is soon
-                # followed by an overflow re-grow
-                settled = (it - last_schedule_event) >= 2 * SHRINK_WINDOW
-                if clean_steps >= SHRINK_WINDOW and settled:
-                    cfg, shrunk = _maybe_shrink_budgets(
-                        cfg, win_max_inst, win_max_blocks, it,
-                        win_max_visible=win_max_visible, row_budget=row_budget,
-                    )
+                elif cfg.raster.max_visible == 0 and v_peak > 0 and pipe_cfg.visible_compaction:
+                    # first demand observation: enable compaction if it pays
+                    fit = _fit_visible_budget(v_peak, row_budget)
+                    if fit:
+                        print(f"  enabling visible-row compaction: max_visible={fit} "
+                              f"(peak visible {v_peak} of {row_budget} rows)", flush=True)
+                        cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=fit))
+                        changed = True
+                if ov > 0:
+                    total_dropped_inst += ov
+                    new_budget = cfg.raster.max_instances * 2
+                    print(f"  instance budget overflow ({ov} dropped) — growing max_instances "
+                          f"{cfg.raster.max_instances} → {new_budget}", flush=True)
+                    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_instances=new_budget))
+                    changed = True
+                if bov > 0 and cfg.raster.max_blocks:
+                    total_dropped_blocks += bov
+                    new_blocks = cfg.raster.max_blocks * 2
+                    print(f"  block budget overflow ({bov} blocks) — growing max_blocks "
+                          f"{cfg.raster.max_blocks} → {new_blocks}", flush=True)
+                    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_blocks=new_blocks))
+                    changed = True
+                if changed:
                     clean_steps = win_max_inst = win_max_blocks = win_max_visible = 0
-                    if shrunk:
-                        budget_log.append((it, cfg.raster.max_instances, cfg.raster.max_blocks))
-        if not order:
-            order = list(range(n_views))
-            rng.shuffle(order)
-        vi = order.pop()
-        cam = scene.train_cameras[vi]
+                    budget_log.append((it, cfg.raster.max_instances, cfg.raster.max_blocks))
+                    read.set(refit=1)
+                else:
+                    clean_steps += len(vals)
+                    win_max_inst = max([win_max_inst] + [v[2] for v in vals])
+                    win_max_blocks = max([win_max_blocks] + [v[3] for v in vals])
+                    win_max_visible = max([win_max_visible] + [v[6] for v in vals])
+                    # no shrinking near schedule events: new splats are still
+                    # growing into their footprint, and a shrink there is soon
+                    # followed by an overflow re-grow
+                    settled = (it - last_schedule_event) >= 2 * SHRINK_WINDOW
+                    if clean_steps >= SHRINK_WINDOW and settled:
+                        cfg, shrunk = _maybe_shrink_budgets(
+                            cfg, win_max_inst, win_max_blocks, it,
+                            win_max_visible=win_max_visible, row_budget=row_budget,
+                        )
+                        clean_steps = win_max_inst = win_max_blocks = win_max_visible = 0
+                        if shrunk:
+                            budget_log.append((it, cfg.raster.max_instances, cfg.raster.max_blocks))
+                            read.set(refit=1)
+            with span("train.batch") as pick:
+                copies = cache.copies
+                if not order:
+                    order = list(range(n_views))
+                    rng.shuffle(order)
+                vi = order.pop()
+                cam = scene.train_cameras[vi]
 
-        src_cam = src_depth = None
-        if use_mv and it >= cfg.multi_view_from and scene.neighbors.get(vi):
-            si = rng.choice(scene.neighbors[vi])
-            src_cam = scene.train_cameras[si]
-            if cfg.multi_view_detached_src:
-                src_depth = render_plane_depth(ts, cache.arrays(src_cam)["cam"], cfg)
+                src_cam = src_depth = None
+                if use_mv and it >= cfg.multi_view_from and scene.neighbors.get(vi):
+                    si = rng.choice(scene.neighbors[vi])
+                    src_cam = scene.train_cameras[si]
+                    if cfg.multi_view_detached_src:
+                        src_depth = render_plane_depth(ts, cache.arrays(src_cam)["cam"], cfg)
 
-        batch = build_view_batch(cache, cam, vi, src_cam, src_depth)
-        ts, metrics = step_fn(ts, batch, cfg, use_exposure=opt_cfg.use_exposure, row_budget=row_budget)
-        if model_cfg.model_path and it in save_iterations:
-            # save BEFORE the schedule hook: an opacity reset on the same
-            # iteration would otherwise leave a near-transparent model in
-            # the checkpoint
-            d = save_train_state(ts, os.path.join(model_cfg.model_path, "point_cloud"), it)
-            print(f"saved checkpoint → {d}", flush=True)
-        pending_overflow.append(torch.stack([metrics[k].to(torch.int64) for k in _COUNTERS]))
-        # the step is passed explicitly: int(ts.step) would wait for the device
-        ts, dens_info = maybe_host_side_schedule(ts, cfg, scene_extent=scene.extent, step=it, compiled=rounds)
-        if dens_info is not None or (
-            cfg.densify_from <= it <= cfg.densify_until
-            and it % cfg.opacity_reset_interval == 0
-            and (cfg.opacity_reset_until <= 0 or it <= cfg.opacity_reset_until)
-        ):
-            last_schedule_event = it
-        if dens_info is not None:
-            # restore the alive-prefix layout (prune leaves holes) and re-fit
-            # the active-row budget to the new alive count
-            g, opt = compact_gaussians(ts.gaussians, ts.opt)
-            ts = ts._replace(gaussians=g, opt=opt)
-            info = dict(zip(dens_info, _fetch(dens_info.values())))
-            n_alive = int(info["n_alive"])
-            new_rb = fit_row_budget(n_alive, capacity)
-            if new_rb != row_budget:
-                print(f"  row budget {row_budget} → {new_rb} (alive {n_alive})", flush=True)
-                # scale the compaction budget with the rows, so that the new
-                # rows do not overflow it during the counters' lag
-                if cfg.raster.max_visible and new_rb > row_budget:
-                    grown = min(round_budget(int(cfg.raster.max_visible * new_rb / row_budget)), new_rb)
-                    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=grown))
-                row_budget = new_rb
-            print(
-                f"  densify@{it}: clone={int(info['n_clone'])} split={int(info['n_split'])} "
-                f"pruned={int(info['n_pruned'])} dropped={int(info['n_dropped'])} alive={n_alive} "
-                f"score p50/p90/p99={info['score_p50']:.4f}/{info['score_p90']:.4f}/{info['score_p99']:.4f} "
-                f"grad p50/p99={info['grad_p50']:.5f}/{info['grad_p99']:.5f} "
-                f"radii p50/p99={info['radii_p50']:.0f}/{info['radii_p99']:.0f}",
-                flush=True,
-            )
+                batch = build_view_batch(cache, cam, vi, src_cam, src_depth)
+                pick.set(cache_miss=cache.copies - copies)
+            with span("train.step"):
+                ts, metrics = step_fn(ts, batch, cfg, use_exposure=opt_cfg.use_exposure, row_budget=row_budget)
+            if model_cfg.model_path and it in save_iterations:
+                # save BEFORE the schedule hook: an opacity reset on the same
+                # iteration would otherwise leave a near-transparent model in
+                # the checkpoint
+                d = save_train_state(ts, os.path.join(model_cfg.model_path, "point_cloud"), it)
+                print(f"saved checkpoint → {d}", flush=True)
+            pending_overflow.append(torch.stack([metrics[k].to(torch.int64) for k in _COUNTERS]))
+            # the step is passed explicitly: int(ts.step) would wait for the device
+            with span("train.schedule"):
+                ts, dens_info = maybe_host_side_schedule(ts, cfg, scene_extent=scene.extent, step=it,
+                                                         compiled=rounds)
+            if dens_info is not None or (
+                cfg.densify_from <= it <= cfg.densify_until
+                and it % cfg.opacity_reset_interval == 0
+                and (cfg.opacity_reset_until <= 0 or it <= cfg.opacity_reset_until)
+            ):
+                last_schedule_event = it
+            if dens_info is not None:
+                # restore the alive-prefix layout (prune leaves holes) and re-fit
+                # the active-row budget to the new alive count
+                g, opt = compact_gaussians(ts.gaussians, ts.opt)
+                ts = ts._replace(gaussians=g, opt=opt)
+                with span("train.read_densify", wait=True):
+                    info = dict(zip(dens_info, _fetch(dens_info.values())))
+                n_alive = int(info["n_alive"])
+                new_rb = fit_row_budget(n_alive, capacity)
+                if new_rb != row_budget:
+                    print(f"  row budget {row_budget} → {new_rb} (alive {n_alive})", flush=True)
+                    # scale the compaction budget with the rows, so that the new
+                    # rows do not overflow it during the counters' lag
+                    if cfg.raster.max_visible and new_rb > row_budget:
+                        grown = min(round_budget(int(cfg.raster.max_visible * new_rb / row_budget)), new_rb)
+                        cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=grown))
+                    row_budget = new_rb
+                print(
+                    f"  densify@{it}: clone={int(info['n_clone'])} split={int(info['n_split'])} "
+                    f"pruned={int(info['n_pruned'])} dropped={int(info['n_dropped'])} alive={n_alive} "
+                    f"score p50/p90/p99={info['score_p50']:.4f}/{info['score_p90']:.4f}/{info['score_p99']:.4f} "
+                    f"grad p50/p99={info['grad_p50']:.5f}/{info['grad_p99']:.5f} "
+                    f"radii p50/p99={info['radii_p50']:.0f}/{info['radii_p99']:.0f}",
+                    flush=True,
+                )
 
-        if it % log_every == 0:
-            total, photo, n_alive = _fetch([metrics["total"], metrics["photo"], ts.gaussians.alive.sum()])
-            print(f"[{it}/{cfg.iterations}] loss={total:.4f} photo={photo:.4f} alive={int(n_alive)} "
-                  f"({(time.time() - t0):.1f}s)", flush=True)
-        if model_cfg.model_path and pipe_cfg.debug_panel_every > 0 and it % pipe_cfg.debug_panel_every == 0:
-            save_frequency_panel(ts, cache, cam, cfg, model_cfg.model_path, it)
+            if it % log_every == 0:
+                with span("train.read_log", wait=True):
+                    total, photo, n_alive = _fetch([metrics["total"], metrics["photo"], ts.gaussians.alive.sum()])
+                print(f"[{it}/{cfg.iterations}] loss={total:.4f} photo={photo:.4f} alive={int(n_alive)} "
+                      f"({(time.time() - t0):.1f}s)", flush=True)
+            if model_cfg.model_path and pipe_cfg.debug_panel_every > 0 and it % pipe_cfg.debug_panel_every == 0:
+                save_frequency_panel(ts, cache, cam, cfg, model_cfg.model_path, it)
     # drain the counters of the last (partial) window
     if pending_overflow:
         vals = [tuple(int(x) for x in row) for row in torch.stack(pending_overflow).tolist()]

@@ -25,7 +25,10 @@ counterparts (`train.compiled.CompiledTrainStep`,
     launched each kernel and leaves those counters as they were (it
     launches nothing); every replay adds the graph's launches to
     `REPLAY_LAUNCHES`, one process-wide count for every compiled callable.
-    The warm-up's launches are real and stay in the launchers' counters.
+    The warm-up's launches are real and stay in the launchers' counters;
+  * spans (utils/profiling.py): every capture is a `graph.capture` span and
+    every replay a `graph.replay` span, with the `GraphSet`'s name as
+    `what`; nothing inside a captured body records one.
 
 A graph's outputs are its static tensors: a replay of any graph of the
 same `GraphSet` may overwrite them (the pool is shared), so a caller that
@@ -40,6 +43,7 @@ from typing import Any, Callable, Dict, List
 import torch
 
 from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
+from hidegs_tpu_torch.utils.profiling import span
 
 KERNELS = ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd")
 # launches of each kernel made by graph replays in this process
@@ -150,7 +154,7 @@ class GraphSet:
         forbids unsafe CUDA calls in every thread while the capture runs,
         "thread_local" in the capturing thread only. A capture that fails
         raises RuntimeError."""
-        with torch.cuda.device(dev):
+        with span("graph.capture", what=self.what), torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             counts = _kernel_counts()
@@ -184,7 +188,8 @@ class GraphSet:
         return Graph(graph=graph, outputs=outputs, launches=recorded)
 
     def replay(self, g: Graph) -> None:
-        g.graph.replay()
+        with span("graph.replay", what=self.what):
+            g.graph.replay()
         self.replays += 1
         for k, n in g.launches.items():
             REPLAY_LAUNCHES[k] += n

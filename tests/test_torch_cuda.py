@@ -898,6 +898,85 @@ def test_compiled_lod_frame_replay_makes_no_host_sync(cuda):
             frame(r._packed, r.target_size(cam, 2.0), cam, *r.arrays, **dict(args, attrs=r._attrs.clone()))
 
 
+@pytest.mark.cuda
+def test_recording_spans_adds_no_host_sync_to_replays(cuda):
+    """With the tracer recording (utils/profiling.py `enable()`), steady
+    replays of the compiled train step and of the compiled LOD frame under
+    set_sync_debug_mode("error"); each replay is a `graph.replay` span."""
+    from hidegs_tpu_torch.hier.interp import CompiledLodFrame
+    from hidegs_tpu_torch.train import compiled
+    from hidegs_tpu_torch.utils import profiling
+
+    ts, cfg, _, _, batches = _compiled_variant(cuda, "single-view")
+    step = compiled.CompiledTrainStep()
+    ts, _ = step(ts, batches[0], cfg)  # warm-up and capture
+    h, cam = _lod_problem(cuda)
+    r = _eager_renderer(h, cuda)
+    frame = CompiledLodFrame()
+    args = dict(budget=1 << 12, num_points=r.num_points, config=RasterConfig(max_instances=1 << 15),
+                attrs=r._attrs)
+    cams = [ring_camera(i, n_cams=6, height=96, width=128, device=cuda) for i in range(3)]
+    with torch.no_grad():
+        frame(r._packed, r.target_size(cam, 2.0), cam, *r.arrays, **args)
+    targets = [r.target_size(c, 2.0) for c in cams]
+    torch.cuda.synchronize()
+    profiling.clear()
+    profiling.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for batch in batches:
+            with profiling.span("train.step"):
+                ts, metrics = step(ts, batch, cfg)
+        with torch.no_grad():
+            for c, target in zip(cams, targets):
+                with profiling.span("lod.frame"):
+                    out = frame(r._packed, target, c, *r.arrays, **args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        profiling.disable()
+    recs = profiling.records()
+    profiling.clear()
+    assert float(metrics["step_ok"]) == 1.0 and int(out["num_selected"]) > 0
+    assert len(step.captures) == 1 and len(frame.captures) == 1
+    replays = [(x.attrs["what"], {y.id: y.name for y in recs}[x.parent]) for x in recs if x.name == "graph.replay"]
+    assert len(replays) == 6 and {p for _, p in replays} == {"train.step", "lod.frame"}
+    assert {w for w, p in replays if p == "lod.frame"} == {"the LOD frame"}
+
+
+@pytest.mark.cuda
+def test_a_profiled_lod_frame_names_its_spans(cuda, tmp_path):
+    """The compiled AdaptiveHierRenderer under utils.profiling.trace: the
+    trace holds the renderer's `lod.frame`, its waits and `graph.replay`
+    as ranges, beside the forward blend kernel; the tracer kept the same
+    spans, a frame's waits inside it."""
+    import json
+
+    from hidegs_tpu_torch.hier.interp import AdaptiveHierRenderer
+    from hidegs_tpu_torch.utils import profiling
+
+    h, cam = _lod_problem(cuda)
+    r = AdaptiveHierRenderer.from_hierarchy(h, cuda)
+    with torch.no_grad():
+        r.render(cam, 2.0)  # warm-up and capture
+        torch.cuda.synchronize()
+        profiling.clear()
+        with profiling.trace(str(tmp_path), device=cuda):
+            for _ in range(3):
+                r.render(cam, 2.0)
+    recs = profiling.records()
+    profiling.clear()
+    events = json.loads((tmp_path / profiling.TRACE_FILE).read_text())["traceEvents"]
+    ranges = [e["name"] for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    for want in ("lod.frame", "lod.read_viewpoint", "lod.read_counters", "graph.replay"):
+        assert ranges.count(want) == 3, (want, ranges.count(want))
+    assert any("blend_fwd" in e.get("name", "") for e in events if e.get("cat") == "kernel")
+    frames = [x for x in recs if x.name == "lod.frame"]
+    assert [f.request for f in frames] == [1, 2, 3] and all(f.attrs["attempts"] == 1 for f in frames)
+    for f in frames:
+        assert sorted(x.name for x in recs if x.parent == f.id) == ["graph.replay", "lod.read_counters",
+                                                                     "lod.read_viewpoint"]
+
+
 def test_native_builder_builds_into_build_dir():
     """The hierarchy builder's library is compiled from the port's copy of
     hier_builder.cpp into build/hier/ of the checkout (no card needed)."""
