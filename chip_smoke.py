@@ -828,10 +828,9 @@ def phase_times(scene, cam, cfg, pre, tb):
     render_ms = time_ms(lambda: render(*scene, cam, render_geo=True, active_sh_degree=3, config=cfg))
 
     attrs = blend_plain.pack_gaussian_attrs(pre)
-    I = tb.gauss_id.shape[0]
     count = cuda_blend.visited_count(tb, cfg.max_blocks)
     out = torch.empty((ty * tx, P, cuda_blend.OUT_CH), device=attrs.device)
-    obs = torch.zeros((I,), dtype=torch.int32, device=attrs.device)
+    obs = torch.zeros((attrs.shape[0],), dtype=torch.int32, device=attrs.device)
 
     def launch():
         obs.zero_()
@@ -3545,9 +3544,9 @@ def phase_bf16(scene, cams, cfg, train):
     with torch.no_grad():
         pre, tb, tx, ftile = a["pre"], a["tb"], a["tx"], a["tile"]
         attrs, rows, count = a["attrs"], a["rows"], a["count"]
-        I, P, T = tb.gauss_id.shape[0], ftile * ftile, a["ty"] * tx
+        P, T = ftile * ftile, a["ty"] * tx
         out = torch.empty((T, P, cuda_blend.OUT_CH), device=attrs.device)
-        obs = torch.zeros((I,), dtype=torch.int32, device=attrs.device)
+        obs = torch.zeros((attrs.shape[0],), dtype=torch.int32, device=attrs.device)
 
         def fwd(r):
             def launch():

@@ -5,8 +5,11 @@ Port of the `blend_packed` custom VJP (hidegs_tpu/raster/pallas_vjp.py:249-284,
 (`blend_plain.pack_gaussian_attrs`) and the binning in, the (T, P, 16) tile
 planes and per-gaussian observe counts out.
 
-  * forward: the CUDA kernel on CUDA tensors (raster/cuda_blend.py), the
-    plain blend on CPU tensors; the tile planes are saved for the backward;
+  * forward: the CUDA kernel on CUDA tensors (raster/cuda_blend.py), which
+    sums the observe counts per gaussian itself with integer atomics, the
+    plain blend on CPU tensors, which folds per-instance counts with an
+    integer index_add_; both are deterministic and equal. The tile planes
+    are saved for the backward;
   * backward: G_total = Σ_ch out·g (T_final masked) and T_final·g_T ride
     channels 10 and 11 of the cotangents, then one gradient row per
     instance, summed per gaussian in expansion order (each gaussian's

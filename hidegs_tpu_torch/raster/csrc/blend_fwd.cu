@@ -33,11 +33,17 @@
 //     takes part in the CTA's barriers; the CTA stops once every pixel is
 //     done (__syncthreads_count), the counterpart of the TPU kernel's
 //     opaque-block skip.
-//   * observe: per instance, the number of pixels with w > 0 and
-//     T_excl > 0.5, summed with __ballot_sync/__popc per evaluated block
-//     and integer shared-memory atomics across warps; one int32 per sorted
-//     instance. The wrapper folds those to gaussians with an integer
-//     index_add_, so the result is deterministic. No float atomics anywhere.
+//   * observe: per gaussian, the number of pixels with w > 0 and
+//     T_excl > 0.5 over all its instances. Per staged instance the count is
+//     summed with __ballot_sync/__popc per evaluated block and integer
+//     shared-memory atomics across warps; at the end of the batch the thread
+//     that staged the instance adds a nonzero count to its gaussian's int32
+//     with one global integer atomicAdd. A gaussian has at most one instance
+//     per tile, so those atomics fall on distinct rows within a CTA, and
+//     integer adds commute, so the result is deterministic. Instances the
+//     kernel never visits (padded or culled ones, which sort past every
+//     tile's span, tiles past the block budget, instances after a CTA's
+//     early stop) add nothing. No float atomics anywhere.
 //   * Output: (T, P, 16) float32 tile planes, [0:3] rgb [3] invdepth
 //     [4:7] normal [7] distance [8] acc_alpha [9] T_final [10:16] zero.
 //     Tiles with no instances (the wrapper zeroes the count of tiles past
@@ -120,9 +126,11 @@ blend_fwd_kernel(const void* __restrict__ gattr,
   for (int b0 = 0; b0 < count; b0 += kBatch) {
     const int n = min(kBatch, count - b0);
     __syncthreads();  // the previous batch is fully consumed
+    int gid = 0;  // the gaussian of the instance this thread stages
     if (tid < n) {
+      gid = gauss_id[start + b0 + tid];
       float4 row[4];
-      load_row<BF16>(gattr, gauss_id[start + b0 + tid], ox, oy, row);
+      load_row<BF16>(gattr, gid, ox, oy, row);
 #pragma unroll
       for (int q = 0; q < 4; ++q) s_attr[tid][q] = row[q];
     }
@@ -183,7 +191,7 @@ blend_fwd_kernel(const void* __restrict__ gattr,
     }
 
     const int n_live = __syncthreads_count(warp_live && lane == 0);  // also orders s_obs
-    if (tid < n) observe[start + b0 + tid] = s_obs[tid];
+    if (tid < n && s_obs[tid] != 0) atomicAdd(&observe[gid], s_obs[tid]);
     if (n_live == 0) break;
   }
 
@@ -222,9 +230,10 @@ int launch_fwd(const void* gattr, const void* gauss_id, const void* tile_start, 
 // C entry points, loaded with ctypes. gattr: (N, 16) float32 packed rows
 // (hidegs_blend_fwd) or (N, 8) 32-bit words of bf16 rows
 // (hidegs_blend_fwd_bf16, see blend_common.cuh); gauss_id: (I,) int32
-// sorted instance → gaussian; tile_start, tile_count: (num_tiles,) int32
-// spans; out: (num_tiles, tile², 16) float32; observe: (I,) int32,
-// zero-filled by the caller. Launch on `stream` and return
+// sorted instance → gaussian (every instance of a span < N); tile_start,
+// tile_count: (num_tiles,) int32 spans; out: (num_tiles, tile², 16)
+// float32; observe: (N,) int32 per-gaussian counts, zero-filled by the
+// caller. Launch on `stream` and return
 // cudaGetLastError() (0 on success).
 extern "C" int hidegs_blend_fwd(const void* gattr, const void* gauss_id,
                                 const void* tile_start, const void* tile_count,

@@ -175,12 +175,13 @@ def launch_blend_fwd(
     observe: torch.Tensor,
 ) -> None:
     """Launch the forward kernel once on the current stream. Writes `out`
-    (T, P, 16) and the per-instance counts into `observe` (I,), which must
-    be zeroed. `attrs` is float32 packed rows or bfloat16 `bf16_rows`."""
+    (T, P, 16) and adds each gaussian's observe count into `observe` (N,),
+    which must be zeroed. `attrs` (N rows) is float32 packed rows or
+    bfloat16 `bf16_rows`."""
     global LAUNCHES
     dev, T = _check_spans(attrs, gauss_id, tile_start, tile_count, tiles_x, tile)
     _check("out", out, torch.float32, (T, tile * tile, OUT_CH), dev)
-    _check("observe", observe, torch.int32, gauss_id.shape, dev)
+    _check("observe", observe, torch.int32, (attrs.shape[0],), dev)
     fn = _fn("blend_fwd", _symbol("hidegs_blend_fwd", attrs), 4, 3, 3)
     with torch.cuda.device(dev):
         rc = fn(attrs.data_ptr(), gauss_id.data_ptr(), tile_start.data_ptr(),
@@ -258,19 +259,14 @@ def blend_tile_out(
     tile: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on packed rows: (T, P, 16) tile planes and (N,)
-    int32 per-gaussian observe counts. `count` is `visited_count`."""
+    int32 per-gaussian observe counts, which the kernel sums itself with
+    integer atomics (deterministic). `count` is `visited_count`."""
     dev = attrs.device
-    N = attrs.shape[0]
-    I = binning.gauss_id.shape[0]
     out = torch.empty((tiles_y * tiles_x, tile * tile, OUT_CH), dtype=torch.float32, device=dev)
-    obs = torch.zeros((I,), dtype=torch.int32, device=dev)
+    observe = torch.zeros((attrs.shape[0],), dtype=torch.int32, device=dev)
     launch_blend_fwd(attrs, binning.gauss_id.contiguous(), binning.tile_start.contiguous(),
-                     count, tiles_x, tile, out, obs)
-    # instances of invalid slots carry gauss_id N and a zero count: row N
-    # drops. Integer adds commute, so this index_add_ is deterministic.
-    observe = torch.zeros((N + 1,), dtype=torch.int32, device=dev)
-    observe.index_add_(0, binning.gauss_id.long(), obs)
-    return out, observe[:N]
+                     count, tiles_x, tile, out, observe)
+    return out, observe
 
 
 def instance_rows(

@@ -28,6 +28,7 @@ configuration and the render cell's, replays with no host sync, and is
 what evaluate, render_cli and the viewers render through; the KNN scale
 init makes no host sync.
 """
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -101,6 +102,57 @@ def test_kernel_matches_plain(cuda, tile, max_blocks):
     for key in PLANES:
         torch.testing.assert_close(k[key], p[key], **BLEND_TOL)
     assert torch.equal(k["out_observe"], p["out_observe"])
+
+
+def _observe_scene(dev, case, tile, h=72, w=96):
+    """A scene and its binning over an instance budget 8x the demand (the
+    padding instances carry gauss_id N); "opaque": 3000 large splats at
+    opacity 0.99, whose tiles saturate early."""
+    if case == "opaque":
+        scene = make_toy_gaussians(3000, seed=5, scale_range=(0.15, 0.4), device=dev)
+        scene = scene._replace(opacities=torch.full_like(scene.opacities, 0.99))
+    else:
+        scene = make_toy_gaussians(300, seed=3, device=dev)
+    cam = ring_camera(0, height=h, width=w, device=dev)
+    ty, tx = tbin.tile_grid(h, w, tile)
+    pre = tpp.preprocess_gaussians(*scene, cam, render_geo=True, screen_bounds=(tx * tile, ty * tile))
+    demand = int(tbin.bin_gaussians(pre, ty, tx, 1 << 18, tile).num_instances)
+    return pre, tbin.bin_gaussians(pre, ty, tx, 8 * demand, tile), ty, tx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["slack", "max_blocks", "opaque"])
+def test_kernel_sums_observe_per_gaussian(cuda, case, mode, tile):
+    """The forward kernel adds each visited instance's observe count to its
+    gaussian's row itself (integer atomics, no fold after it): with most of
+    the instance budget padding, with max_blocks cutting tiles off, and on
+    a scene whose CTAs stop early, out_observe is bitwise the plain blend's
+    and bitwise equal between two launches, in both row modes."""
+    pre, tb, ty, tx = _observe_scene(cuda, case, tile)
+    I, N = tb.gauss_id.shape[0], pre.mean2d.shape[0]
+    bf16 = mode == "bf16"
+    max_blocks = 3 if case == "max_blocks" else 0
+    assert int((tb.gauss_id == N).sum()) >= 7 * I // 8
+    view = blend_plain.unpack_attrs(blend_plain.pack_gaussian_attrs(pre))
+    if case == "max_blocks":
+        visited = blend_plain.visited_tiles(tb.tile_count, I, max_blocks)
+        assert bool((~visited & (tb.tile_count > 0)).any())
+    if case == "opaque":  # some tile is opaque within the kernel's first batch of 256 (kBatch) and has more
+        first = dataclasses.replace(tb, tile_count=tb.tile_count.clamp(max=256))
+        t_final = blend_plain.blend_tile_out(view, first, ty, tx, tile, 0, bf16)[0][..., 9]
+        assert bool(((t_final < 1e-4).all(dim=1) & (tb.tile_count > 256)).any())
+    attrs = blend_plain.pack_gaussian_attrs(pre)
+    rows = blend_plain.bf16_rows(attrs) if bf16 else attrs
+    count = cuda_blend.visited_count(tb, max_blocks)
+    _, observe = cuda_blend.blend_tile_out(rows, tb, count, ty, tx, tile)
+    _, again = cuda_blend.blend_tile_out(rows, tb, count, ty, tx, tile)
+    _, want = blend_plain.blend_tile_out(view, tb, ty, tx, tile, max_blocks, bf16)
+    assert observe.dtype == torch.int32 and observe.shape == (N,)
+    assert int(want.sum()) > 0
+    assert torch.equal(observe, want)
+    assert torch.equal(again, observe)
 
 
 @pytest.mark.cuda
@@ -213,12 +265,15 @@ def test_launcher_validates_inputs(cuda):
     attrs = blend_plain.pack_gaussian_attrs(pre)
     T = ty * tx
     out = torch.empty((T, 256, cuda_blend.OUT_CH), device=cuda)
-    obs = torch.zeros_like(tb.gauss_id)
+    obs = torch.zeros((attrs.shape[0],), dtype=torch.int32, device=cuda)  # per gaussian
+    assert tb.gauss_id.shape[0] != attrs.shape[0]
     args = [attrs, tb.gauss_id, tb.tile_start, tb.tile_count, tx, 16, out, obs]
     with pytest.raises(ValueError, match="dtype"):
         cuda_blend.launch_blend_fwd(attrs.double(), *args[1:])
     with pytest.raises(ValueError, match="shape"):
         cuda_blend.launch_blend_fwd(*args[:6], out[:, :128], obs)
+    with pytest.raises(ValueError, match="shape"):  # one count per instance is the old layout
+        cuda_blend.launch_blend_fwd(*args[:7], torch.zeros_like(tb.gauss_id))
     with pytest.raises(ValueError, match="tile"):
         cuda_blend.launch_blend_fwd(*args[:5], 8, out, obs)
     cuda_blend.launch_blend_fwd(*args)

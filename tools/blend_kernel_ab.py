@@ -12,9 +12,12 @@ source, all at once) and prints each library's ptxas registers and spills.
 Then, on view 0 of the 1,010,240-gaussian cell (1920x1088, tile 32), each
 reference (named by its directory) against this checkout:
 
-  * forward: the planes and per-instance observe counts, which must be
-    bitwise equal, and the times in turns (ref, this, this, ref; CUDA
-    events, median of ITERS after WARMUP launches each);
+  * forward: the planes and the per-gaussian observe counts, which must
+    be bitwise equal, and the times in turns (ref, this, this, ref; CUDA
+    events, median of ITERS after WARMUP launches each). A version whose
+    kernel writes one count per instance (no `atomicAdd(&observe` in its
+    source) is folded to gaussians with the integer `index_add_` its
+    launcher ran, and timed with it and, in a second set of turns, without;
   * backward: the gradient rows on seeded cotangents, their largest
     difference per column normalised by the column's max and the count of
     rows that differ at all, two runs of this checkout's kernel bitwise
@@ -71,6 +74,7 @@ def main() -> int:
     for key, lib in libs.items():
         print(f"[ptxas] {key}: {chip_smoke.usage_report(chip_smoke.ptxas_usage(lib))}")
     by_slot = {tag: "slot_s" in srcs["blend_bwd"].read_text() for tag, srcs in versions.items()}
+    by_gaussian = {tag: "atomicAdd(&observe" in srcs["blend_fwd"].read_text() for tag, srcs in versions.items()}
     fns = {(tag, name): cuda_blend.bind(libs[f"{tag}:{name}"], f"hidegs_{name}", 4, 3, 0,
                                         4 if name == "blend_bwd" and by_slot[tag] else 3)
            for tag in versions for name in ("blend_fwd", "blend_bwd")}
@@ -85,48 +89,58 @@ def main() -> int:
     tb = binning.bin_gaussians(pre, ty, tx, cfg.max_instances, tile, depth_bits=cfg.depth_sort_bits)
     count = cuda_blend.visited_count(tb, cfg.max_blocks)
     stream_in = (blend_plain.pack_gaussian_attrs(pre), tb.gauss_id.contiguous(), tb.tile_start.contiguous(), count)
-    I = tb.gauss_id.shape[0]
+    I, N = tb.gauss_id.shape[0], stream_in[0].shape[0]
+    gid_long = tb.gauss_id.long()
     slot_s = tb.slot_s.contiguous()
     del scene, pre
     stream = torch.cuda.current_stream().cuda_stream
 
-    def run(tag, name, a, b):
+    def run(tag, name, a, b, fold=True):
         """One launch of version `tag`'s kernel `name` with outputs/extra
         inputs a, b (forward: planes, observe; backward: g_aug, rows);
-        zeroes the accumulated output b first."""
+        zeroes the accumulated output b first. `fold`: a per-instance
+        forward's fold too."""
         b.zero_()
         slot = (slot_s.data_ptr(),) if name == "blend_bwd" and by_slot[tag] else ()
         rc = fns[tag, name](*(x.data_ptr() for x in stream_in), T, tx, tile, *slot, a.data_ptr(), b.data_ptr(),
                             stream)
         if rc != 0:
             raise RuntimeError(f"{tag} {name} launch failed: cudaError {rc}")
+        if fold and name == "blend_fwd" and not by_gaussian[tag]:  # the fold its launcher ran
+            folded[tag].zero_().index_add_(0, gid_long, b)
 
-    def turns(name, outs):
+    def turns(name, outs, fold=True):
         ms = {tag: [] for tag in versions}
         for r in refs:
             for tag in (r, NEW, NEW, r):
-                ms[tag].append(chip_smoke.time_ms(lambda: run(tag, name, *outs[tag]), WARMUP, ITERS))
-            print(f"[{name}] ms in turns ({r}, {NEW}, {NEW}, {r}): "
+                ms[tag].append(chip_smoke.time_ms(lambda: run(tag, name, *outs[tag], fold), WARMUP, ITERS))
+            print(f"[{name}{'' if fold else ', kernels alone'}] ms in turns ({r}, {NEW}, {NEW}, {r}): "
                   + ", ".join(f"{x:.4f}" for x in (ms[r][0], ms[NEW][-2], ms[NEW][-1], ms[r][1])))
         return ms
 
-    outs = {tag: (torch.empty((T, P, blend_plain.OUT_CH), device=dev), torch.zeros((I,), dtype=torch.int32, device=dev))
-            for tag in versions}
+    outs = {tag: (torch.empty((T, P, blend_plain.OUT_CH), device=dev),
+                  torch.zeros((N if by_gaussian[tag] else I,), dtype=torch.int32, device=dev)) for tag in versions}
+    folded = {tag: torch.zeros((N + 1,), dtype=torch.int32, device=dev) for tag in versions if not by_gaussian[tag]}
     for tag in versions:
         run(tag, "blend_fwd", *outs[tag])
+
+    def observe(tag):  # every version's counts per gaussian
+        return outs[tag][1] if by_gaussian[tag] else folded[tag][:N]
+
     fwd_equal = {}
     for r in refs:
         planes_diff = int((outs[r][0] != outs[NEW][0]).sum())
-        obs_diff = int((outs[r][1] != outs[NEW][1]).sum())
+        obs_diff = int((observe(r) != observe(NEW)).sum())
         fwd_equal[r] = planes_diff == 0 and obs_diff == 0
         print(f"[blend_fwd] {r}: {planes_diff} plane values and {obs_diff} observe counts differ from {NEW} "
               f"checkout's")
     fwd_ms = turns("blend_fwd", outs)
+    fwd_kernel_ms = turns("blend_fwd", outs, fold=False) if not all(by_gaussian.values()) else fwd_ms
 
     g = torch.randn(outs[NEW][0].shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     g[..., 10:] = 0.0
     g_aug = blend_plain.augment_cotangents(outs[NEW][0], g)
-    del outs, g
+    del outs, folded, g
     rows = {tag: (g_aug, torch.zeros((I, blend_plain.ATTR), device=dev)) for tag in versions}
     for tag in versions:
         run(tag, "blend_bwd", *rows[tag])
@@ -149,7 +163,7 @@ def main() -> int:
     bwd_ms = turns("blend_bwd", rows)
 
     # every version's fold on this checkout's expansion-order rows
-    rows_exp, g_start, N = rows[NEW][1], tb.g_start.contiguous(), stream_in[0].shape[0]
+    rows_exp, g_start = rows[NEW][1], tb.g_start.contiguous()
     del rows, g_aug
     folds = {tag: (cuda_blend.bind(libs[f"{tag}:blend_bwd"], "hidegs_fold_rows", 2, 1, 0, 2),
                    torch.empty((N, blend_plain.ATTR), device=dev)) for tag in versions}
@@ -173,9 +187,9 @@ def main() -> int:
                   f"{NEW}, {NEW}, {r}): " + ", ".join(f"{x:.4f}" for x in (ms[r][0], ms[NEW][-2], ms[NEW][-1], ms[r][1])))
         fold_ms[timer.__name__] = ms
 
-    print(json.dumps(dict(card=smi, fwd_bitwise_equal=fwd_equal, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
-                          bwd_max_norm_diff=bwd_diff, bwd_two_runs_equal=bwd_repro, fold_bitwise_equal=fold_equal,
-                          fold_ms=fold_ms)))
+    print(json.dumps(dict(card=smi, fwd_bitwise_equal=fwd_equal, fwd_ms=fwd_ms, fwd_kernel_ms=fwd_kernel_ms,
+                          bwd_ms=bwd_ms, bwd_max_norm_diff=bwd_diff, bwd_two_runs_equal=bwd_repro,
+                          fold_bitwise_equal=fold_equal, fold_ms=fold_ms)))
     return 0 if all(fwd_equal.values()) and bwd_repro and all(fold_equal.values()) else 1
 
 
