@@ -3687,6 +3687,9 @@ def phase_post_opt(h, cams, targets):
     print(f"[post-opt] hierarchy {h.num_points} points / {h.num_nodes} nodes, SH x{POST_OPT_SH_SCALE}; τ={POST_OPT_TAU:g} "
           f"cut per view {cut_sizes} (budget {POST_OPT_BUDGET}), instances {inst} → max_instances {cfg.max_instances}")
 
+    from hidegs_tpu_torch.train.budgets import COUNTERS
+
+    OVERFLOWS = ("overflow", "block_overflow", "visible_overflow")
     losses, counters, last, owner, diverged = [], [], {}, {}, []
     path = {"eager": per_kernel(0, 0), "compiled": per_kernel(0, 0)}
 
@@ -3733,7 +3736,7 @@ def phase_post_opt(h, cams, targets):
             if bad and not diverged:
                 diverged.append((k, f"state leaves and metrics {bad}"))
             losses.append(m["loss"].clone())
-            counters.append(torch.stack([self.counters[key].to(torch.int64) for key in ht.COUNTERS]))
+            counters.append(torch.stack([m["counters"][COUNTERS.index(key)] for key in OVERFLOWS]))
             return new, m
         return call
 
@@ -3766,7 +3769,7 @@ def phase_post_opt(h, cams, targets):
           f"post-opt launches {path}, {launches} in all; expected one of each kernel per eager step and per replay, "
           f"and one per capture's warm-up")
     check(len(losses) == POST_OPT_ITERS and all(np.isfinite(losses)), f"post-opt: losses {losses}")
-    check(counters == [0, 0, 0], f"post-opt: a step overflowed its budgets {counters}")
+    check(counters == [0] * len(OVERFLOWS), f"post-opt: a step overflowed its budgets {counters}")
     print(f"[post-opt] compiled and eager steps bitwise equal after each of the {POST_OPT_ITERS} steps (the cut, "
           f"params, moments, row steps, step, exposure and its moments, loss, n_visible); replays made no host sync")
 

@@ -42,6 +42,7 @@ from hidegs_tpu_torch.model.adam import AdamState, init_adam, masked_adam_update
 from hidegs_tpu_torch.model.gaussians import GaussianParams
 from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
 from hidegs_tpu_torch.raster.api import RasterConfig, render
+from hidegs_tpu_torch.train.budgets import COUNTERS, OVERFLOW_CHECK_EVERY, BudgetRefit
 from hidegs_tpu_torch.train.loop import apply_exposure, step_backward
 from hidegs_tpu_torch.train.losses import abs_, clip, dssim_l1
 from hidegs_tpu_torch.utils.graphs import (
@@ -56,6 +57,7 @@ from hidegs_tpu_torch.utils.graphs import (
     require_cuda,
     same_tensors,
 )
+from hidegs_tpu_torch.utils.profiling import span
 
 
 class HierTrainState(NamedTuple):
@@ -263,14 +265,24 @@ def hier_train_step(
     pretrained-exposure ingestion of create_from_hier,
     gaussian_model.py:358-431); `optimize_exposure` additionally trains it
     with a small dense Adam like the main loop's exposure optimizer.
-    Returns (new state, {"loss", "n_visible"} as 0-d tensors). The input
-    state is left as it was."""
-    loss, inputs = hier_step_forward(ts, cut, cam, gt_image, raster_cfg, lambda_dssim, skybox_count,
-                                     image_idx, use_exposure)
+    Returns (new state, metrics): "loss" and "n_visible", 0-d, and
+    "counters", the render's budget counters (train/budgets.py:COUNTERS)
+    as one int64 tensor, in that order. The input state is left as it
+    was."""
+    return _train_step(ts, cut, cam, gt_image, lr_cfg_tree, raster_cfg, lambda_dssim, skybox_count, frozen, image_idx,
+                       use_exposure, optimize_exposure)
+
+
+def _train_step(ts, cut, cam, gt_image, lr_cfg_tree, raster_cfg, lambda_dssim, skybox_count, frozen, image_idx,
+                use_exposure, optimize_exposure):
+    """`hier_train_step`'s body, which the captured step runs too."""
+    loss, inputs, out = _hier_forward(ts, cut, cam, gt_image, raster_cfg, lambda_dssim, skybox_count, image_idx,
+                                      use_exposure)
     grads = step_backward(loss, inputs)
     new_ts, visible = hier_step_update(ts, cut, grads, lr_cfg_tree, skybox_count, frozen, use_exposure,
                                        optimize_exposure)
-    return new_ts, {"loss": loss.detach(), "n_visible": visible.sum()}
+    counters = torch.stack([out[k].to(torch.int64) for k in COUNTERS])
+    return new_ts, {"loss": loss.detach(), "n_visible": visible.sum(), "counters": counters}
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +291,6 @@ def hier_train_step(
 # the fields of HierTrainState a step writes; the topology (nodes, boxes,
 # packed) is only read, by the cut, and is held by reference
 _STEP_FIELDS = ("params", "opt", "step", "exposure", "exposure_m", "exposure_v")
-COUNTERS = ("overflow", "block_overflow", "visible_overflow")
 
 
 def _written(ts: HierTrainState) -> tuple:
@@ -312,22 +323,18 @@ def hier_step_in_place(ts: HierTrainState, cut: HierCut, cam, gt_image: torch.Te
                        optimize_exposure: bool = False):
     """What a post-opt graph captures: one `hier_train_step` whose new
     params, moments, step and exposure are written into the buffers of
-    `ts`. Returns (the metrics {"loss", "n_visible"}, the render's budget
-    counters {"overflow", "block_overflow", "visible_overflow"}), 0-d."""
-    loss, inputs, out = _hier_forward(ts, cut, cam, gt_image, raster_cfg, lambda_dssim, skybox_count, image_idx,
-                                      use_exposure)
-    grads = step_backward(loss, inputs)
-    new, visible = hier_step_update(ts, cut, grads, lr_cfg_tree, skybox_count, frozen, use_exposure,
-                                    optimize_exposure)
+    `ts`. Returns its metrics, as `hier_train_step`'s."""
+    new, metrics = _train_step(ts, cut, cam, gt_image, lr_cfg_tree, raster_cfg, lambda_dssim, skybox_count, frozen,
+                               image_idx, use_exposure, optimize_exposure)
     for dst, src in zip(_tensors(_written(ts)), _tensors(_written(new)), strict=True):
         if not _same_memory(dst, src):
             dst.copy_(src)
-    return {"loss": loss.detach(), "n_visible": visible.sum()}, {k: out[k] for k in COUNTERS}
+    return metrics
 
 
 @dataclasses.dataclass
 class _StepGraph:
-    graph: Graph  # outputs: (metrics, counters)
+    graph: Graph  # outputs: the metrics
     inputs: tuple  # static (cut, cam, gt_image, lr_cfg_tree, frozen)
     image_idx: torch.Tensor  # static () int64
 
@@ -367,9 +374,10 @@ class CompiledHierTrainStep:
         hierarchy is held by reference (it is constant for the state's
         lifetime; a call with another one raises), the viewpoint is copied
         in;
-      * the metrics, the render's budget counters (`counters`) and the cut
-        are static tensors of graphs that share one pool: valid until the
-        next replay of either graph.
+      * the metrics (the render's budget counters among them, `counters`,
+        in the order of train/budgets.py:COUNTERS) and the cut are static
+        tensors of graphs that share one pool: valid until the next replay
+        of either graph.
 
     There is no fallback: a state off the card raises ValueError, a failed
     capture RuntimeError. `captures` and `replays` are the record of
@@ -380,7 +388,6 @@ class CompiledHierTrainStep:
         self._steps: Dict[tuple, _StepGraph] = {}
         self._cuts: Dict[tuple, _CutGraph] = {}
         self._states: Dict[Any, tuple] = {}  # static state buffers, by their spec
-        self.counters: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def captures(self):
@@ -444,8 +451,7 @@ class CompiledHierTrainStep:
         else:
             g.image_idx.fill_(int(image_idx))
         self._set.replay(g.graph)
-        metrics, self.counters = g.graph.outputs
-        return ts._replace(**dict(zip(_STEP_FIELDS, state))), metrics
+        return ts._replace(**dict(zip(_STEP_FIELDS, state))), g.graph.outputs
 
     def _capture_step(self, ts, state, inputs, raster_cfg, lambda_dssim, skybox_count, use_exposure,
                       optimize_exposure) -> _StepGraph:
@@ -491,14 +497,27 @@ def post_optimize(
     ((len(cameras), 3, 4)) seeds per-image compensation (the
     create_from_hier pretrained-exposure ingestion); `optimize_exposure`
     trains it (fresh identity when no seed was given). Views are drawn
-    with random.Random(0), as in the JAX package; the host reads the
-    device only at the log.
+    with random.Random(0), as in the JAX package.
 
     On a card every iteration is two graph replays, the cut and the step
     (`CompiledHierTrainStep`, JAX's two executables `expand_packed` and
     `hier_train_step`); on the CPU the eager `select_cut` and
     `hier_train_step`. The image index is a device tensor, so one graph
-    serves every view."""
+    serves every view.
+
+    The render's budgets start from `raster_cfg` and are re-fitted from the
+    steps' counters by the leaf trainer's rule (train/budgets.py): the host
+    reads the counters of OVERFLOW_CHECK_EVERY steps in one copy, and the
+    loss at the log, and nothing else. A new budget is a new key of the
+    compiled step, which captures it and keeps the old graphs.
+
+    Each iteration is a `postopt.iteration` span (utils/profiling.py) whose
+    request is the iteration: inside it `postopt.select` (with `budget`,
+    the cut's slots), `postopt.step` (with `image`, its height and width,
+    and the budgets in force: `max_instances`, `max_blocks`,
+    `max_visible`), and the host's reads as wait spans,
+    `postopt.read_budgets` (with `refit`, 1 when a budget changed) and
+    `postopt.read_log`."""
     dev = resolve_device(device)
     ts = state_from_hierarchy(h, num_images=len(cameras), exposures=exposures, device=dev)
     use_expo = exposures is not None or optimize_exposure
@@ -516,20 +535,41 @@ def post_optimize(
         select, step = compiled.select, compiled
     else:
         select, step = select_cut, hier_train_step
+    refit = BudgetRefit()
+    pending = []  # each step's budget counters, read in windows
     rnd = random.Random(0)
     for it in range(1, iterations + 1):
-        i = rnd.randrange(len(cameras))
-        cut = select(ts, cameras[i], target_size, budget)
-        lrs = lr_tree(ts.step, lr_cfg, 1.0)
-        ts, m = step(
-            ts, cut, cameras[i], gts[i], lrs, raster_cfg,
-            skybox_count=skybox_count, frozen=frozen,
-            image_idx=image_ids[i], use_exposure=use_expo,
-            optimize_exposure=optimize_exposure,
-        )
-        if it % log_every == 0:  # before the next replay overwrites the metrics
-            loss, n_vis = torch.stack([m["loss"].double(), m["n_visible"].double()]).tolist()
-            print(f"[hier {it}/{iterations}] loss={loss:.4f} visible={int(n_vis)}", flush=True)
+        with span("postopt.iteration", request=it):
+            if len(pending) >= OVERFLOW_CHECK_EVERY:
+                with span("postopt.read_budgets", wait=True, refit=0) as read:
+                    vals = [tuple(int(x) for x in row) for row in torch.stack(pending).tolist()]
+                pending = []
+                raster_cfg, changed = refit.update(raster_cfg, vals, it, budget)
+                if changed:
+                    read.set(refit=1)
+            i = rnd.randrange(len(cameras))
+            with span("postopt.select", budget=budget):
+                cut = select(ts, cameras[i], target_size, budget)
+            lrs = lr_tree(ts.step, lr_cfg, 1.0)
+            with span("postopt.step", image=tuple(gts[i].shape[-2:]), max_instances=raster_cfg.max_instances,
+                      max_blocks=raster_cfg.max_blocks, max_visible=raster_cfg.max_visible):
+                ts, m = step(
+                    ts, cut, cameras[i], gts[i], lrs, raster_cfg,
+                    skybox_count=skybox_count, frozen=frozen,
+                    image_idx=image_ids[i], use_exposure=use_expo,
+                    optimize_exposure=optimize_exposure,
+                )
+            # copied: the next replay overwrites the step's outputs
+            pending.append(m["counters"].clone())
+            if it % log_every == 0:
+                with span("postopt.read_log", wait=True):
+                    loss, n_vis = torch.stack([m["loss"].double(), m["n_visible"].double()]).tolist()
+                print(f"[hier {it}/{iterations}] loss={loss:.4f} visible={int(n_vis)}", flush=True)
+    if pending:
+        refit.dropped_instances += sum(row[0] for row in torch.stack(pending).tolist())
+    if refit.dropped_instances:
+        print(f"[hier] run summary: {refit.dropped_instances} instances were dropped by budget overflows before "
+              f"re-budgeting caught up; the last instance budget {raster_cfg.max_instances}", flush=True)
     return ts
 
 

@@ -67,6 +67,7 @@ from hidegs_tpu_torch.model.gaussians import (
 from hidegs_tpu_torch.model.knn import initial_scales
 from hidegs_tpu_torch.model.schedules import LRConfig
 from hidegs_tpu_torch.raster.api import RasterConfig, render, round_budget, suggest_max_instances
+from hidegs_tpu_torch.train.budgets import COUNTERS, OVERFLOW_CHECK_EVERY, BudgetRefit
 from hidegs_tpu_torch.train.checkpoint import save_train_state
 from hidegs_tpu_torch.train.compiled import CompiledDensify, CompiledTrainStep
 from hidegs_tpu_torch.train.geometric import MultiViewBatch
@@ -176,71 +177,18 @@ def init_gaussians_from_scene(scene, model_cfg: ModelConfig, capacity: int, scaf
     return state
 
 
-# budget counters are fetched once per this many steps: one device sync per
-# window, not one per step
-OVERFLOW_CHECK_EVERY = 8
 # active-row budget headroom: the step's row prefix is n_alive·(1 + this),
 # rounded up to a power of two
 ROW_BUDGET_SLACK = 0.05
-# consecutive clean steps before a downward budget re-fit is considered
-SHRINK_WINDOW = 200
-# only shrink to at most this fraction of the current budget (hysteresis)
-SHRINK_FACTOR = 0.7
-# visible-row compaction pays only past this row count (the JAX package's
-# crossover; not measured on the card)
-COMPACTION_MIN_ROWS = 2_000_000
-# the order of the per-step budget counters in a window
-_COUNTERS = ("overflow", "block_overflow", "num_instances", "needed_blocks", "step_ok",
-             "visible_overflow", "num_visible")
+# the order of the per-step counters in a window: the re-fit's, then the
+# finite-step gate
+_COUNTERS = COUNTERS + ("step_ok",)
 
 
 def fit_row_budget(n_alive: int, capacity: int) -> int:
     """Octave-rounded active-row budget for the sliced train step."""
     want = max(int(n_alive * (1.0 + ROW_BUDGET_SLACK)), 1 << 12)
     return min(1 << (want - 1).bit_length(), capacity)
-
-
-def _fit_visible_budget(peak_visible: int, row_budget: int) -> int:
-    """Visible-row compaction budget from an observed per-view peak (+25%,
-    quarter-octave rounded); 0 (compaction off) when it would not beat the
-    full row prefix."""
-    if peak_visible <= 0 or row_budget < COMPACTION_MIN_ROWS:
-        return 0
-    fit = round_budget(int(peak_visible * 1.25))
-    if fit >= row_budget * SHRINK_FACTOR:
-        return 0
-    return fit
-
-
-def _maybe_shrink_budgets(
-    cfg: TrainConfig, win_max_inst: int, win_max_blocks: int, it: int,
-    win_max_visible: int = 0, row_budget: int = 0,
-):
-    """Re-fit budgets to the window's peak demand (+12% slack, the policy
-    of the initial fit). Returns (cfg, shrunk?)."""
-    shrunk = False
-    if win_max_visible > 0 and cfg.raster.max_visible:
-        fit_v = _fit_visible_budget(win_max_visible, row_budget or (1 << 62))
-        if fit_v and fit_v <= cfg.raster.max_visible * SHRINK_FACTOR:
-            print(f"  shrinking max_visible {cfg.raster.max_visible} → {fit_v} "
-                  f"(peak visible {win_max_visible})", flush=True)
-            cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=fit_v))
-            shrunk = True
-    if win_max_inst > 0:
-        fit = round_budget(int(win_max_inst * 1.12))
-        if fit <= cfg.raster.max_instances * SHRINK_FACTOR:
-            print(f"  budgets idle for {SHRINK_WINDOW} steps — shrinking max_instances "
-                  f"{cfg.raster.max_instances} → {fit} (peak demand {win_max_inst})", flush=True)
-            cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_instances=fit))
-            shrunk = True
-    if win_max_blocks > 0 and cfg.raster.max_blocks:
-        fit_b = -(-int(win_max_blocks * 1.12) // 256) * 256
-        if fit_b <= cfg.raster.max_blocks * SHRINK_FACTOR:
-            print(f"  shrinking max_blocks {cfg.raster.max_blocks} → {fit_b} "
-                  f"(peak demand {win_max_blocks})", flush=True)
-            cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_blocks=fit_b))
-            shrunk = True
-    return cfg, shrunk
 
 
 class ViewCache:
@@ -482,10 +430,10 @@ def train(
     use_mv = cfg.multi_view_ncc_weight > 0 and bool(scene.neighbors)
     # budget bookkeeping: each step's counters stay on the device and are
     # read in windows of OVERFLOW_CHECK_EVERY steps, in one copy; budgets
-    # grow on overflow and shrink after SHRINK_WINDOW clean steps
+    # grow on overflow and shrink after a clean window (train/budgets.py)
     pending_overflow = []
-    total_dropped_inst = total_dropped_blocks = total_skipped_steps = 0
-    clean_steps = win_max_inst = win_max_blocks = win_max_visible = 0
+    refit = BudgetRefit(visible_compaction=pipe_cfg.visible_compaction)
+    total_skipped_steps = 0
     last_schedule_event = 0  # last densify / opacity-reset step (shrink cooldown)
     budget_log = [(start_iter, cfg.raster.max_instances, cfg.raster.max_blocks)]
     for it in range(start_iter, cfg.iterations + 1):
@@ -494,67 +442,16 @@ def train(
                 with span("train.read_budgets", wait=True, refit=0) as read:
                     vals = [tuple(int(x) for x in row) for row in torch.stack(pending_overflow).tolist()]
                 pending_overflow = []
-                ov = sum(v[0] for v in vals)
-                bov = sum(v[1] for v in vals)
-                bad = sum(1 for v in vals if v[4] == 0)
+                bad = sum(1 for v in vals if v[-1] == 0)
                 if bad:
                     total_skipped_steps += bad
                     print(f"  {bad} non-finite steps skipped in window ending @{it}", flush=True)
-                v_ov = sum(v[5] for v in vals)
-                v_peak = max([0] + [v[6] for v in vals])
-                changed = False
-                if v_ov > 0:
-                    # visible-row compaction overflow drops rows from the render:
-                    # grow now (2x, capped at the row prefix)
-                    new_vb = min(cfg.raster.max_visible * 2, row_budget)
-                    print(f"  visible budget overflow ({v_ov} rows) — growing max_visible "
-                          f"{cfg.raster.max_visible} → {new_vb}", flush=True)
-                    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=new_vb))
-                    changed = True
-                elif cfg.raster.max_visible == 0 and v_peak > 0 and pipe_cfg.visible_compaction:
-                    # first demand observation: enable compaction if it pays
-                    fit = _fit_visible_budget(v_peak, row_budget)
-                    if fit:
-                        print(f"  enabling visible-row compaction: max_visible={fit} "
-                              f"(peak visible {v_peak} of {row_budget} rows)", flush=True)
-                        cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_visible=fit))
-                        changed = True
-                if ov > 0:
-                    total_dropped_inst += ov
-                    new_budget = cfg.raster.max_instances * 2
-                    print(f"  instance budget overflow ({ov} dropped) — growing max_instances "
-                          f"{cfg.raster.max_instances} → {new_budget}", flush=True)
-                    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_instances=new_budget))
-                    changed = True
-                if bov > 0 and cfg.raster.max_blocks:
-                    total_dropped_blocks += bov
-                    new_blocks = cfg.raster.max_blocks * 2
-                    print(f"  block budget overflow ({bov} blocks) — growing max_blocks "
-                          f"{cfg.raster.max_blocks} → {new_blocks}", flush=True)
-                    cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_blocks=new_blocks))
-                    changed = True
+                raster, changed = refit.update(cfg.raster, [v[:-1] for v in vals], it, row_budget,
+                                               last_event=last_schedule_event)
                 if changed:
-                    clean_steps = win_max_inst = win_max_blocks = win_max_visible = 0
+                    cfg = dataclasses.replace(cfg, raster=raster)
                     budget_log.append((it, cfg.raster.max_instances, cfg.raster.max_blocks))
                     read.set(refit=1)
-                else:
-                    clean_steps += len(vals)
-                    win_max_inst = max([win_max_inst] + [v[2] for v in vals])
-                    win_max_blocks = max([win_max_blocks] + [v[3] for v in vals])
-                    win_max_visible = max([win_max_visible] + [v[6] for v in vals])
-                    # no shrinking near schedule events: new splats are still
-                    # growing into their footprint, and a shrink there is soon
-                    # followed by an overflow re-grow
-                    settled = (it - last_schedule_event) >= 2 * SHRINK_WINDOW
-                    if clean_steps >= SHRINK_WINDOW and settled:
-                        cfg, shrunk = _maybe_shrink_budgets(
-                            cfg, win_max_inst, win_max_blocks, it,
-                            win_max_visible=win_max_visible, row_budget=row_budget,
-                        )
-                        clean_steps = win_max_inst = win_max_blocks = win_max_visible = 0
-                        if shrunk:
-                            budget_log.append((it, cfg.raster.max_instances, cfg.raster.max_blocks))
-                            read.set(refit=1)
             with span("train.batch") as pick:
                 copies = cache.copies
                 if not order:
@@ -627,11 +524,11 @@ def train(
     # drain the counters of the last (partial) window
     if pending_overflow:
         vals = [tuple(int(x) for x in row) for row in torch.stack(pending_overflow).tolist()]
-        total_dropped_inst += sum(v[0] for v in vals)
-        total_dropped_blocks += sum(v[1] for v in vals)
-        total_skipped_steps += sum(1 for v in vals if v[4] == 0)
-    if total_dropped_inst or total_dropped_blocks:
-        print(f"run summary: {total_dropped_inst} instances and {total_dropped_blocks} kernel blocks were "
+        refit.dropped_instances += sum(v[0] for v in vals)
+        refit.dropped_blocks += sum(v[1] for v in vals)
+        total_skipped_steps += sum(1 for v in vals if v[-1] == 0)
+    if refit.dropped_instances or refit.dropped_blocks:
+        print(f"run summary: {refit.dropped_instances} instances and {refit.dropped_blocks} kernel blocks were "
               "dropped by budget overflows before re-budgeting caught up", flush=True)
     if total_skipped_steps:
         print(f"run summary: {total_skipped_steps} steps skipped by the finite-step gate "

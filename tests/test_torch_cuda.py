@@ -654,7 +654,7 @@ def test_trainer_with_visible_compaction_makes_no_host_sync_per_step(cuda, tmp_p
     import warnings
 
     from hidegs_tpu_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
-    from hidegs_tpu_torch.train import compiled, trainer
+    from hidegs_tpu_torch.train import budgets, compiled, trainer
     from torch_scenes import write_two_cluster_scene
 
     src = write_two_cluster_scene(tmp_path / "scene")
@@ -674,7 +674,7 @@ def test_trainer_with_visible_compaction_makes_no_host_sync_per_step(cuda, tmp_p
                           [str(w.message) for w in caught if "synchroniz" in str(w.message)]))
             return out
 
-    monkeypatch.setattr(trainer, "_fit_visible_budget", lambda peak, rows: 1024 if peak > 0 else 0)
+    monkeypatch.setattr(budgets, "fit_visible_budget", lambda peak, rows: 1024 if peak > 0 else 0)
     monkeypatch.setattr(trainer, "CompiledTrainStep", Watched)
     opt = OptimizationConfig(iterations=24, densify_from_iter=1000, freq_warmup_iterations=0,
                              single_view_weight_from_iter=0, multi_view_weight_from_iter=1000)
@@ -1084,6 +1084,7 @@ def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
 
     from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
     from hidegs_tpu_torch.train import hier_trainer as ht
+    from hidegs_tpu_torch.train.budgets import COUNTERS
 
     ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
     cut = ht.select_cut(ts, cams[0], target, budget)
@@ -1106,7 +1107,8 @@ def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
         assert [c["kind"] for c in step.captures] == ["cut", "step"]
         assert step.captures[1]["launches"] == step.captures[1]["warmup_launches"] == dict.fromkeys(
             ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd"), 1)
-        assert all(int(c) == 0 for c in step.counters.values())
+        assert all(int(gm["counters"][COUNTERS.index(c)]) == 0 for c in ("overflow", "block_overflow",
+                                                                           "visible_overflow"))
         return
     before = _counts()
     loss, inputs = ht.hier_step_forward(ts, cut, cams[0], gts[0], rcfg, image_idx=0, use_exposure=True)
@@ -1279,6 +1281,131 @@ def test_compiled_post_opt_step_is_bitwise_the_eager_step(cuda, variant):
     assert len(step.captures) == 2 and step.replays == 6 and float(cm["loss"]) > 0
     if "frozen" in kw:
         assert torch.equal(comp.params.xyz[frozen], ts.params.xyz[frozen])
+
+
+def _refitting_post_opt(dev, monkeypatch, hold=None):
+    """post_optimize on the card from an instance budget of 1024, which the
+    toy views overflow: each call of the compiled step is recorded (its
+    budget, whether it captured, the host syncs it made), and `hold(comp,
+    args, kwargs, out)` runs after each."""
+    import warnings
+
+    from hidegs_tpu_torch.hier.io import Hierarchy
+    from hidegs_tpu_torch.train import hier_trainer as ht
+
+    ts, cams, gts, rcfg, target, budget = _post_opt_problem(dev)
+    h = ht.hierarchy_from_state(ts, Hierarchy(*(None,) * 5, ts.nodes.cpu().numpy(), ts.boxes.cpu().numpy()))
+    calls = []
+
+    class Watched(ht.CompiledHierTrainStep):
+        def select(self, *args, **kwargs):
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = super().select(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            self.select_syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+            return out
+
+        def __call__(self, *args, **kwargs):
+            captured = len(self.captures)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = super().__call__(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs = self.select_syncs + [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+            calls.append((args[5].max_instances, len(self.captures) > captured, syncs))
+            if hold is not None:
+                hold(self, args, kwargs, out)
+            return out
+
+    monkeypatch.setattr(ht, "CompiledHierTrainStep", Watched)
+    start = dataclasses.replace(rcfg, max_instances=1024)
+    ht.post_optimize(h, cams, gts, iterations=40, target_size=target, budget=budget, raster_cfg=start,
+                     log_every=1000, optimize_exposure=True, device=dev)
+    return calls
+
+
+@pytest.mark.cuda
+def test_post_opt_refit_captures_a_new_key_and_makes_no_host_sync_between_reads(cuda, monkeypatch, capsys):
+    """post_optimize from an overflowing instance budget: the budget
+    doubles at a read of the counters (every 8 iterations), each new budget
+    captures one new step graph and the old graphs stay (replaying an old
+    budget afterwards captures nothing), the last windows overflow no more,
+    and a call that captures nothing makes no host sync."""
+    from hidegs_tpu_torch.model.schedules import LRConfig, lr_tree
+    from hidegs_tpu_torch.train import budgets, hier_trainer as ht
+
+    comps, last = [], []
+
+    def hold(comp, args, kwargs, out):
+        if not comps:
+            comps.append(comp)
+        last[:] = [out[1]["counters"]]
+
+    calls = _refitting_post_opt(cuda, monkeypatch, hold=hold)
+    assert "growing max_instances 1024 → 2048" in capsys.readouterr().out
+    grown = [b for b, _, _ in calls]
+    assert grown[0] == 1024 and grown[-1] > 1024 and grown == sorted(grown)
+    for k, b in enumerate(grown):  # a budget changes only at a read
+        assert k % budgets.OVERFLOW_CHECK_EVERY == 0 or b == grown[k - 1], k
+    keys = sorted(set(grown))
+    comp = comps[0]
+    assert [c["max_instances"] for c in comp.captures if c["kind"] == "step"] == keys
+    assert all(captured == (k == 0 or grown[k] != grown[k - 1]) for k, (_, captured, _) in enumerate(calls))
+    for k, (b, captured, syncs) in enumerate(calls):
+        if not captured:
+            assert not syncs, f"iteration {k + 1} (max_instances {b}) synchronised: {syncs}"
+    assert int(last[0][budgets.COUNTERS.index("overflow")]) == 0
+    n = len(comp.captures)
+    ts, cams, gts, rcfg, target, budget = _post_opt_problem(cuda)
+    # the first budget's graph is still held: a call at it replays
+    for b in (keys[0], keys[-1]):
+        comp(ts, ht.select_cut(ts, cams[0], target, budget), cams[0], gts[0], lr_tree(ts.step, LRConfig(), 1.0),
+             dataclasses.replace(rcfg, max_instances=b), image_idx=0, use_exposure=True, optimize_exposure=True)
+    assert len(comp.captures) == n
+
+
+@pytest.mark.cuda
+def test_post_opt_replays_are_the_eager_step_at_a_grown_budget(cuda, monkeypatch):
+    """Each call of the compiled step inside a re-fitting post_optimize,
+    held against select_cut and hier_train_step from the same state at the
+    budget in force: the cut, every tensor of the new state and the
+    metrics bitwise equal, at the start budget and at the grown ones."""
+    from hidegs_tpu_torch.train import hier_trainer as ht
+    from hidegs_tpu_torch.utils import graphs
+
+    held = []
+
+    def hold(comp, args, kwargs, out):
+        _, cut, cam, gt, lrs, rcfg = args
+        state0 = held_state[-1]
+        want_cut = ht.select_cut(state0, cam, cut_target[0], cut.valid.shape[0])
+        assert all(torch.equal(getattr(cut, f), getattr(want_cut, f)) for f in cut._fields)
+        want, wm = ht.hier_train_step(state0, want_cut, cam, gt, lrs, rcfg, **kwargs)
+        got, gm = out
+        for n, (a, b) in enumerate(zip(_post_opt_leaves(got), _post_opt_leaves(want))):
+            assert torch.equal(a, b), (rcfg.max_instances, n)
+        assert all(torch.equal(gm[m], wm[m]) for m in wm)
+        held.append(rcfg.max_instances)
+
+    held_state, cut_target = [], []
+    orig_select = ht.CompiledHierTrainStep.select
+
+    def select(self, ts, cam, target, budget):
+        # the state the coming step starts from, cloned before the replay
+        held_state.append(ts._replace(**dict(zip(ht._STEP_FIELDS, graphs._map(torch.clone, ht._written(ts))))))
+        cut_target[:] = [target]
+        return orig_select(self, ts, cam, target, budget)
+
+    monkeypatch.setattr(ht.CompiledHierTrainStep, "select", select)
+    _refitting_post_opt(cuda, monkeypatch, hold=hold)
+    assert len(held) == 40 and len(set(held)) > 1
 
 
 @pytest.mark.cuda

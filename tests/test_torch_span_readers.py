@@ -1,6 +1,6 @@
 """The benchmark's readers of the program's spans (gsbench/metrics/
-train.iter_host_ms.py, lod.frame_host_ms.py, lod.frame_wait_ms.py,
-lod.waits_per_frame.py) on hand-made records of utils/profiling.py: a
+train.iter_host_ms.py, postopt.iter_host_ms.py, lod.frame_host_ms.py,
+lod.frame_wait_ms.py, lod.waits_per_frame.py) on hand-made records of utils/profiling.py: a
 root span's own host time is its duration less its outermost wait spans
 and graph launches (`graph.replay`); its wait time and count are its
 outermost wait spans; a program without the tracer, or a run that kept no
@@ -42,6 +42,7 @@ def _records(root):
 
 CASES = [
     ("train.iter_host_ms", "train.iteration", ((10 - 2 - 1 - 3) + (6 - 1 - 1.5)) / 2),
+    ("postopt.iter_host_ms", "postopt.iteration", ((10 - 2 - 1 - 3) + (6 - 1 - 1.5)) / 2),
     ("lod.frame_host_ms", "lod.frame", ((10 - 2 - 1 - 3) + (6 - 1 - 1.5)) / 2),
     ("lod.frame_wait_ms", "lod.frame", ((2 + 3) + 1) / 2),
     ("lod.waits_per_frame", "lod.frame", (2 + 1) / 2),
@@ -74,3 +75,15 @@ def test_the_trainer_reads_its_median_iteration(monkeypatch):
     ]
     monkeypatch.setattr(prof, "records", lambda: recs)
     assert harness.load_reader("train.iter_host_ms")(None) == pytest.approx(4.0)
+
+
+def test_the_post_optimizer_reads_its_median_iteration(monkeypatch):
+    """As the trainer's: the iteration that holds the yardstick's copy in
+    its step span does not move the reading."""
+    recs = _records("postopt.iteration") + [
+        _span("postopt.step", 21, 20, 40, 91),
+        _span("graph.replay", 22, 21, 90, 91),
+        _span("postopt.iteration", 20, None, 40, 92, request=3),
+    ]
+    monkeypatch.setattr(prof, "records", lambda: recs)
+    assert harness.load_reader("postopt.iter_host_ms")(None) == pytest.approx(4.0)

@@ -30,6 +30,7 @@ from hidegs_tpu_torch import config as tconfig
 from hidegs_tpu_torch.data import synthetic as tsyn
 from hidegs_tpu_torch.data.scene import load_scene as tload_scene
 from hidegs_tpu_torch.raster.api import RasterConfig
+from hidegs_tpu_torch.train import budgets as tbudgets
 from hidegs_tpu_torch.train import loop as tl
 from hidegs_tpu_torch.train import trainer as ttrainer
 from hidegs_tpu_torch.utils.ply import gaussian_properties, write_ply
@@ -82,7 +83,7 @@ def test_budget_helpers_match_jax(capsys):
     for n, cap in ((0, 1 << 20), (100, 512), (5000, 1 << 20), (1 << 20, 1 << 20), (700_000, 1 << 23)):
         assert ttrainer.fit_row_budget(n, cap) == jtrainer.fit_row_budget(n, cap)
     for peak, rows in ((0, 4_000_000), (100_000, 1_000_000), (100_000, 4_000_000), (3_000_000, 4_000_000)):
-        assert ttrainer._fit_visible_budget(peak, rows) == jtrainer._fit_visible_budget(peak, rows)
+        assert tbudgets.fit_visible_budget(peak, rows) == jtrainer._fit_visible_budget(peak, rows)
     cases = [(1 << 20, 0, 0, 100_000, 0, 0), (1 << 20, 4096, 1000, 900_000, 800, 0),
              (1 << 20, 0, 3_000_000, 100_000, 0, 1_000_000), (1 << 16, 0, 0, 60_000, 0, 0)]
     for max_inst, max_blocks, max_visible, win_inst, win_blocks, win_vis in cases:
@@ -92,12 +93,11 @@ def test_budget_helpers_match_jax(capsys):
         jc, js = jtrainer._maybe_shrink_budgets(jtrainer.TrainConfig(raster=jr), win_inst, win_blocks, 9,
                                                 win_max_visible=win_vis, row_budget=4_000_000)
         jout = capsys.readouterr().out
-        tc, ts = ttrainer._maybe_shrink_budgets(tl.TrainConfig(raster=tr), win_inst, win_blocks, 9,
-                                                win_max_visible=win_vis, row_budget=4_000_000)
+        tr, ts = tbudgets.shrink_budgets(tr, win_inst, win_blocks, win_max_visible=win_vis, row_budget=4_000_000)
         assert capsys.readouterr().out == jout
         assert ts == js
         for key in ("max_instances", "max_blocks", "max_visible"):
-            assert getattr(tc.raster, key) == getattr(jc.raster, key), key
+            assert getattr(tr, key) == getattr(jc.raster, key), key
 
 
 def _write_scaffold(source, tmp_path):
@@ -232,7 +232,7 @@ def test_three_iteration_train_matches_jax(colmap_scene, monkeypatch):
 def test_budget_grow_then_shrink(colmap_scene, tmp_path, monkeypatch, capsys):
     """tests/test_e2e.py:test_budget_grow_then_shrink on the port: budgets
     grow on overflow and re-fit downward after a clean window."""
-    monkeypatch.setattr(ttrainer, "SHRINK_WINDOW", 3)
+    monkeypatch.setattr(tbudgets, "SHRINK_WINDOW", 3)
     model_cfg = tconfig.ModelConfig(source_path=colmap_scene, model_path=str(tmp_path / "m"))
     opt_cfg = _opt(tconfig.OptimizationConfig, iterations=10, freq_warmup_iterations=1000,
                    single_view_weight_from_iter=1000)
