@@ -37,6 +37,13 @@ Phases (run in the order of `main`):
   1. environment: card name and power limit, versions, the kernel builds
      (one nvcc per source, started together, with the scalar fold of
      tools/csrc/fold_rows_scalar.cu that phase 11 times beside the fold);
+ 1a. masked Adam: the kernel (model/csrc/masked_adam.cu) at the post-opt
+     cell's 2,020,479 rows with packed gradients and at the train step's
+     row budget 2^21 (a prefix of longer buffers), all rows and about half
+     in the mask, out of place and in place: one launch a call, bitwise
+     masked_adam_plain, the inputs (out of place) and the rows past the
+     prefix (in place) untouched; the kernel alone in turns with the plain
+     body at both shapes, beside its bytes bound; ptxas registers;
   2. small: toy scenes, tile 16 and 32, render_geo on and off, and the
      mask boundary scene (make_blend_boundary_scene: level sets that end on
      the kernels' 8x4 mask blocks) with and without a too-small max_blocks,
@@ -279,8 +286,8 @@ Phases (run in the order of `main`):
  15. view-parallel (parallel/sharded.py:make_dp_train_step) on phase 8's
      train cell, four views a step: (a) one rank, 10 steps with no process
      group and 10 in a one-rank NCCL group, float32 and on the bf16 wire;
-     launch counts read around the no-group runs: 4 of each kernel per
-     step. Checks: finite losses, mean PSNR up; each NCCL run bitwise its
+     launch counts read around the no-group runs: 4 of each render kernel
+     and one masked Adam per step. Checks: finite losses, mean PSNR up; each NCCL run bitwise its
      no-group run; the bf16 wire's first step within rtol 1e-4 of float32's
      loss and its xyz update at cosine > 0.99; two steps from one state
      bitwise equal; a V = 1 step on view 0 bitwise train_step's; one NCCL
@@ -288,7 +295,8 @@ Phases (run in the order of `main`):
      held against the plain versions (forward with hold_node_forward,
      backward and fold with hold_backward). Prints ms per step (no group,
      NCCL), the local forward + backward alone, the gradient all-reduce
-     alone in float32 and bf16 with its bytes, the masked Adam update, one
+     alone in float32 and bf16 with its bytes, the masked Adam update (and
+     its kernel on the step's gradients, bitwise masked_adam_plain), one
      step under the profiler and the peak memory. (d) one step under
      utils.profiling.trace: the trace must name the three kernels and the
      range of a utils.profiling.span. The compiled step
@@ -297,7 +305,8 @@ Phases (run in the order of `main`):
      and a one-rank NCCL group on both (the all-reduces recorded in the
      graph); after every step both states and the metrics bitwise equal,
      every replay under set_sync_debug_mode("error"), launches exact (4 of
-     each kernel per replay, 4 per warm-up). Prints ms per step of both
+     each render kernel and one masked Adam per replay, as many per
+     warm-up). Prints ms per step of both
      modes (no group, NCCL), the host ms per replay, both under the
      profiler, the capture and warm-up seconds, the pool and the eager
      step's peak. (b) two ranks on the card: whether NCCL takes them
@@ -308,13 +317,17 @@ Phases (run in the order of `main`):
      `python -m hidegs_tpu_torch.parallel --nproc 1 --backend nccl` and
      `--nproc 4 --backend gloo --device cuda` pass their asserts.
 
-Every launch gate counts the five kernels (chip_smoke.KERNEL_NAMES): a
+Every launch gate counts the six kernels (chip_smoke.KERNEL_NAMES): a
 render launches a preprocess forward beside its forward blend, a
-differentiated render a preprocess backward beside its backward blend.
+differentiated render a preprocess backward beside its backward blend,
+and every train, post-opt and view-parallel step one masked Adam
+(`per_kernel`); a render or a LOD frame launches none.
 Prints a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 In the kernels line, `ms`, `plain_ms`, `bound_ms` and `library_ms` come from
-the render cell (phase 5: blend_fwd; 5p: preprocess_fwd) and the train path
-(phase 11: blend_bwd, fold_rows; 10p: preprocess_bwd); `launches` is the train path's count (phase 8), as
+the render cell (phase 5: blend_fwd; 5p: preprocess_fwd), the train path
+(phase 11: blend_bwd, fold_rows; 10p: preprocess_bwd) and phase 1a
+(masked_adam: the post-opt cell's rows, with `in_place_ms` and the train
+row budget's `train_ms` and `train_plain_ms` beside them); `launches` is the train path's count (phase 8), as
 in earlier slices; `launches_by_path` holds the count of every path (render,
 render_compiled (phase 6r: replays and warm-ups), serve (replays and
 warm-ups), train, train_compiled (phase 11a: replays and warm-ups), trainer,
@@ -331,7 +344,8 @@ phases 4 and 6a (forward), 10 (backward, fold), 13 (all three, on both
 nodes of a multi-view step), 6b (all three, the post-opt step) and 15
 (all three, the four nodes of a view-parallel step) for the blends, and
 5p (preprocess_fwd, with `radius_flips`: flipped rows and rows held) and
-10p (preprocess_bwd, with `grad_err_of_max`) for the preprocess kernels.
+10p (preprocess_bwd, with `grad_err_of_max`) for the preprocess kernels;
+masked_adam's is 0 (phases 1a and 15 hold it bitwise).
 Each blend entry has a `bf16` object from
 phase 10a: the bf16 mode's `ms` (median of its two turns), the float32
 kernel's time in the same turns (`f32_ms_in_turns`), `plain_ms`,
@@ -361,7 +375,8 @@ import numpy as np
 import torch
 
 BLEND_TOL = dict(atol=3e-4, rtol=1e-3)  # the JAX suite's Pallas-vs-plain tolerance
-KERNEL_NAMES = ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd")  # utils/graphs.py:KERNELS
+KERNEL_NAMES = ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd",
+                "masked_adam")  # utils/graphs.py:ALL_KERNELS
 PLANE_KEYS = ["render", "invdepth", "alpha", "T_final", "normal", "distance"]
 RENDER_KEYS = ["render", "invdepth", "alpha", "T_final", "rendered_normal", "rendered_distance"]
 
@@ -413,10 +428,10 @@ N_GROUND, N_STRUCTS, FULL_H, FULL_W = 1_000_000, 64, 1088, 1920
 WARMUP, ITERS = 2, 10
 # profile_device's op kinds, by substrings of the device ops' names: autograd's
 # accumulation adds, binning's scans (C40's cummax), fills, copies, and the
-# port's kernels
+# port's kernels (the render's and the masked Adam)
 OP_KINDS = (("adds", ("CUDAFunctor_add",)), ("scans", ("scan",)), ("fills", ("FillFunctor", "fill_kernel")),
             ("copies", ("copy_kernel", "Memcpy", "CatArrayBatchedCopy")), ("preprocess kernels", ("preprocess_",)),
-            ("blend kernels", ("blend_fwd", "blend_bwd", "fold_rows")))
+            ("blend kernels", ("blend_fwd", "blend_bwd", "fold_rows")), ("adam kernel", ("masked_adam",)))
 ROOT = Path(__file__).resolve().parent
 # the fold design the package's fold kernel replaced, built and timed beside it
 SCALAR_FOLD_SRC = ROOT / "tools" / "csrc" / "fold_rows_scalar.cu"
@@ -488,21 +503,24 @@ def time_per_launch_ms(fn, launches=20, warmup=WARMUP, iters=ITERS):
 
 
 def reset_counts():
+    from hidegs_tpu_torch.model import adam
     from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
     from hidegs_tpu_torch.utils import graphs
 
     cuda_blend.LAUNCHES = cuda_blend.BWD_LAUNCHES = cuda_blend.FOLD_LAUNCHES = 0
     preprocess_autograd.FWD_LAUNCHES = preprocess_autograd.BWD_LAUNCHES = 0
+    adam.LAUNCHES = 0
     graphs.REPLAY_LAUNCHES.update(dict.fromkeys(graphs.REPLAY_LAUNCHES, 0))
 
 
 def direct_counts():
     """The launchers' own counts (kernel by kernel, KERNEL_NAMES' order),
     which a graph replay does not reach."""
+    from hidegs_tpu_torch.model import adam
     from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
 
     return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES,
-            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES)
+            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES, adam.LAUNCHES)
 
 
 def replay_counts():
@@ -510,7 +528,7 @@ def replay_counts():
     step and LOD frame: utils/graphs.py's one count)."""
     from hidegs_tpu_torch.utils import graphs
 
-    return tuple(graphs.REPLAY_LAUNCHES[k] for k in graphs.KERNELS)
+    return tuple(graphs.REPLAY_LAUNCHES[k] for k in graphs.ALL_KERNELS)
 
 
 def read_counts():
@@ -519,12 +537,13 @@ def read_counts():
     return dict(zip(KERNEL_NAMES, (a + b for a, b in zip(direct_counts(), replay_counts()))))
 
 
-def per_kernel(fwd, bwd):
-    """The five kernels' launches on a path where every render blends with
+def per_kernel(fwd, bwd, steps=0):
+    """The six kernels' launches on a path where every render blends with
     the kernels: `fwd` renders (a forward blend and a preprocess forward
     each), `bwd` of them differentiated (a backward blend, a fold and a
-    preprocess backward each)."""
-    return (fwd, bwd, bwd, fwd, bwd)
+    preprocess backward each), and `steps` optimizer steps (one masked
+    Adam each, whatever the views a step renders)."""
+    return (fwd, bwd, bwd, fwd, bwd, steps)
 
 
 def kernel_dict(counts):
@@ -567,7 +586,8 @@ def profile_device(fn, label):
 
 
 def phase_environment():
-    from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
+    from hidegs_tpu_torch import kernel_sources
+    from hidegs_tpu_torch.raster import cuda_blend
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -576,7 +596,7 @@ def phase_environment():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    libs = cuda_blend.build({**cuda_blend.SOURCES, **preprocess_autograd.SOURCES, "fold_rows_scalar": SCALAR_FOLD_SRC})
+    libs = cuda_blend.build({**kernel_sources.SOURCES, "fold_rows_scalar": SCALAR_FOLD_SRC})
     print(f"[env] built {', '.join(lib.name for lib in libs.values())} in {time.perf_counter() - t0:.2f} s")
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -666,6 +686,152 @@ def span_report(count):
     return (f"{T} tiles, {T - spans.numel()} empty; non-empty spans p50 {float(q[0]):.0f}, p90 {float(q[1]):.0f}, "
             f"p99 {float(q[2]):.0f}, max {int(spans[0])} instances; the longest 1% of them hold "
             f"{float(spans[:top].sum() / spans.sum()):.4f} of the instances")
+
+
+# The masked Adam's problems (phase 1a, tools/adam_kernel_ab.py): the rows
+# and gradient layouts of the post-opt step (2,020,479 rows, the cell's
+# hierarchy; xyz, sh_dc and sh_rest cut out of one packed (rows, 59)
+# gradient) and of the train step (its row budget 2^21: params and
+# moments the first rows of longer buffers, sh_dc and sh_rest cut out of
+# one (rows, 16, 3) gradient)
+ADAM_ROWS = {"postopt": 2_020_479, "train": 1 << 21}
+ADAM_TRAIN_SPARE = 1 << 18  # rows of the train step's buffers past its row budget
+ADAM_TAIL = dict(xyz=(3,), sh_dc=(3,), sh_rest=(15, 3), scaling=(3,), rotation=(4,), opacity=())
+ADAM_ROW_FLOATS = 59
+
+
+def adam_problem(dev, shape, share, seed):
+    """One masked Adam step's inputs at `shape` ("postopt" or "train") with
+    about `share` of the rows in the mask, from `seed`: (params, grads,
+    opt, lr, visible, buffers). For "train" the params and moments are the
+    first ADAM_ROWS rows of `buffers` (a (params, opt) pair ADAM_TRAIN_SPARE
+    rows longer), as a row-budget step's are; for "postopt" `buffers` is
+    None. Steps run 0 to 2^16 (t = 0 clamps to 1); the xyz learning rate
+    is a 0-d device tensor, as lr_tree's."""
+    from hidegs_tpu_torch.model import adam
+    from hidegs_tpu_torch.model.gaussians import GaussianParams
+
+    rows = ADAM_ROWS[shape]
+    cap = rows + (ADAM_TRAIN_SPARE if shape == "train" else 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaves(n):
+        return GaussianParams(*(torch.randn((n, *ADAM_TAIL[f]), generator=gen, device=dev)
+                                for f in GaussianParams._fields))
+
+    params, m = leaves(cap), leaves(cap)
+    v = GaussianParams(*(x.abs_() for x in leaves(cap)))
+    opt = adam.AdamState(m=m, v=v, step=torch.randint(0, 1 << 16, (cap,), generator=gen, device=dev,
+                                                      dtype=torch.int32))
+    buffers = None
+    if shape == "train":
+        buffers = (params, opt)
+        params = GaussianParams(*(x[:rows] for x in params))
+        opt = adam.AdamState(m=GaussianParams(*(x[:rows] for x in m)), v=GaussianParams(*(x[:rows] for x in v)),
+                             step=opt.step[:rows])
+    g = leaves(rows)
+    if shape == "postopt":
+        packed = torch.randn((rows, ADAM_ROW_FLOATS), generator=gen, device=dev)
+        g = g._replace(xyz=packed[:, 0:3], sh_dc=packed[:, 11:14], sh_rest=packed[:, 14:59].reshape(rows, 15, 3))
+    else:
+        sh = torch.randn((rows, 16, 3), generator=gen, device=dev)
+        g = g._replace(sh_dc=sh[:, 0], sh_rest=sh[:, 1:])
+    visible = torch.rand((rows,), generator=gen, device=dev) < share
+    lr = GaussianParams(xyz=torch.tensor(1.6e-4 * 3.7, device=dev), sh_dc=2.5e-3, sh_rest=2.5e-3 / 20,
+                        scaling=5e-3, rotation=1e-3, opacity=5e-2)
+    return params, g, opt, lr, visible, buffers
+
+
+def adam_bytes(rows, share, in_place):
+    """Bytes the masked Adam kernel needs over `rows` rows of
+    ADAM_ROW_FLOATS floats with a share `share` of them in the mask: the
+    mask, and per row in the mask (every row out of place) p, m and v read
+    and written; per row in the mask the gradient and the two bias
+    corrections."""
+    row = 4 * ADAM_ROW_FLOATS
+    if in_place:
+        return rows * (1 + share * (7 * row + 8))
+    return rows * (1 + 6 * row + share * (row + 8))
+
+
+def adam_leaves(params, opt):
+    """Every tensor a masked Adam step writes."""
+    return [*params, *opt.m, *opt.v, opt.step]
+
+
+def phase_adam(dev):
+    """1a. The masked Adam kernel (model/csrc/masked_adam.cu) at the post-opt
+    cell's 2,020,479 rows (packed gradients) and the train step's row
+    budget (a prefix of longer buffers; `adam_problem`), every row and
+    about half of them in the mask: masked_adam_update out of place and in
+    place, one launch a call, bitwise masked_adam_plain; in place the
+    buffers' rows past the prefix are left as they were. Then at both
+    shapes with every row in the mask, in turns (plain, kernel, kernel,
+    plain; CUDA events): the plain body, the kernel alone out of place and
+    in place, beside its bytes bound; and its ptxas report."""
+    from hidegs_tpu_torch import kernel_sources
+    from hidegs_tpu_torch.model import adam
+    from hidegs_tpu_torch.model.gaussians import GaussianParams
+
+    err, out = 0.0, {}
+    for shape in ADAM_ROWS:
+        for share in (1.0, 0.5):
+            params, g, opt, lr, visible, buffers = adam_problem(dev, shape, share, seed=2026 + len(out))
+            want = adam_leaves(*adam.masked_adam_plain(params, g, opt, lr, visible))
+            before = [x.clone() for x in adam_leaves(params, opt)]
+            spare = None if buffers is None else [x[ADAM_ROWS[shape]:].clone() for x in adam_leaves(*buffers)]
+            n0 = adam.LAUNCHES
+            got = adam_leaves(*adam.masked_adam_update(params, g, opt, lr, visible))
+            check(all(torch.equal(x, y) for x, y in zip(adam_leaves(params, opt), before)),
+                  f"masked Adam {shape}, share {share}: the out-of-place update wrote its inputs")
+            done = adam_leaves(*adam.masked_adam_update(params, g, opt, lr, visible, in_place=True))
+            check(adam.LAUNCHES == n0 + 2, f"masked Adam {shape}: {adam.LAUNCHES - n0} launches for two updates")
+            check(all(x is y for x, y in zip(done, adam_leaves(params, opt))),
+                  f"masked Adam {shape}: the in-place update did not return its inputs")
+            for form, res in (("out of place", got), ("in place", done)):
+                err = max(err, *(max_abs_err(x, y) for x, y in zip(res, want)))
+                bad = [i for i, (x, y) in enumerate(zip(res, want)) if not torch.equal(x, y)]
+                check(not bad, f"masked Adam {shape}, share {share}, {form}: leaves {bad} differ from "
+                               f"masked_adam_plain (max abs err {err:.3e})")
+            if spare is not None:
+                check(all(torch.equal(x[ADAM_ROWS[shape]:], y) for x, y in zip(adam_leaves(*buffers), spare)),
+                      f"masked Adam {shape}: the in-place update wrote rows past the row budget")
+            n_vis = int(visible.sum())
+            print(f"[adam] {shape}: {ADAM_ROWS[shape]:,} rows, {n_vis:,} in the mask ({share:g}): the kernel out of "
+                  f"place and in place bitwise masked_adam_plain, one launch each")
+            out[shape, share] = n_vis
+            del params, g, opt, lr, visible, buffers, want, before, spare, got, done
+            torch.cuda.empty_cache()
+    times = {}
+    for shape, rows in ADAM_ROWS.items():
+        params, g, opt, lr, visible, _ = adam_problem(dev, shape, 1.0, seed=7)
+        _, c1, c2 = adam.bias_corrections(opt.step, visible, 0.9, 0.999)
+        outs = tuple(GaussianParams(*(torch.empty_like(x) for x in t)) for t in (params, opt.m, opt.v))
+        sp, sm, sv = (GaussianParams(*(x.clone() for x in t)) for t in (params, opt.m, opt.v))
+        fns = {"plain": lambda: adam.masked_adam_plain(params, g, opt, lr, visible),
+               "kernel": lambda: adam.launch_masked_adam(params, g, opt.m, opt.v, lr, visible, c1, c2, *outs,
+                                                         0.9, 0.999, 1e-15),
+               "in_place": lambda: adam.launch_masked_adam(sp, g, sm, sv, lr, visible, c1, c2, sp, sm, sv,
+                                                           0.9, 0.999, 1e-15)}
+        turns = {k: [] for k in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                turns[k].append(time_ms(fns[k]))
+        t = {k: statistics.median(v) for k, v in turns.items()}
+        t["bound_ms"] = adam_bytes(rows, 1.0, False) / HBM_BYTES_S * 1e3
+        t["in_place_bound_ms"] = adam_bytes(rows, 1.0, True) / HBM_BYTES_S * 1e3
+        times[shape] = t
+        print(f"[adam] {shape}, {rows:,} rows, every row in the mask (CUDA events, median of {ITERS} after {WARMUP}, "
+              f"two turns): plain {t['plain']:.3f} ms, kernel {t['kernel']:.4f} ms out of place "
+              f"({t['bound_ms'] / t['kernel']:.1%} of its {t['bound_ms']:.4f} ms bytes bound), {t['in_place']:.4f} ms "
+              f"in place ({t['in_place_bound_ms'] / t['in_place']:.1%} of {t['in_place_bound_ms']:.4f} ms)")
+        del params, g, opt, lr, visible, c1, c2, outs, sp, sm, sv, fns
+        torch.cuda.empty_cache()
+    print(f"[adam] ptxas (build log): {ptxas_report(kernel_sources.SOURCES['masked_adam'])}")
+    post = times["postopt"]
+    return dict(err=err, ms=post["kernel"], plain_ms=post["plain"], bound_ms=post["bound_ms"], bound_by="bytes",
+                in_place_ms=post["in_place"], train_ms=times["train"]["kernel"],
+                train_plain_ms=times["train"]["plain"])
 
 
 def boundary_scene(dev, tile):
@@ -912,6 +1078,7 @@ def phase_preprocess(scene, cams, cfg):
     0's kernel timed alone beside the plain version and its bound."""
     from hidegs_tpu_torch.core.ewa import H_VAR, NEAR_Z
     from hidegs_tpu_torch.core.sh import degree_mask
+    from hidegs_tpu_torch import kernel_sources
     from hidegs_tpu_torch.raster import binning, preprocess_autograd as pa
     from hidegs_tpu_torch.raster.preprocess import camera_pack, preprocess_gaussians, preprocess_plain
 
@@ -965,7 +1132,7 @@ def phase_preprocess(scene, cams, cfg):
     print(f"[preprocess] forward kernel, view 0 ({N} rows, SH degree 3, render_geo): {ms:.4f} ms one launch at a "
           f"time (CUDA events, median of {ITERS} after {WARMUP}), plain forward {plain_ms:.3f} ms; bound "
           f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['text']}), the kernel at "
-          f"{bound['bound_ms'] / ms:.1%} of it; ptxas (build log): {ptxas_report(pa.SOURCES['preprocess'])}")
+          f"{bound['bound_ms'] / ms:.1%} of it; ptxas (build log): {ptxas_report(kernel_sources.SOURCES['preprocess'])}")
     return dict(err=max(h["err"] for h in held), flips=sum(h["flips"] for h in held), rows=sum(h["rows"] for h in held),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
@@ -1842,7 +2009,7 @@ def phase_train(scene, cams, cfg):
     launches = read_counts()
     wall_s = time.perf_counter() - t0
     print(f"[train] {TRAIN_STEPS} steps in {wall_s:.2f} s host wall; launches on the train path: {launches}")
-    check(launches == kernel_dict(per_kernel(TRAIN_STEPS, TRAIN_STEPS)),
+    check(launches == kernel_dict(per_kernel(TRAIN_STEPS, TRAIN_STEPS, TRAIN_STEPS)),
           f"train path launches {launches}, expected one of each kernel per step")
     for k, m in enumerate(metrics):
         check(bool(torch.isfinite(m["total"])), f"train step {k}: loss {float(m['total'])}")
@@ -2285,7 +2452,8 @@ def phase_compiled(scene, cams, cfg):
             r = tuple(b - a for a, b in zip(replayed, replay_counts()))
             captured = len(step.captures) > n_captures
             check(captured == (k == 0), f"compiled {name} step {k}: captured {captured}")
-            check(r == per_kernel(per_step, per_step) and d == per_kernel(*(per_step, per_step) if captured else (0, 0)),
+            want = per_kernel(per_step, per_step, 1)
+            check(r == want and d == (want if captured else per_kernel(0, 0)),
                   f"compiled {name} step {k}: replayed launches {r}, the launchers' {d}")
             for j, key in enumerate(launches):
                 launches[key] += d[j] + r[j]
@@ -2495,16 +2663,16 @@ def phase_trainer(scene, cams, cfg):
     check(mv == [False] * (TRAINER_MV_FROM - 1) + [True] * (TRAINER_ITERS - TRAINER_MV_FROM + 1),
           f"trainer: multi-view steps at {[i + 1 for i, m in enumerate(mv) if m]}")
     for i, s in enumerate(steps):
-        want = per_kernel(2, 2) if s["mv"] else per_kernel(1, 1)
+        want = per_kernel(2, 2, 1) if s["mv"] else per_kernel(1, 1, 1)
         check(s["replayed"] == want and s["direct"] == (want if s["captured"] else per_kernel(0, 0)),
               f"trainer iteration {i + 1}: replayed launches {s['replayed']}, the launchers' {s['direct']} "
               f"(captured: {s['captured']}), expected {want} replayed and the warm-up's on a capture")
     names = list(launches)
     in_steps = {k: sum(s["replayed"][j] for s in steps) for j, k in enumerate(names)}
     warmups = {k: sum(s["direct"][j] for s in steps) for j, k in enumerate(names)}
-    want = (TRAINER_MV_FROM - 1) + 2 * (TRAINER_ITERS - TRAINER_MV_FROM + 1)
-    check(in_steps == {k: want for k in names}, f"trainer: replayed launches in the train steps {in_steps}, "
-                                                f"expected {want}")
+    renders = (TRAINER_MV_FROM - 1) + 2 * (TRAINER_ITERS - TRAINER_MV_FROM + 1)
+    want = kernel_dict(per_kernel(renders, renders, TRAINER_ITERS))
+    check(in_steps == want, f"trainer: replayed launches in the train steps {in_steps}, expected {want}")
     vals = torch.stack([torch.stack([s["metrics"].get(k, torch.zeros((), device=dev)).to(torch.float64)
                                      for k in TRAINER_KEYS]) for s in steps]).cpu().numpy()
     check(bool(np.isfinite(vals).all()), "trainer: a non-finite loss or metric")
@@ -2567,7 +2735,7 @@ def phase_trainer(scene, cams, cfg):
     # the same run on the eager step: the times of both in one call
     eager = run_trainer(args_for(work / "model_eager"), dev, stamp_its, eager=True)
     for i, s in enumerate(eager["steps"]):
-        want = per_kernel(2, 2) if s["mv"] else per_kernel(1, 1)
+        want = per_kernel(2, 2, 1) if s["mv"] else per_kernel(1, 1, 1)
         check(s["direct"] == want and s["replayed"] == per_kernel(0, 0),
               f"eager trainer iteration {i + 1}: launches {s['direct']}, expected {want}")
     check(all(bool(torch.isfinite(s["metrics"]["total"])) for s in eager["steps"]), "eager trainer: a non-finite loss")
@@ -2748,10 +2916,10 @@ def hold_compiled_dp(estep, cstep, ts, batch, n, what):
     """`n` steps of the eager view-parallel step `estep` and the compiled
     `cstep` side by side from `ts` on `batch`. Gates: after every step the
     two states and the metrics bitwise equal; the compiled step's first
-    call captures (its warm-up launches V of each kernel through the
-    launchers), every later one is a replay under
-    set_sync_debug_mode("error") that adds V of each kernel to the replay
-    count and none to the launchers'. Returns the compiled path's launches
+    call captures (its warm-up launches V of each render kernel and one
+    masked Adam through the launchers), every later one is a replay under
+    set_sync_debug_mode("error") that adds as many to the replay count and
+    none to the launchers'. Returns the compiled path's launches
     and the last compiled state and metrics."""
     from hidegs_tpu_torch.parallel import sharded
 
@@ -2774,8 +2942,9 @@ def hold_compiled_dp(estep, cstep, ts, batch, n, what):
         r = tuple(b - a for a, b in zip(replayed, replay_counts()))
         captured = len(cstep.captures) > n_captures
         check(captured == (k == 0), f"{what} step {k}: captured {captured}")
-        check(r == per_kernel(V, V) and d == per_kernel(*(V, V) if captured else (0, 0)),
-              f"{what} step {k}: replayed launches {r}, the launchers' {d}, expected {V} of each a replay")
+        check(r == per_kernel(V, V, 1) and d == per_kernel(*(V, V, 1) if captured else (0, 0)),
+              f"{what} step {k}: replayed launches {r}, the launchers' {d}, expected {V} of each render "
+              f"kernel and one masked Adam a replay")
         for j, key in enumerate(launches):
             launches[key] += d[j] + r[j]
         diff = first_difference(comp, eager)
@@ -2792,7 +2961,7 @@ def phase_view_parallel(scene, cams, cfg):
 
     import torch.distributed as dist
 
-    from hidegs_tpu_torch.model.adam import masked_adam_update
+    from hidegs_tpu_torch.model.adam import masked_adam_plain, masked_adam_update
     from hidegs_tpu_torch.model.schedules import lr_tree
     from hidegs_tpu_torch.parallel import distributed as pdist
     from hidegs_tpu_torch.parallel import compiled as pc
@@ -2831,8 +3000,9 @@ def phase_view_parallel(scene, cams, cfg):
         name = "f32" if wire is None else "bf16"
         print(f"[dp] no group, {name} wire: {DP_STEPS} steps, losses {', '.join(f'{x:.5f}' for x in losses)}; "
               f"launches {launches}")
-        check(launches == {k: V * DP_STEPS for k in launches},
-              f"view-parallel {name}: launches {launches}, expected {V} of each kernel per step")
+        check(launches == kernel_dict(per_kernel(V * DP_STEPS, V * DP_STEPS, DP_STEPS)),
+              f"view-parallel {name}: launches {launches}, expected {V} of each render kernel and one masked "
+              f"Adam per step")
         check(all(np.isfinite(losses)), f"view-parallel {name}: non-finite losses {losses}")
         runs[name] = dict(ts=ts, kept=kept, losses=losses, launches=launches)
     # the compiled step beside the eager one, from the same state
@@ -2850,7 +3020,8 @@ def phase_view_parallel(scene, cams, cfg):
             comp_launches[key] += held["launches"][key]
         info = cstep.captures[0]
         print(f"[dp-compiled] no group, {name} wire: {DP_STEPS} compiled steps bitwise the eager ones after every "
-              f"step; replays made no host sync; {V} of each kernel's launches per replay, {V} per warm-up; "
+              f"step; replays made no host sync; {V} of each render kernel's launches and one masked Adam per "
+              f"replay, as many per warm-up; "
               f"warm-up {info['warmup_s']:.3f} s, capture {info['capture_s']:.3f} s, graph pool +"
               f"{info['pool_reserved_bytes'] / 2**30:.3f} GiB reserved")
         comp[name] = dict(step=cstep, ts=held["ts"], info=info)
@@ -2990,7 +3161,17 @@ def phase_view_parallel(scene, cams, cfg):
     visible = ts.gaussians.alive
     lrs = lr_tree(ts.step, tcfg.lr, ts.gaussians.spatial_lr_scale)
     upd_ms = time_ms(lambda: masked_adam_update(ts.gaussians.params, grads, ts.opt, lrs, visible))  # alive rows
-    del grads
+    # the kernel on the step's own gradients (the SH bands split out of one
+    # gradient) against the plain body
+    got = adam_leaves(*masked_adam_update(ts.gaussians.params, grads, ts.opt, lrs, visible))
+    want = adam_leaves(*masked_adam_plain(ts.gaussians.params, grads, ts.opt, lrs, visible))
+    adam_err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    check(all(torch.equal(x, y) for x, y in zip(got, want)),
+          f"view-parallel: the masked Adam kernel on the step's gradients departs {adam_err:.3e} from "
+          f"masked_adam_plain")
+    print(f"[dp-times] the masked Adam kernel on the step's gradients ({int(visible.sum())} alive rows) bitwise "
+          f"masked_adam_plain")
+    del grads, got, want
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     step32(ts, batch)
@@ -3093,7 +3274,7 @@ def phase_view_parallel(scene, cams, cfg):
             print(f"[dp-dryrun]   {ln}")
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=runs["f32"]["launches"], compiled_launches=comp_launches, step_ms=step_ms, nccl_ms=nccl_ms,
-                compiled_ms=compiled_ms, rank_ms=rank_ms, **hold)
+                compiled_ms=compiled_ms, rank_ms=rank_ms, adam_err=adam_err, **hold)
 
 
 LOD_TAUS = (0.0, 3.0, 6.0, 15.0)  # pixel granularities of the hierarchy phase
@@ -3492,7 +3673,7 @@ def phase_bf16(scene, cams, cfg, train):
     r16 = render_grads(scene, cams[0], dataclasses.replace(cfg, bf16_stream=True))
     launches = read_counts()
     check(launches == kernel_dict(per_kernel(1, 1)),
-          f"bf16 render and backward launched {launches}, expected one of each kernel")
+          f"bf16 render and backward launched {launches}, expected one of each render kernel")
     r32 = render_grads(scene, cams[0], cfg)
     check(r16["overflow"] == 0 and r32["overflow"] == 0, "bf16 render: overflow")
     a = hold_bf16_node(r16["node"], r16["kept"], "render(), bf16_stream=True, render cell view 0, loss mean(render²)")
@@ -3726,8 +3907,8 @@ def phase_post_opt(h, cams, targets):
             d = tuple(b - a for a, b in zip(d1, direct_counts()))
             r = tuple(b - a for a, b in zip(r1, replay_counts()))
             captured = [c["kind"] for c in self.captures[n_caps:]]
-            check(eager == per_kernel(1, 1), f"post-opt step {k}: the eager step launched {eager}")
-            check(r == per_kernel(1, 1) and d == per_kernel(*(1, 1) if "step" in captured else (0, 0)),
+            check(eager == per_kernel(1, 1, 1), f"post-opt step {k}: the eager step launched {eager}")
+            check(r == per_kernel(1, 1, 1) and d == per_kernel(*(1, 1, 1) if "step" in captured else (0, 0)),
                   f"post-opt step {k}: replayed launches {r}, the launchers' {d} (captured {captured})")
             path["eager"] = tuple(a + b for a, b in zip(path["eager"], eager))
             path["compiled"] = tuple(a + b + c for a, b, c in zip(path["compiled"], d, r))
@@ -3757,14 +3938,15 @@ def phase_post_opt(h, cams, targets):
     losses = torch.stack(losses).tolist()
     counters = torch.stack(counters).sum(0).tolist()
     n_step_captures = sum(c["kind"] == "step" for c in comp.captures)
-    want_compiled = per_kernel(*(POST_OPT_ITERS + n_step_captures,) * 2)
+    want_compiled = per_kernel(*(POST_OPT_ITERS + n_step_captures,) * 3)
     print(f"[post-opt] launches: {path['compiled']} on the compiled path ({POST_OPT_ITERS} steps: replays and "
           f"{n_step_captures} capture's warm-up), {path['eager']} of the eager steps held beside them; losses "
           f"{losses[0]:.4f} → {losses[-1]:.4f}; budget counters (overflow, block, visible; the graph's outputs) "
           f"summed {counters}; {1e3 * wall / POST_OPT_ITERS:.1f} ms per held iteration on the host clock (an eager "
           f"and a compiled step, the checks), peak device memory {peak_gb:.2f} GiB")
     check(diverged == [], f"post-opt: the compiled and eager steps part: {diverged}")
-    check(path["eager"] == per_kernel(POST_OPT_ITERS, POST_OPT_ITERS) and path["compiled"] == want_compiled
+    check(path["eager"] == per_kernel(POST_OPT_ITERS, POST_OPT_ITERS, POST_OPT_ITERS)
+          and path["compiled"] == want_compiled
           and tuple(launches.values()) == tuple(a + b for a, b in zip(path["eager"], want_compiled)),
           f"post-opt launches {path}, {launches} in all; expected one of each kernel per eager step and per replay, "
           f"and one per capture's warm-up")
@@ -4078,7 +4260,7 @@ def phase_pipeline(dev):
     warm = {stage: tuple(sum(c["warmup_launches"][k] for c in captures if c["what"] == what)
                          for k in KERNEL_NAMES) for stage, what in kinds.items()}
     for stage, steps in (("coarse", PIPE_COARSE), ("post-opt", PIPE_POST)):
-        check(replayed.get(stage) == per_kernel(steps, steps),
+        check(replayed.get(stage) == per_kernel(steps, steps, steps),
               f"pipeline: the {stage} stage replayed {replayed.get(stage)} launches, expected {steps} of each")
     want = {"coarse": tuple(PIPE_COARSE + w for w in warm["coarse"]),
             "post-opt": tuple(PIPE_POST + w for w in warm["post-opt"]), "eval": per_kernel(n_eval, 0)}
@@ -4245,6 +4427,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     phase_environment()
+    adam_k = phase_adam(dev)
     phase_small(dev)
     phase_small_backward(dev)
     scene, cams, cfg = full_width_setup(dev)
@@ -4362,6 +4545,23 @@ def main() -> int:
         "bound_ms": pre_bwd["bound_ms"],
         "bound_by": pre_bwd["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "masked_adam",
+        "route": "cuda",
+        "source": "hidegs_tpu_torch/model/csrc/masked_adam.cu",
+        # no Pallas kernel: XLA's fusion of the JAX masked Adam
+        "replaces": "hidegs_tpu/model/adam.py:45",
+        "launches": launches["masked_adam"],
+        "launches_by_path": by_path["masked_adam"],
+        "max_abs_err": max(adam_k["err"], vp["adam_err"]),  # phase 1a and the train cell's state in phase 15
+        "ms": adam_k["ms"],  # the post-opt cell's 2,020,479 rows, every row in the mask, out of place
+        "in_place_ms": adam_k["in_place_ms"],
+        "train_ms": adam_k["train_ms"],  # the train step's row budget, 2^21 rows
+        "train_plain_ms": adam_k["train_plain_ms"],
+        "plain_ms": adam_k["plain_ms"],
+        "bound_ms": adam_k["bound_ms"],
+        "bound_by": adam_k["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a masked Adam with per-row steps
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

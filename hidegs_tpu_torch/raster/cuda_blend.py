@@ -20,8 +20,9 @@ to each tile and widen as they stage them. A launch of either mode counts
 as a launch of that kernel.
 
 Each source is compiled by `nvcc` for sm_90a into build/kernels/ at first
-use (all sources at once, one process each), loaded with ctypes, and
-launched on PyTorch's current stream. Every launcher checks its inputs,
+use, loaded with ctypes, and launched on PyTorch's current stream. The
+first launch of any of the package's kernels builds every source of
+`kernel_sources.SOURCES` at once (one process each). Every launcher checks its inputs,
 raises on a failed launch, and counts its launches.
 
 `blend_tile_out` and `grad_attrs` are the CUDA halves of the autograd
@@ -40,6 +41,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from hidegs_tpu_torch import kernel_sources
 from hidegs_tpu_torch.raster.binning import TileBinning
 from hidegs_tpu_torch.raster import blend_plain
 from hidegs_tpu_torch.raster.blend_plain import ATTR, OUT_CH
@@ -50,7 +52,7 @@ BWD_LAUNCHES = 0  # launch_blend_bwd
 FOLD_LAUNCHES = 0  # launch_fold_rows
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"blend_fwd": CSRC / "blend_fwd.cu", "blend_bwd": CSRC / "blend_bwd.cu"}
+SOURCES = {name: kernel_sources.SOURCES[name] for name in ("blend_fwd", "blend_bwd")}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # -fmad=false: see the FMA note in the sources.
 NVCC_FLAGS = (
@@ -124,7 +126,7 @@ def bind(lib: Path, symbol: str, n_ptr_head: int, n_int: int, n_float: int, n_pt
 
 @functools.cache
 def _fn(name: str, symbol: str, n_ptr_head: int, n_int: int, n_ptr_tail: int):
-    return bind(build()[name], symbol, n_ptr_head, n_int, 0, n_ptr_tail)
+    return bind(build(kernel_sources.SOURCES)[name], symbol, n_ptr_head, n_int, 0, n_ptr_tail)
 
 
 def _check(name, x, dtype, shape, device):

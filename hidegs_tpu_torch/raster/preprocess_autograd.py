@@ -20,11 +20,11 @@ reaches the node. A CPU tensor here raises; nothing falls back.
 from __future__ import annotations
 
 import functools
-from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
+from hidegs_tpu_torch import kernel_sources
 from hidegs_tpu_torch.core import sh as shm
 from hidegs_tpu_torch.core.camera_math import CameraParams
 from hidegs_tpu_torch.core.ewa import H_VAR, NEAR_Z
@@ -35,7 +35,6 @@ from hidegs_tpu_torch.raster.preprocess import PACK_LEN, PreprocessedGaussians, 
 FWD_LAUNCHES = 0  # launch_preprocess_fwd
 BWD_LAUNCHES = 0  # launch_preprocess_bwd
 
-SOURCES: Dict[str, Path] = {"preprocess": cuda_blend.CSRC / "preprocess.cu"}
 # the kernels' `flags` bits
 USE_SH, ANTIALIAS, RENDER_GEO, SCREEN, BOX = 1, 2, 4, 8, 16
 FIELDS = ("mean2d", "conic", "depth", "inv_depth", "opacity", "rgb", "normal", "distance", "radius", "visible")
@@ -44,7 +43,8 @@ WIDTHS = dict(mean2d=2, conic=3, rgb=3, normal=3)  # the rest are (N,)
 
 @functools.cache
 def _fn(symbol: str, n_ptr_head: int, n_int: int, n_float: int, n_ptr_tail: int):
-    return cuda_blend.bind(cuda_blend.build(SOURCES)["preprocess"], symbol, n_ptr_head, n_int, n_float, n_ptr_tail)
+    return cuda_blend.bind(cuda_blend.build(kernel_sources.SOURCES)["preprocess"], symbol, n_ptr_head, n_int,
+                           n_float, n_ptr_tail)
 
 
 def _ptr(x: Optional[torch.Tensor]):

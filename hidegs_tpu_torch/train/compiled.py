@@ -23,9 +23,10 @@ call replays that graph:
     replay each one is copied in from the caller's tensor, except where
     the caller passes back the tensors the previous replay returned (the
     steady loop), so a steady iteration copies only its batch;
-  * donation: the captured step ends by writing the new state into the
-    static state buffers (`loop._unslice_rows_` on the row-budget path),
-    and the returned state is those buffers. The state a replay returned is
+  * donation: the captured step's Adam writes the params and moments
+    straight into the static state buffers, and the step ends by writing
+    the rest of the new state there (`loop._unslice_rows_` on the
+    row-budget path); the returned state is those buffers. The state a replay returned is
     consumed by the next replay, as JAX invalidates a donated argument; the
     returned metrics are the graph's static 0-d outputs, valid until the
     next replay (ROADMAP C28);
@@ -65,6 +66,7 @@ from hidegs_tpu_torch.train.loop import (
     step_update,
 )
 from hidegs_tpu_torch.utils.graphs import (  # noqa: F401  (the tests and the smoke read some of these here)
+    ALL_KERNELS,
     KERNELS,
     REPLAY_LAUNCHES,
     GraphSet,
@@ -97,7 +99,7 @@ def step_in_place(ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposu
     view = _slice_rows(ts, row_budget) if _effective_row_budget(ts, row_budget) else ts
     loss, aux, inputs = step_forward(view, batch, cfg, use_exposure, uv=uv)
     grads = step_backward(loss, inputs)
-    new, metrics = step_update(view, batch, cfg, loss, aux, grads, use_exposure)
+    new, metrics = step_update(view, batch, cfg, loss, aux, grads, use_exposure, in_place=True)
     _unslice_rows_(ts, new)
     for dst, src in ((ts.exposure, new.exposure), (ts.exposure_m, new.exposure_m),
                      (ts.exposure_v, new.exposure_v), (ts.step, new.step)):

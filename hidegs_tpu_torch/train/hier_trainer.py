@@ -210,9 +210,12 @@ def hier_step_update(
     frozen: Optional[torch.Tensor] = None,
     use_exposure: bool = False,
     optimize_exposure: bool = False,
+    in_place: bool = False,
 ):
     """The update half: the visible mask of the cut, masked sparse Adam and
-    the exposure Adam. Returns (new state, visible mask)."""
+    the exposure Adam. Returns (new state, visible mask). `in_place`: Adam
+    writes the params and moments into the buffers of `ts` (a step that
+    donates its state)."""
     P = ts.params.xyz.shape[0]
     param_grads = GaussianParams(*grads[:len(GaussianParams._fields)])
     # visible = gaussians referenced by the cut (children) or as parents;
@@ -227,7 +230,7 @@ def hier_step_update(
     if frozen is not None:
         visible = visible & ~frozen
 
-    new_params, new_opt = masked_adam_update(ts.params, param_grads, ts.opt, lr_cfg_tree, visible)
+    new_params, new_opt = masked_adam_update(ts.params, param_grads, ts.opt, lr_cfg_tree, visible, in_place=in_place)
     if use_exposure and optimize_exposure:
         expo_grads = grads[-1]
         b1, b2, eps = 0.9, 0.999, 1e-8
@@ -274,13 +277,14 @@ def hier_train_step(
 
 
 def _train_step(ts, cut, cam, gt_image, lr_cfg_tree, raster_cfg, lambda_dssim, skybox_count, frozen, image_idx,
-                use_exposure, optimize_exposure):
-    """`hier_train_step`'s body, which the captured step runs too."""
+                use_exposure, optimize_exposure, in_place=False):
+    """`hier_train_step`'s body, which the captured step runs too
+    (`in_place`: as `hier_step_update`'s)."""
     loss, inputs, out = _hier_forward(ts, cut, cam, gt_image, raster_cfg, lambda_dssim, skybox_count, image_idx,
                                       use_exposure)
     grads = step_backward(loss, inputs)
     new_ts, visible = hier_step_update(ts, cut, grads, lr_cfg_tree, skybox_count, frozen, use_exposure,
-                                       optimize_exposure)
+                                       optimize_exposure, in_place)
     counters = torch.stack([out[k].to(torch.int64) for k in COUNTERS])
     return new_ts, {"loss": loss.detach(), "n_visible": visible.sum(), "counters": counters}
 
@@ -323,9 +327,10 @@ def hier_step_in_place(ts: HierTrainState, cut: HierCut, cam, gt_image: torch.Te
                        optimize_exposure: bool = False):
     """What a post-opt graph captures: one `hier_train_step` whose new
     params, moments, step and exposure are written into the buffers of
-    `ts`. Returns its metrics, as `hier_train_step`'s."""
+    `ts` (the params and moments by Adam itself). Returns its metrics, as
+    `hier_train_step`'s."""
     new, metrics = _train_step(ts, cut, cam, gt_image, lr_cfg_tree, raster_cfg, lambda_dssim, skybox_count, frozen,
-                               image_idx, use_exposure, optimize_exposure)
+                               image_idx, use_exposure, optimize_exposure, in_place=True)
     for dst, src in zip(_tensors(_written(ts)), _tensors(_written(new)), strict=True):
         if not _same_memory(dst, src):
             dst.copy_(src)

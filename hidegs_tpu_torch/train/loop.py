@@ -52,6 +52,7 @@ from hidegs_tpu_torch.train.geometric import (
     single_view_normal_loss,
 )
 from hidegs_tpu_torch.train.losses import abs_, clip, dssim_l1, maximum
+from hidegs_tpu_torch.utils.graphs import _same_memory
 from hidegs_tpu_torch.utils.profiling import span
 
 
@@ -336,12 +337,14 @@ def _unslice_rows(full: TrainState, view: TrainState) -> TrainState:
 def _unslice_rows_(full: TrainState, view: TrainState) -> TrainState:
     """`_unslice_rows` in place: the view's updated prefix rows are copied
     into the full buffers, which the returned state holds (JAX's
-    dynamic_update_slice into donated buffers). The state-level fields come
+    dynamic_update_slice into donated buffers); rows the step already wrote
+    there (an `in_place` update) are not copied. The state-level fields come
     from the view."""
     R = view.gaussians.capacity
 
     def wb(f, v):
-        f[:R].copy_(v)
+        if not _same_memory(f[:R], v):
+            f[:R].copy_(v)
         return f
 
     def wbp(fp, vp):
@@ -388,10 +391,13 @@ def step_update(
     aux: Dict[str, torch.Tensor],
     grads,
     use_exposure: bool = False,
+    in_place: bool = False,
 ):
     """The update half of a step, from `step_backward`'s gradients: the
     finite-step gate, masked sparse Adam, the densification statistics and
-    the exposure Adam. Returns (new state, dict of 0-d metric tensors)."""
+    the exposure Adam. Returns (new state, dict of 0-d metric tensors).
+    `in_place`: Adam writes the params and moments into the buffers of `ts`
+    (a step that donates its state)."""
     n_params = len(GaussianParams._fields)
     param_grads = GaussianParams(*grads[:n_params])
     screen_grads = grads[n_params]
@@ -406,7 +412,8 @@ def step_update(
 
     visible = aux["visibility"] & step_ok
     lrs = lr_tree(ts.step, cfg.lr, ts.gaussians.spatial_lr_scale)
-    new_params, new_opt = masked_adam_update(ts.gaussians.params, param_grads, ts.opt, lrs, visible)
+    new_params, new_opt = masked_adam_update(ts.gaussians.params, param_grads, ts.opt, lrs, visible,
+                                             in_place=in_place)
 
     # the reference's screen-space gradient units: its CUDA backward scales
     # dL/dmean2D by (0.5·W, 0.5·H), and densify's grad_threshold is set for them

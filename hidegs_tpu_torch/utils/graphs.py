@@ -19,9 +19,9 @@ counterparts (`train.compiled.CompiledTrainStep`,
     `GraphSet` share one memory pool, since they never run at once, and
     `GraphSet.captures` records what each capture cost (warm-up and
     capture seconds, the pool's growth, the launches);
-  * launch accounting: the counters of `cuda_blend` and
-    `preprocess_autograd` count their launchers' calls, which a replay
-    does not make. A capture records how often the body
+  * launch accounting: the counters of `cuda_blend`,
+    `preprocess_autograd` and `model.adam` count their launchers' calls,
+    which a replay does not make. A capture records how often the body
     launched each kernel and leaves those counters as they were (it
     launches nothing); every replay adds the graph's launches to
     `REPLAY_LAUNCHES`, one process-wide count for every compiled callable.
@@ -42,22 +42,27 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
+from hidegs_tpu_torch.model import adam
 from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
 from hidegs_tpu_torch.utils.profiling import span
 
+# the render's kernels, in the order of their counters (gsbench/trace.py
+# pairs this tuple with the five render counters)
 KERNELS = ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd")
+# every counted kernel: the render's and the masked Adam
+ALL_KERNELS = KERNELS + ("masked_adam",)
 # launches of each kernel made by graph replays in this process
-REPLAY_LAUNCHES = {k: 0 for k in KERNELS}
+REPLAY_LAUNCHES = {k: 0 for k in ALL_KERNELS}
 
 
 def _kernel_counts() -> tuple:
     return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES,
-            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES)
+            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES, adam.LAUNCHES)
 
 
 def _set_kernel_counts(counts: tuple) -> None:
     (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES,
-     preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES) = counts
+     preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES, adam.LAUNCHES) = counts
 
 
 def _map(fn, x):
@@ -164,7 +169,7 @@ class GraphSet:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             warmup_s = time.perf_counter() - t0
-            warmup_launches = dict(zip(KERNELS, (b - a for a, b in zip(counts, _kernel_counts()))))
+            warmup_launches = dict(zip(ALL_KERNELS, (b - a for a, b in zip(counts, _kernel_counts()))))
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             torch.cuda.empty_cache()
@@ -175,7 +180,7 @@ class GraphSet:
             try:
                 with torch.cuda.graph(graph, pool=self._pool, capture_error_mode=capture_error_mode):
                     outputs = body()
-                recorded = dict(zip(KERNELS, (b - a for a, b in zip(counts, _kernel_counts()))))
+                recorded = dict(zip(ALL_KERNELS, (b - a for a, b in zip(counts, _kernel_counts()))))
             except Exception as e:
                 raise RuntimeError(f"capturing {self.what} as a CUDA graph failed: {e}") from e
             finally:

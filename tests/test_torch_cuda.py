@@ -565,8 +565,8 @@ def test_compiled_step_is_bitwise_the_eager_step(cuda, variant):
     tensor of the state and every metric bitwise equal (the multi-view
     samples drawn outside the graph from the state's generator, which
     advances alike); the returned state is the step's own buffers; one
-    capture; each replay adds the graph's launches (1 or 2 of each kernel)
-    to REPLAY_LAUNCHES and none to the launchers' counters."""
+    capture; each replay adds the graph's launches (1 or 2 of each render
+    kernel, one masked Adam) to REPLAY_LAUNCHES and none to the launchers' counters."""
     from hidegs_tpu_torch.train import compiled
     from hidegs_tpu_torch.train import loop as tl
 
@@ -583,7 +583,8 @@ def test_compiled_step_is_bitwise_the_eager_step(cuda, variant):
         torch.cuda.synchronize()
         if k > 0:
             assert _counts() == counts, "a replay went through the launchers"
-        assert {n: compiled.REPLAY_LAUNCHES[n] - replays[n] for n in replays} == dict.fromkeys(replays, per_step)
+        assert {n: compiled.REPLAY_LAUNCHES[n] - replays[n] for n in replays} == dict(
+            dict.fromkeys(compiled.KERNELS, per_step), masked_adam=1)
         for n, (a, b) in enumerate(zip(compiled._tensors(comp), compiled._tensors(eager), strict=True)):
             assert torch.equal(a, b), f"{variant} step {k}: tensor {n} of the state"
         assert em.keys() == cm.keys() and all(torch.equal(em[m], cm[m]) for m in em), variant
@@ -592,7 +593,7 @@ def test_compiled_step_is_bitwise_the_eager_step(cuda, variant):
         assert ptrs is None or now == ptrs, "the replay returned other buffers"
         ptrs = now
     assert float(cm["step_ok"]) == 1.0 and len(step.captures) == 1 and step.replays == 3
-    assert step.captures[0]["launches"] == dict.fromkeys(compiled.KERNELS, per_step)
+    assert step.captures[0]["launches"] == dict(dict.fromkeys(compiled.KERNELS, per_step), masked_adam=1)
     if variant == "compaction":
         assert int(cm["num_visible"]) > 0 and int(cm["visible_overflow"]) >= 0
     if variant == "multi-view":
@@ -797,7 +798,7 @@ def test_bf16_stream_render_and_backward_run_the_bf16_kernels(cuda, tile, monkey
 def _replays():
     from hidegs_tpu_torch.utils import graphs
 
-    return tuple(graphs.REPLAY_LAUNCHES[k] for k in graphs.KERNELS)
+    return tuple(graphs.REPLAY_LAUNCHES[k] for k in graphs.ALL_KERNELS)
 
 
 def _lod_problem(dev, n=2000):
@@ -841,7 +842,7 @@ def test_lod_frame_kernel_holds_against_plain(cuda, mode):
             again = r.render(cam, 2.0)
             want = eager.render(cam, 2.0)
         torch.cuda.synchronize()
-        assert tuple(b - a for a, b in zip(replays, _replays())) == (2, 0, 0, 2, 0)
+        assert tuple(b - a for a, b in zip(replays, _replays())) == (2, 0, 0, 2, 0, 0)
         assert cuda_blend.LAUNCHES == before[0] + 1 + 1  # the warm-up's and the eager frame's
         assert len(r.compiled.captures) == 1 and r.compiled.replays == 2 and int(out["overflow"]) == 0
         for key in out:
@@ -1076,8 +1077,9 @@ def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
     backward + fold against the plain backward, on the node's own rows,
     binning and cotangents; the whole step against the "plain" backend:
     loss at rtol 1e-3, Adam's first moments normalised at 1e-3. Compiled:
-    the first call warms up (one launch of each kernel through the
-    launchers) and captures, each replay adds one launch of each kernel to
+    the first call warms up (one launch of each kernel, masked Adam
+    included, through the launchers) and captures, each replay adds one
+    launch of each kernel to
     REPLAY_LAUNCHES, and the step is bitwise the eager one, which the
     eager case holds."""
     import dataclasses
@@ -1097,7 +1099,7 @@ def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
         for k in range(2):
             got, gm = step(ts, step.select(ts, cams[0], target, budget), cams[0], gts[0], lrs, rcfg, **kw)
             torch.cuda.synchronize()
-            assert tuple(b - a for a, b in zip(replays, _replays())) == (k + 1,) * 5
+            assert tuple(b - a for a, b in zip(replays, _replays())) == (k + 1,) * 6
             assert tuple(b - a for a, b in zip(before, _counts())) == ((1, 1, 1) if k == 0 else (0, 0, 0))
             want, wm = ht.hier_train_step(ts, cut, cams[0], gts[0], lrs, rcfg, **kw)
             for x, y in zip(_post_opt_leaves(got), _post_opt_leaves(want)):
@@ -1106,7 +1108,7 @@ def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
             before = _counts()
         assert [c["kind"] for c in step.captures] == ["cut", "step"]
         assert step.captures[1]["launches"] == step.captures[1]["warmup_launches"] == dict.fromkeys(
-            ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd"), 1)
+            ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd", "masked_adam"), 1)
         assert all(int(gm["counters"][COUNTERS.index(c)]) == 0 for c in ("overflow", "block_overflow",
                                                                            "visible_overflow"))
         return
@@ -1271,7 +1273,7 @@ def test_compiled_post_opt_step_is_bitwise_the_eager_step(cuda, variant):
         torch.cuda.synchronize()
         if k > 0:
             assert _counts() == counts, "a replay went through the launchers"
-        assert tuple(b - a for a, b in zip(replays, _replays())) == (1,) * 5
+        assert tuple(b - a for a, b in zip(replays, _replays())) == (1,) * 6
         for n, (a, b) in enumerate(zip(_post_opt_leaves(comp), _post_opt_leaves(eager))):
             assert torch.equal(a, b), f"{variant} step {k}: leaf {n}"
         assert all(torch.equal(em[m], cm[m]) for m in em), variant
@@ -1429,18 +1431,18 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
 
     src = write_two_cluster_scene(tmp_path / "scene")
     out = str(tmp_path / "out")
-    before, replays = _counts(), tuple(compiled.REPLAY_LAUNCHES[k] for k in compiled.KERNELS)
+    before, replays = _counts(), tuple(compiled.REPLAY_LAUNCHES[k] for k in compiled.ALL_KERNELS)
     pipeline.run_pipeline(src, out, chunk_size=14.0, min_n_cams=3, iterations=3, post_opt_iterations=3,
                           capacity=256, max_instances=1 << 12, add_far_cams=False, log_every=1000,
                           eval_taus=(0.0, 3.0), device="cuda")
     torch.cuda.synchronize()
     fwd, bwd, fold = (x - y for x, y in zip(_counts(), before))
-    replayed = tuple(compiled.REPLAY_LAUNCHES[k] - r for k, r in zip(compiled.KERNELS, replays))
+    replayed = tuple(compiled.REPLAY_LAUNCHES[k] - r for k, r in zip(compiled.ALL_KERNELS, replays))
     meta = json.load(open(os.path.join(out, "pipeline.json")))
     assert len(meta["chunks"]) == 2 and len(meta["lod_eval"]) == 2
     n_eval = 2 * 8  # two taus, eight of the ten views
     # one capture per chunk and one of the post-opt step: each warm-up is one launch of each
-    assert replayed == (3 * 2 + 3,) * 5, replayed
+    assert replayed == (3 * 2 + 3,) * 6, replayed
     assert bwd == fold == 2 + 1 and fwd == bwd + n_eval, (fwd, bwd, fold)
     for name in ("merged.hier", "merged_opt.hier"):
         h = hio.read_hier(os.path.join(out, name))
@@ -1622,9 +1624,9 @@ def test_compiled_dp_step_is_bitwise_the_eager_step(cuda, variant, tmp_path):
     equal (the multi-view samples drawn before each replay from the
     state's generator, which advances alike); the returned state is the
     step's own buffers; one capture, whose warm-up launched V of each
-    kernel through the launchers (2V with multi-view terms, whose loss
-    renders the source view); each replay adds as many to
-    REPLAY_LAUNCHES and none to the launchers' counters."""
+    render kernel and one masked Adam through the launchers (2V with
+    multi-view terms, whose loss renders the source view); each replay
+    adds as many to REPLAY_LAUNCHES and none to the launchers' counters."""
     from hidegs_tpu_torch.parallel import compiled as pc
     from hidegs_tpu_torch.parallel import distributed as pdist
     from hidegs_tpu_torch.parallel import dryrun, sharded
@@ -1650,7 +1652,7 @@ def test_compiled_dp_step_is_bitwise_the_eager_step(cuda, variant, tmp_path):
             comp, cm = step(comp, batch)
             torch.cuda.synchronize()
             assert [a - b for a, b in zip(_counts(), counts)] == ([V] * 3 if k == 0 else [0] * 3)
-            assert [a - b for a, b in zip(_replays(), replays)] == [V] * 5
+            assert [a - b for a, b in zip(_replays(), replays)] == [V] * 5 + [1]
             for n, (a, b) in enumerate(zip(graphs._tensors(comp), graphs._tensors(eager), strict=True)):
                 assert torch.equal(a, b), f"{variant} step {k}: tensor {n} of the state"
             assert em.keys() == cm.keys() and all(torch.equal(em[m], cm[m]) for m in em), variant
@@ -1659,7 +1661,7 @@ def test_compiled_dp_step_is_bitwise_the_eager_step(cuda, variant, tmp_path):
             assert ptrs is None or now == ptrs, "the replay returned other buffers"
             ptrs = now
         assert len(step.captures) == 1 and step.replays == 3
-        assert step.captures[0]["launches"] == dict.fromkeys(graphs.KERNELS, V)
+        assert step.captures[0]["launches"] == dict(dict.fromkeys(graphs.KERNELS, V), masked_adam=1)
         del step  # its graph holds the group's collectives
     finally:
         torch.cuda.synchronize()
@@ -2178,3 +2180,136 @@ def test_binning_owner_is_the_cummax_owner_on_the_render_cell(cuda):
     old = torch.where(slots < total, torch.cummax(owner_at[:max_instances], 0).values, N).to(torch.int32)
     assert int(tb.overflow) == 0 and int(total) > 100_000
     assert torch.equal(tb.owner, old)
+
+
+# the post-opt cell's hierarchy rows (gsbench's uav-whu-1m-hier-postopt)
+ADAM_ROWS = {"small": 1001, "cell": 2_020_479}
+ADAM_CASES = ("all", "none", "half", "frozen", "prefix", "unaligned")
+
+
+def _adam_problem(dev, rows, case, lr_kind, seed=0):
+    """Params, gradients, moments, steps, mask and learning rates of `rows`
+    rows at the port's leaf widths (3, 3, 45, 3, 4, 1). Steps are 0, 1 and
+    up to 2^20; v is positive. "half": a random half of the rows, gradients
+    sliced out of one packed (rows, 59) matrix (the post-opt step's
+    layout); "frozen": that half less a frozen quarter, the SH gradients
+    sliced out of one (rows, 48) matrix (the train step's); "prefix": every
+    tensor the first `rows` rows of buffers twice as long (the row-budget
+    view); "unaligned": every leaf starting one row into its buffer."""
+    from hidegs_tpu_torch.model import adam
+    from hidegs_tpu_torch.model.gaussians import GaussianParams
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = dict(xyz=(3,), sh_dc=(3,), sh_rest=(15, 3), scaling=(3,), rotation=(4,), opacity=())
+    lead = {"prefix": (0, 2 * rows), "unaligned": (1, rows + 1)}.get(case, (0, rows))
+
+    def leaves(positive=False):
+        out = []
+        for f in GaussianParams._fields:
+            x = torch.randn((lead[1], *shapes[f]), generator=gen, device=dev)[lead[0]:lead[0] + rows]
+            out.append(x.abs() if positive else x)
+        return GaussianParams(*out)
+
+    params = leaves()
+    step = torch.randint(0, 1 << 20, (lead[1],), generator=gen, device=dev, dtype=torch.int32)[lead[0]:lead[0] + rows]
+    step[:rows // 3] = 0
+    step[rows // 3:rows // 2] = 1
+    opt = adam.AdamState(m=leaves(), v=leaves(positive=True), step=step)
+    grads = leaves()
+    if case == "half":
+        packed = torch.cat([g.reshape(rows, -1) for g in grads], dim=1)
+        widths = [g[0].numel() if g.ndim > 1 else 1 for g in grads]
+        grads = GaussianParams(*(p.reshape(g.shape) for p, g in zip(torch.split(packed, widths, dim=1), grads)))
+    if case == "frozen":
+        sh = torch.cat([grads.sh_dc.reshape(rows, 1, 3), grads.sh_rest], dim=1)
+        grads = grads._replace(sh_dc=sh[:, 0], sh_rest=sh[:, 1:])
+    u = torch.rand((lead[1],), generator=gen, device=dev)[lead[0]:lead[0] + rows]
+    visible = {"all": u >= 0, "none": u < 0}.get(case, u < 0.5)
+    if case == "frozen":
+        visible = visible & ~(torch.rand((rows,), generator=gen, device=dev) < 0.25)
+    scalar = lambda x: torch.tensor(x, device=dev) if lr_kind == "tensor" else x  # noqa: E731
+    lr = GaussianParams(xyz=scalar(1.6e-4 * 3.7), sh_dc=2.5e-3, sh_rest=scalar(2.5e-3 / 20), scaling=5e-3,
+                        rotation=1e-3, opacity=scalar(5e-2))
+    return params, grads, opt, lr, visible
+
+
+def _adam_tensors(params, opt):
+    return [*params, *opt.m, *opt.v, opt.step]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lr_kind", ["float", "tensor"])
+@pytest.mark.parametrize("case", ADAM_CASES)
+@pytest.mark.parametrize("size", sorted(ADAM_ROWS))
+def test_masked_adam_kernel_is_bitwise_the_plain_update(cuda, size, case, lr_kind):
+    """One kernel launch is bitwise masked_adam_plain on the card, over
+    every leaf, moment and step, out of place (inputs untouched) and in
+    place on clones (the donated form); rows outside the mask keep their
+    bits either way."""
+    from hidegs_tpu_torch.model import adam
+
+    params, grads, opt, lr, visible = _adam_problem(cuda, ADAM_ROWS[size], case, lr_kind)
+    assert case not in ("half", "frozen") or not grads.sh_rest.is_contiguous()
+    before = [x.clone() for x in _adam_tensors(params, opt)]
+    want = _adam_tensors(*adam.masked_adam_plain(params, grads, opt, lr, visible))
+    launches = adam.LAUNCHES
+    got = _adam_tensors(*adam.masked_adam_update(params, grads, opt, lr, visible))
+    assert adam.LAUNCHES == launches + 1
+    for n, (a, b) in enumerate(zip(got, want, strict=True)):
+        assert torch.equal(a, b), f"{case}: tensor {n}"
+    assert all(torch.equal(a, b) for a, b in zip(_adam_tensors(params, opt), before)), "the inputs changed"
+    donated_p = type(params)(*(x.clone() for x in params))
+    donated_opt = type(opt)(*(type(params)(*(x.clone() for x in leaves)) for leaves in opt[:2]), opt.step.clone())
+    mine = [x.data_ptr() for x in _adam_tensors(donated_p, donated_opt)]
+    in_place = _adam_tensors(*adam.masked_adam_update(donated_p, grads, donated_opt, lr, visible, in_place=True))
+    assert [x.data_ptr() for x in in_place] == mine
+    for n, (a, b) in enumerate(zip(in_place, want, strict=True)):
+        assert torch.equal(a, b), f"{case} in place: tensor {n}"
+    off = ~visible
+    for new, old in zip(in_place, before):
+        assert torch.equal(new[off], old[off]), f"{case}: a row outside the mask changed"
+
+
+@pytest.mark.cuda
+def test_masked_adam_kernel_captures_without_a_host_sync(cuda):
+    """The update with a 0-d device learning rate runs eagerly under
+    set_sync_debug_mode("error") and captures as a CUDA graph, in place on
+    static buffers: each replay, the learning rate moved between them, is
+    bitwise the plain update of the state before it; one launch recorded,
+    none made by a replay."""
+    from hidegs_tpu_torch.model import adam
+    from hidegs_tpu_torch.utils import graphs
+
+    params, grads, opt, lr, visible = _adam_problem(cuda, ADAM_ROWS["small"], "half", "tensor")
+    state = [x.clone() for x in _adam_tensors(params, opt)]
+    static_p = type(params)(*state[:6])
+    static_opt = type(opt)(type(params)(*state[6:12]), type(params)(*state[12:18]), state[18])
+    gs = graphs.GraphSet("masked adam")
+
+    def body():
+        adam.masked_adam_update(static_p, grads, static_opt, lr, visible, in_place=True)
+
+    def scratch():
+        warm = [x.clone() for x in state]
+        adam.masked_adam_update(type(params)(*warm[:6]), grads, type(opt)(
+            type(params)(*warm[6:12]), type(params)(*warm[12:18]), warm[18]), lr, visible, in_place=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scratch()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    g = gs.capture(cuda, scratch, body, {})
+    assert g.launches == dict(dict.fromkeys(graphs.KERNELS, 0), masked_adam=1)
+    for k in range(3):
+        old = [x.clone() for x in state]
+        want = _adam_tensors(*adam.masked_adam_plain(type(params)(*old[:6]), grads, type(opt)(
+            type(params)(*old[6:12]), type(params)(*old[12:18]), old[18]), lr, visible))
+        launches, replays = adam.LAUNCHES, graphs.REPLAY_LAUNCHES["masked_adam"]
+        gs.replay(g)
+        torch.cuda.synchronize()
+        assert adam.LAUNCHES == launches and graphs.REPLAY_LAUNCHES["masked_adam"] == replays + 1
+        for n, (a, b) in enumerate(zip(state, want, strict=True)):
+            assert torch.equal(a, b), f"replay {k}: tensor {n}"
+        lr.xyz.mul_(0.5)

@@ -372,12 +372,28 @@ def test_the_scan_covers_the_preprocess_kernels():
     """The preprocess kernels' module is scanned for jax imports; its
     source sits beside the blend kernels', builds into build/kernels/ and
     uses no atomics."""
-    from hidegs_tpu_torch.raster import preprocess_autograd
+    from hidegs_tpu_torch import kernel_sources
 
     assert "hidegs_tpu_torch.raster.preprocess_autograd" in _modules()
-    src = preprocess_autograd.SOURCES["preprocess"]
+    src = kernel_sources.SOURCES["preprocess"]
     assert src.parent == cuda_blend.CSRC and src.exists() and "atomicAdd" not in src.read_text()
     assert cuda_blend._lib_path(src).parent == cuda_blend.BUILD_DIR
+
+
+def test_every_kernel_source_builds_together_and_the_adam_kernel_has_no_atomics():
+    """Every source of kernel_sources.SOURCES exists and builds into
+    build/kernels/, so the first launch of any kernel builds them all at
+    once; the masked Adam's source sits under model/csrc and writes each
+    float from one thread, with no atomics."""
+    from hidegs_tpu_torch import kernel_sources
+    from hidegs_tpu_torch.model import adam
+
+    assert set(cuda_blend.SOURCES) < set(kernel_sources.SOURCES)
+    for src in kernel_sources.SOURCES.values():
+        assert src.exists() and cuda_blend._lib_path(src).parent == cuda_blend.BUILD_DIR
+    src = kernel_sources.SOURCES["masked_adam"]
+    assert src.parent == pathlib.Path(adam.__file__).parent / "csrc"
+    assert not re.search(r"atomic\w*\s*\(", src.read_text())
 
 
 def test_preprocess_on_cpu_tensors_takes_the_plain_path():

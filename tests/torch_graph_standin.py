@@ -40,10 +40,10 @@ class _Replayed:
 def _capture(self, dev, warmup, body, info, capture_error_mode="global"):
     counts = graphs._kernel_counts()
     warmup()
-    warmup_launches = dict(zip(graphs.KERNELS, (b - a for a, b in zip(counts, graphs._kernel_counts()))))
+    warmup_launches = dict(zip(graphs.ALL_KERNELS, (b - a for a, b in zip(counts, graphs._kernel_counts()))))
     counts = graphs._kernel_counts()
     outputs = body()
-    recorded = dict(zip(graphs.KERNELS, (b - a for a, b in zip(counts, graphs._kernel_counts()))))
+    recorded = dict(zip(graphs.ALL_KERNELS, (b - a for a, b in zip(counts, graphs._kernel_counts()))))
     graphs._set_kernel_counts(counts)
     self.captures.append(dict(info, what=self.what, warmup_s=0.0, capture_s=0.0, warmup_launches=warmup_launches,
                               launches=recorded, pool_reserved_bytes=0))
