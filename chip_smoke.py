@@ -1272,17 +1272,17 @@ def phase_breakdown(scene, cam, cfg, pre, tb):
 def host_split_ms(comp, args, kwargs, iters=ITERS):
     """Host ms of one compiled render call (the card synchronised before
     each, not after), and of its parts alone: the key, the lookup (the key,
-    the checks, the graph's dict), the copy-in and the replay; medians of
-    `iters`."""
+    the held check, the graph's dict), the copy-in and the replay; medians
+    of `iters`."""
     from hidegs_tpu_torch.raster.compiled import render_key
     from hidegs_tpu_torch.utils.graphs import copy_into
 
-    g = comp.graph_for(*args, **kwargs)
-    cam, bg = args[5], kwargs.get("background")
+    g = comp._graphs[render_key(*args, **kwargs)]  # the callers' calls captured it
+    cam, bg, held = args[5], kwargs.get("background"), (args[:5], kwargs.get("colors_precomp"))
     parts = {"call": lambda: comp(*args, **kwargs), "key": lambda: render_key(*args, **kwargs),
-             "lookup": lambda: comp.graph_for(*args, **kwargs),
-             "copy-in": lambda: copy_into(g.inputs, (cam, bg)),
-             "replay": lambda: comp._set.replay(g.graph)}
+             "lookup": lambda: (comp._check_held(held), comp._graphs.get(render_key(*args, **kwargs))),
+             "copy-in": lambda: copy_into((g.state, g.inputs), (None, (cam, bg))),
+             "replay": lambda: comp.replay(g)}
     out = {}
     for name, fn in parts.items():
         times = []
@@ -1981,6 +1981,7 @@ def phase_train(scene, cams, cfg):
     densify round replays the compiled round, held against the eager one."""
     from hidegs_tpu_torch.train import compiled
     from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.utils import graphs
 
     t0 = time.perf_counter()
     cell = train_cell(scene, cams, cfg)
@@ -2005,7 +2006,7 @@ def phase_train(scene, cams, cfg):
         if info is not None:  # keep both sides: the round's state is its graph's buffers, which the scrubs
             # after the densify window overwrite
             rounds.append((k + 1, {key: v.clone() for key, v in info.items()}, before,
-                           compiled._map(torch.clone, ts), gen))
+                           graphs._map(torch.clone, ts), gen))
     launches = read_counts()
     wall_s = time.perf_counter() - t0
     print(f"[train] {TRAIN_STEPS} steps in {wall_s:.2f} s host wall; launches on the train path: {launches}")
@@ -2056,7 +2057,7 @@ def hold_densify_round(densify, pre_round, post_round, info, gen, extent, tcfg):
     events, the host's split draws included) and one of each under the
     profiler."""
     from hidegs_tpu_torch.train import loop as tl
-    from hidegs_tpu_torch.train.compiled import _tensors
+    from hidegs_tpu_torch.utils.graphs import _tensors
 
     dev = pre_round.gaussians.alive.device
 
@@ -2366,9 +2367,9 @@ COMPILED_SHORT = 5  # steps of the exposure, row-budget and compaction variants
 def first_difference(a, b):
     """None when the tensors of two train states are bitwise equal, else
     the first that differs: (index, its shape, max abs difference)."""
-    from hidegs_tpu_torch.train import compiled
+    from hidegs_tpu_torch.utils import graphs
 
-    for n, (x, y) in enumerate(zip(compiled._tensors(a), compiled._tensors(b), strict=True)):
+    for n, (x, y) in enumerate(zip(graphs._tensors(a), graphs._tensors(b), strict=True)):
         if not torch.equal(x, y):
             return n, tuple(x.shape), max_abs_err(x.float(), y.float())
     return None
@@ -4322,12 +4323,10 @@ def phase_viewer(scene, cams, max_instances):
     check(isinstance(comp, CompiledRender), f"viewer: the render function replays {type(comp)}, not CompiledRender")
     capture_threads = []
 
-    def note_thread(graph_for):
+    def note_thread(capture):
         def call(*args, **kwargs):
-            n = len(comp.captures)
-            g = graph_for(*args, **kwargs)
-            if len(comp.captures) > n:
-                capture_threads.append(threading.current_thread().name)
+            g = capture(*args, **kwargs)
+            capture_threads.append(threading.current_thread().name)
             return g
         return call
 
@@ -4366,7 +4365,7 @@ def phase_viewer(scene, cams, max_instances):
     yaw2 = view[0] + 0.3  # the second HTTP frame: another yaw, a cache miss
     try:
         reset_counts()
-        with patched(comp, "graph_for", note_thread):
+        with patched(comp, "capture", note_thread):
             url, frames, http_s = {}, {}, []
             for yaw in (view[0], yaw2):
                 t0 = time.perf_counter()

@@ -20,7 +20,6 @@ On a card the renderer replays each frame as a CUDA graph
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -37,7 +36,7 @@ from hidegs_tpu_torch.hier.lod import (
     pack_hierarchy,
 )
 from hidegs_tpu_torch.raster.api import RasterConfig, render, round_budget
-from hidegs_tpu_torch.utils.graphs import Graph, GraphSet, _map, _spec, copy_into, on_card, require_cuda, same_tensors
+from hidegs_tpu_torch.utils.graphs import GraphSet, _spec, on_card, require_cuda
 from hidegs_tpu_torch.utils.profiling import span
 
 
@@ -204,19 +203,13 @@ def lod_frame_key(packed: PackedHier, target_size, cam, means3d, scales, quats, 
             _spec(cam), _spec(target_size), _spec(background))
 
 
-@dataclasses.dataclass
-class _FrameGraph:
-    graph: Graph  # outputs: the frame's dict
-    held: tuple  # (packed, the five arrays, attrs), by reference
-    inputs: tuple  # static (target, camera, background)
-
-
-class CompiledLodFrame:
+class CompiledLodFrame(GraphSet):
     """`fused_lod_frame` captured once per static key (`lod_frame_key`) as
-    a CUDA graph and replayed: cut select (`expand_packed`), interpolation
-    and raster in one replay, the forward blend kernel inside. Called as
-    `fused_lod_frame` is, on a hierarchy on a CUDA device; the frame is
-    not differentiable (the body runs under `torch.no_grad`).
+    a CUDA graph and replayed (utils/graphs.py's `GraphSet.run`): cut
+    select (`expand_packed`), interpolation and raster in one replay, the
+    forward blend kernel inside. Called as `fused_lod_frame` is, on a
+    hierarchy on a CUDA device; the frame is not differentiable (the body
+    runs under `torch.no_grad`).
 
       * the hierarchy (`packed`), its five arrays and `attrs` are held by
         reference: they never change for a renderer, and copying the
@@ -230,21 +223,11 @@ class CompiledLodFrame:
         overwrites them, so a caller that keeps a frame past the next
         call clones it.
 
-    A new key warms the frame up on a side stream, then captures it
-    (utils/graphs.py). There is no fallback: a hierarchy off the card
-    raises ValueError, a failed capture RuntimeError."""
+    There is no fallback: a hierarchy off the card raises ValueError, a
+    failed capture RuntimeError."""
 
     def __init__(self):
-        self._set = GraphSet("the LOD frame")
-        self._frames = {}
-
-    @property
-    def captures(self):
-        return self._set.captures
-
-    @property
-    def replays(self) -> int:
-        return self._set.replays
+        super().__init__("the LOD frame")
 
     @staticmethod
     def body(*args, **kwargs):
@@ -260,27 +243,15 @@ class CompiledLodFrame:
         arrays = (means3d, scales, quats, opacities, shs)
         key = lod_frame_key(packed, target_size, cam, *arrays, budget, num_points, skybox_count, background, config,
                             active_sh_degree, render_geo, attrs)
-        held, inputs = (packed, arrays, attrs), (target_size, cam, background)
-        g = self._frames.get(key)
-        if g is None:
-            static = _map(torch.clone, inputs)
-            statics = dict(budget=budget, num_points=num_points, skybox_count=skybox_count, config=config,
-                           active_sh_degree=active_sh_degree, render_geo=render_geo, attrs=attrs)
 
-            def run():
-                target, c, bg = static
-                return self.body(packed, target, c, *arrays, background=bg, **statics)
+        def body(_, target, c, bg):
+            return self.body(packed, target, c, *arrays, budget=budget, num_points=num_points,
+                             skybox_count=skybox_count, background=bg, config=config,
+                             active_sh_degree=active_sh_degree, render_geo=render_geo, attrs=attrs)
 
-            info = dict(budget=int(budget), image=(cam.height, cam.width),
-                        max_instances=(config or RasterConfig()).max_instances)
-            g = self._frames[key] = _FrameGraph(graph=self._set.capture(dev, run, run, info), held=held,
-                                                inputs=static)
-        elif not same_tensors(g.held, held):
-            raise ValueError("the compiled LOD frame holds the hierarchy's arrays by reference: "
-                             "use one CompiledLodFrame per hierarchy")
-        copy_into(g.inputs, inputs)
-        self._set.replay(g.graph)
-        return dict(g.graph.outputs)
+        info = dict(budget=int(budget), image=(cam.height, cam.width), max_instances=key[3].max_instances)
+        outputs, _ = self.run(key, dev, body, (target_size, cam, background), held=(packed, arrays, attrs), info=info)
+        return dict(outputs)
 
 
 class AdaptiveHierRenderer:

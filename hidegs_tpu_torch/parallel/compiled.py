@@ -7,17 +7,17 @@ Port of the JAX package's `jax.jit(step, donate_argnums=(0,))`
 render and backward, the gradient all-reduce, masked Adam) is one XLA
 executable the host issues with one call. `CompiledDPStep` is called as
 `make_dp_train_step`'s step is, `(ts, batch, uv=None) -> (ts, metrics)`,
-and follows `train.compiled.CompiledTrainStep`:
+and follows `train.compiled.CompiledTrainStep` (utils/graphs.py's
+`GraphSet.run`):
 
   * the static key is what JAX retraces on: `cfg`, the gradient wire,
     `use_exposure`, the placement flags and the mesh's shape, and the
     shapes, dtypes and structure of the state, the stacked batch and the
     pixel samples. A new key warms the body (`sharded.dp_step_in_place`)
-    up on a side stream on a scratch copy of the state, then captures it;
-    the graphs of one `CompiledDPStep` share one memory pool;
-  * static inputs: every tensor of the state, the batch and `uv`, copied
-    in before a replay except where the caller passes back the tensors
-    the previous replay returned;
+    up on a scratch copy of the state, then captures it;
+  * static inputs: the batch and `uv`, copied in before a replay; the
+    state is copied into the state buffers except where the caller passes
+    back the tensors the previous replay returned;
   * donation: the captured body ends by writing the new state into the
     static state buffers, and the returned state is those buffers (C28);
     the returned metrics are the graph's static 0-d outputs, valid until
@@ -45,9 +45,8 @@ and of the CPU.
 """
 from __future__ import annotations
 
-import dataclasses
 import hashlib
-from typing import Any, Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,7 +61,7 @@ from hidegs_tpu_torch.parallel.sharded import (
     make_dp_train_step,
 )
 from hidegs_tpu_torch.train.loop import TrainConfig, TrainState, ViewBatch
-from hidegs_tpu_torch.utils.graphs import GraphSet, _map, _spec, copy_into, require_cuda
+from hidegs_tpu_torch.utils.graphs import GraphSet, _spec, require_cuda
 
 
 def mesh_backend(mesh) -> Optional[str]:
@@ -101,23 +100,12 @@ def key_digest(key: tuple) -> np.ndarray:
     return np.frombuffer(h.digest(), np.uint8).astype(np.float32)
 
 
-@dataclasses.dataclass
-class _Graph:
-    graph: Any  # utils.graphs.Graph: the graph, its static metrics and launches
-    batch: ViewBatch  # static stacked batch
-    uv: Optional[torch.Tensor]  # static pixel samples
-
-
-class CompiledDPStep:
+class CompiledDPStep(GraphSet):
     """The view-parallel step compiled: made with `make_dp_train_step`'s
     arguments, called as its step is, `(ts, batch, uv=None) -> (ts,
     metrics)`, on a state on a CUDA device. See the module docstring for
     what is static, what is donated, how long the outputs live and why a
-    mesh must be NCCL's.
-
-    `captures` lists what each capture cost (key summary, warm-up and
-    capture seconds, the kernels it recorded, the pool's growth);
-    `replays` counts the replays."""
+    mesh must be NCCL's; `captures` and `replays` are GraphSet's."""
 
     def __init__(self, cfg: TrainConfig, mesh=None, use_exposure: bool = False,
                  grad_reduce_dtype: Optional[torch.dtype] = None, replicate_preprocessed: bool = False,
@@ -127,20 +115,14 @@ class CompiledDPStep:
             raise ValueError(f"the compiled view-parallel step captures its collectives in a CUDA graph, which "
                              f"NCCL allows and {backend} does not: use the eager make_dp_train_step on a "
                              f"{backend} mesh")
+        super().__init__("the view-parallel step")
         self.statics = dict(cfg=cfg, mesh=mesh, use_exposure=use_exposure, grad_reduce_dtype=grad_reduce_dtype,
                             replicate_preprocessed=replicate_preprocessed, shard_gaussians=shard_gaussians)
         self.plan = dp_plan(**self.statics)
-        self._graphs: Dict[tuple, _Graph] = {}
-        self._states: Dict[Any, TrainState] = {}  # static state buffers, by the state's spec
-        self._set = GraphSet("the view-parallel step")
 
-    @property
-    def captures(self):
-        return self._set.captures
-
-    @property
-    def replays(self) -> int:
-        return self._set.replays
+    def _new_key(self, key, dev) -> None:
+        # every rank must record the same collectives in the same order
+        pdist.assert_same_across_hosts(key_digest(key), "the compiled view-parallel step's key", device=dev)
 
     def __call__(self, ts: TrainState, batch: ViewBatch, uv: Optional[torch.Tensor] = None):
         check_placement(self.plan, ts)
@@ -151,41 +133,15 @@ class CompiledDPStep:
             uv = None
         elif uv is None:
             uv, mv_generator = draw_dp_pixels(self.plan, ts, batch)
-        key = dp_static_key(ts, batch, uv=uv, **self.statics)
-        state_spec = key[6]  # the graphs of one state layout share its buffers
-        state = self._states.get(state_spec)
-        if state is None:
-            state = self._states[state_spec] = _map(torch.clone, ts)
-        g = self._graphs.get(key)
-        if g is None:
-            # every rank must record the same collectives in the same order
-            pdist.assert_same_across_hosts(key_digest(key), "the compiled view-parallel step's key", device=dev)
-            g = self._graphs[key] = self._capture(ts, state, batch, uv)
-        copy_into(state, ts)
-        copy_into(g.batch, batch)
-        if uv is not None:
-            g.uv.copy_(uv)
-        self._set.replay(g.graph)
-        return state._replace(generator=ts.generator, mv_generator=mv_generator, rows_split=ts.rows_split), \
-            g.graph.outputs
-
-    def _capture(self, ts, state, batch, uv) -> _Graph:
-        static_batch = _map(torch.clone, batch)
-        static_uv = None if uv is None else uv.clone()
-        cfg = self.plan.cfg
+        plan, mesh = self.plan, self.statics["mesh"]
         info = dict(capacity=ts.gaussians.capacity, views=int(batch.image.shape[0]),
                     image=tuple(batch.image.shape[-2:]), multi_view=batch.multi_view is not None,
-                    use_exposure=self.plan.use_exposure, wire=str(self.plan.wire).rsplit(".", 1)[-1],
-                    mesh=None if self.statics["mesh"] is None else tuple(self.statics["mesh"].shape),
-                    split=self.plan.split,
-                    max_instances=cfg.raster.max_instances)
-        # the warm-up steps a scratch copy of the caller's state
-        graph = self._set.capture(
-            ts.gaussians.alive.device,
-            lambda: dp_step_in_place(self.plan, _map(torch.clone, ts), static_batch, static_uv),
-            lambda: dp_step_in_place(self.plan, state, static_batch, static_uv),
-            info)
-        return _Graph(graph=graph, batch=static_batch, uv=static_uv)
+                    use_exposure=plan.use_exposure, wire=str(plan.wire).rsplit(".", 1)[-1],
+                    mesh=None if mesh is None else tuple(mesh.shape), split=plan.split,
+                    max_instances=plan.cfg.raster.max_instances)
+        metrics, state = self.run(dp_static_key(ts, batch, uv=uv, **self.statics), dev,
+                                  lambda s, b, u: dp_step_in_place(plan, s, b, u), (batch, uv), state=ts, info=info)
+        return state._replace(generator=ts.generator, mv_generator=mv_generator, rows_split=ts.rows_split), metrics
 
 
 def compile_dp_train_step(cfg: TrainConfig, mesh=None, use_exposure: bool = False,

@@ -12,16 +12,14 @@ their own graphs.
 """
 from __future__ import annotations
 
-import dataclasses
-from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List
 
 import torch
 
 from hidegs_tpu_torch.core import sh as shm
 from hidegs_tpu_torch.core.camera_math import CameraParams
 from hidegs_tpu_torch.raster.api import RasterConfig, RenderOutputs, _check_same_device, render
-from hidegs_tpu_torch.utils.graphs import Graph, GraphSet, _map, _spec, copy_into, on_card, require_cuda, same_tensors
+from hidegs_tpu_torch.utils.graphs import GraphSet, _spec, on_card, require_cuda
 
 # graphs kept at once: each keeps its outputs (and the pool the buffers of
 # its largest render), and the viewers take any image size a client asks for
@@ -39,19 +37,12 @@ def render_key(means3d, scales, quats, opacities, shs, cam: CameraParams, backgr
             _spec(colors_precomp), _spec(cam), _spec(background))
 
 
-@dataclasses.dataclass
-class _RenderGraph:
-    graph: Graph  # outputs: the render dict
-    inputs: tuple  # static (camera, background)
-    info: Dict[str, Any]
-
-
-class CompiledRender:
+class CompiledRender(GraphSet):
     """`render` under `torch.no_grad`, captured once per static key
-    (`render_key`) as a CUDA graph and replayed: preprocess, the optional
-    visible-row compaction, binning, the forward blend kernel and the
-    `render_geo` planes in one replay. Called as `render` is, on a model
-    on a CUDA device.
+    (`render_key`) as a CUDA graph and replayed (utils/graphs.py's
+    `GraphSet.run`): preprocess, the optional visible-row compaction,
+    binning, the forward blend kernel and the `render_geo` planes in one
+    replay. Called as `render` is, on a model on a CUDA device.
 
       * the five arrays and `colors_precomp` are held by reference: the
         graphs read the tensors of the first call (236 MB at 1M gaussians,
@@ -74,19 +65,11 @@ class CompiledRender:
     "plain" blend (it reads tile counts to the host) and the "oracle"; a
     failed capture raises RuntimeError."""
 
+    capture_error_mode = "thread_local"
+
     def __init__(self):
-        self._set = GraphSet("the render")
-        self._graphs: "OrderedDict[tuple, _RenderGraph]" = OrderedDict()
-        self._held: Optional[tuple] = None
+        super().__init__("the render")
         self.evictions: List[Dict[str, Any]] = []
-
-    @property
-    def captures(self):
-        return self._set.captures
-
-    @property
-    def replays(self) -> int:
-        return self._set.replays
 
     @staticmethod
     def body(*args, **kwargs) -> RenderOutputs:
@@ -94,11 +77,14 @@ class CompiledRender:
         with torch.no_grad():
             return render(*args, **kwargs)
 
-    def graph_for(self, means3d, scales, quats, opacities, shs, cam: CameraParams, background=None,
-                  active_sh_degree=shm.MAX_SH_DEGREE, render_geo: bool = False, colors_precomp=None,
-                  config: RasterConfig = RasterConfig()) -> _RenderGraph:
-        """The graph of this call's key, captured if it is new (after the
-        checks); the least recently used past MAX_KEYS is freed."""
+    def _new_key(self, key, dev) -> None:
+        while len(self._graphs) >= MAX_KEYS:
+            _, old = self._graphs.popitem(last=False)
+            self.evictions.append(dict(old.info, replays_at_eviction=self.replays))
+
+    def __call__(self, means3d, scales, quats, opacities, shs, cam: CameraParams, background=None,
+                 active_sh_degree=shm.MAX_SH_DEGREE, render_geo: bool = False, colors_precomp=None,
+                 config: RasterConfig = RasterConfig()) -> RenderOutputs:
         arrays = (means3d, scales, quats, opacities, shs)
         dev = means3d.device
         require_cuda(dev, "the compiled render", "render")
@@ -107,45 +93,17 @@ class CompiledRender:
             raise ValueError(f"the compiled render runs the 'blend' backend, not {config.backend!r}: the plain "
                              "blend reads tile counts to the host and the oracle is a dense reference; "
                              "call render for those")
-        held = (arrays, colors_precomp)
-        if self._held is not None and not same_tensors(self._held, held):
-            raise ValueError("the compiled render holds the model's arrays by reference: "
-                             "use one CompiledRender per model")
         key = render_key(*arrays, cam, background, active_sh_degree, render_geo, colors_precomp, config)
-        g = self._graphs.get(key)
-        if g is not None:
-            self._graphs.move_to_end(key)
-            return g
-        while len(self._graphs) >= MAX_KEYS:
-            _, old = self._graphs.popitem(last=False)
-            self.evictions.append(dict(old.info, replays_at_eviction=self.replays))
-        static = _map(torch.clone, (cam, background))
-        statics = dict(active_sh_degree=active_sh_degree, render_geo=render_geo, colors_precomp=colors_precomp,
-                       config=config)
 
-        def run():
-            c, bg = static
-            return self.body(*arrays, c, background=bg, **statics)
+        def body(_, c, bg):
+            return self.body(*arrays, c, background=bg, active_sh_degree=active_sh_degree, render_geo=render_geo,
+                             colors_precomp=colors_precomp, config=config)
 
         info = dict(image=(cam.height, cam.width), tile=config.tile, max_instances=config.max_instances,
                     render_geo=bool(render_geo))
-        graph = self._set.capture(dev, run, run, info, capture_error_mode="thread_local")
-        g = self._graphs[key] = _RenderGraph(graph=graph, inputs=static, info=info)
-        self._held = held  # pinned once a graph reads them
-        return g
-
-    def replay(self, g: _RenderGraph, cam: CameraParams, background=None) -> RenderOutputs:
-        """Copy the camera and background into `g` and replay it."""
-        copy_into(g.inputs, (cam, background))
-        self._set.replay(g.graph)
-        return dict(g.graph.outputs)
-
-    def __call__(self, means3d, scales, quats, opacities, shs, cam: CameraParams, background=None,
-                 active_sh_degree=shm.MAX_SH_DEGREE, render_geo: bool = False, colors_precomp=None,
-                 config: RasterConfig = RasterConfig()) -> RenderOutputs:
-        g = self.graph_for(means3d, scales, quats, opacities, shs, cam, background, active_sh_degree,
-                           render_geo, colors_precomp, config)
-        return self.replay(g, cam, background)
+        outputs, _ = self.run(key, dev, body, (cam, background), held=(arrays, colors_precomp), info=info)
+        self._graphs.move_to_end(key)
+        return dict(outputs)
 
 
 def serving_render(device, config: RasterConfig) -> Callable[..., RenderOutputs]:

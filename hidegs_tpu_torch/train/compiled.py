@@ -9,20 +9,17 @@ issues with one call and that updates the donated state in place.
 warms the step up and captures `step_forward` → `step_backward`
 (`torch.autograd.grad`, the blend's two CUDA kernels inside) →
 `step_update` → the write-back into one `torch.cuda.CUDAGraph`, and every
-call replays that graph:
+call replays that graph (the protocol is utils/graphs.py's `GraphSet.run`):
 
   * the static key is what JAX retraces on: `cfg` (the raster budgets
     `max_instances`, `max_visible`, `max_blocks` with it), `use_exposure`,
     `row_budget`, and the shapes and dtypes of every tensor of the state,
     the batch and the pixel samples with every non-tensor leaf (the image
-    size, which optional members are present). A new key warms up on a
-    side stream on a scratch copy of the state, then captures; the graphs
-    of one `CompiledTrainStep` share one memory pool, since they never
-    run at once;
-  * static inputs: every tensor of the state, the batch and `uv`. Before a
-    replay each one is copied in from the caller's tensor, except where
-    the caller passes back the tensors the previous replay returned (the
-    steady loop), so a steady iteration copies only its batch;
+    size, which optional members are present);
+  * static inputs: the batch and `uv`, copied in before a replay; the state
+    is copied into the state buffers except where the caller passes back
+    the tensors the previous replay returned (the steady loop), so a
+    steady iteration copies only its batch;
   * donation: the captured step's Adam writes the params and moments
     straight into the static state buffers, and the step ends by writing
     the rest of the new state there (`loop._unslice_rows_` on the
@@ -38,18 +35,12 @@ There is no fallback: a state off the card raises, and so does a failed
 capture (a host sync inside the step is one). The eager `train_step` is
 the CPU's path.
 
-Launch counts: every replay adds the graph's recorded launches to
-`REPLAY_LAUNCHES`, the capture machinery's one process-wide count
-(utils/graphs.py); the warm-up's launches are real and stay in
-`cuda_blend`'s counters.
-
 `CompiledDensify` compiles the host cadence's densify round and scrub the
 same way (its docstring says how).
 """
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Dict, Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -65,17 +56,7 @@ from hidegs_tpu_torch.train.loop import (
     step_forward,
     step_update,
 )
-from hidegs_tpu_torch.utils.graphs import (  # noqa: F401  (the tests and the smoke read some of these here)
-    ALL_KERNELS,
-    KERNELS,
-    REPLAY_LAUNCHES,
-    GraphSet,
-    _map,
-    _spec,
-    _tensors,
-    copy_into,
-    require_cuda,
-)
+from hidegs_tpu_torch.utils.graphs import GraphSet, _spec, copy_into, require_cuda
 
 
 def _effective_row_budget(ts: TrainState, row_budget: int) -> int:
@@ -107,35 +88,15 @@ def step_in_place(ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposu
     return metrics
 
 
-@dataclasses.dataclass
-class _Graph:
-    graph: Any  # utils.graphs.Graph: the graph, its static metrics and launches
-    batch: ViewBatch  # static batch tensors
-    uv: Optional[torch.Tensor]  # static pixel samples
-
-
-class CompiledTrainStep:
+class CompiledTrainStep(GraphSet):
     """`train_step` compiled: called with `train_step`'s arguments,
     `(ts, batch, cfg, use_exposure=False, row_budget=0, uv=None) -> (ts,
     metrics)`, on a state on a CUDA device. See the module docstring for
-    what is static, what is donated and how long the outputs live.
-
-    `captures` lists what each capture cost (key summary, warm-up and
-    capture seconds, the kernels it recorded, the pool's growth);
-    `replays` counts the replays."""
+    what is static, what is donated and how long the outputs live;
+    `captures` and `replays` are GraphSet's."""
 
     def __init__(self):
-        self._graphs: Dict[tuple, _Graph] = {}
-        self._states: Dict[Any, TrainState] = {}  # static state buffers, by the state's spec
-        self._set = GraphSet("the train step")
-
-    @property
-    def captures(self):
-        return self._set.captures
-
-    @property
-    def replays(self) -> int:
-        return self._set.replays
+        super().__init__("the train step")
 
     def __call__(self, ts: TrainState, batch: ViewBatch, cfg: TrainConfig, use_exposure: bool = False,
                  row_budget: int = 0, uv: Optional[torch.Tensor] = None):
@@ -146,48 +107,15 @@ class CompiledTrainStep:
         elif uv is None:
             uv, mv_generator = draw_step_pixels(ts, batch, cfg)
         key = static_key(ts, batch, cfg, use_exposure, row_budget, uv)
-        state_spec = key[3]  # the graphs of one state layout share its buffers
-        state = self._states.get(state_spec)
-        if state is None:
-            state = self._states[state_spec] = _map(torch.clone, ts)
-        g = self._graphs.get(key)
-        if g is None:
-            g = self._graphs[key] = self._capture(ts, state, batch, cfg, use_exposure,
-                                                  _effective_row_budget(ts, row_budget), uv)
-        copy_into(state, ts)
-        copy_into(g.batch, batch)
-        if uv is not None:
-            g.uv.copy_(uv)
-        self._set.replay(g.graph)
-        return state._replace(generator=ts.generator, mv_generator=mv_generator, rows_split=ts.rows_split), \
-            g.graph.outputs
-
-    def _capture(self, ts, state, batch, cfg, use_exposure, row_budget, uv) -> _Graph:
-        static_batch = _map(torch.clone, batch)
-        static_uv = None if uv is None else uv.clone()
+        rows = key[2]  # the effective row budget
         info = dict(capacity=ts.gaussians.capacity, image=tuple(batch.image.shape[-2:]),
                     multi_view=batch.multi_view is not None, use_exposure=bool(use_exposure),
-                    row_budget=row_budget, max_instances=cfg.raster.max_instances,
+                    row_budget=rows, max_instances=cfg.raster.max_instances,
                     max_visible=cfg.raster.max_visible, max_blocks=cfg.raster.max_blocks)
-        # the warm-up steps a scratch copy of the caller's state
-        graph = self._set.capture(
-            ts.gaussians.alive.device,
-            lambda: step_in_place(_map(torch.clone, ts), static_batch, cfg, use_exposure, row_budget, static_uv),
-            lambda: step_in_place(state, static_batch, cfg, use_exposure, row_budget, static_uv),
-            info)
-        return _Graph(graph=graph, batch=static_batch, uv=static_uv)
-
-
-def compile_train_step(cfg: TrainConfig, use_exposure: bool = False, row_budget: int = 0):
-    """`step(ts, batch, uv=None) -> (ts, metrics)`: a `CompiledTrainStep`
-    with the static arguments bound (its graphs as `step.compiled`)."""
-    compiled = CompiledTrainStep()
-
-    def step(ts: TrainState, batch: ViewBatch, uv: Optional[torch.Tensor] = None):
-        return compiled(ts, batch, cfg, use_exposure, row_budget, uv)
-
-    step.compiled = compiled
-    return step
+        metrics, state = self.run(
+            key, ts.gaussians.alive.device, lambda s, b, u: step_in_place(s, b, cfg, use_exposure, rows, u),
+            (batch, uv), state=ts, info=info)
+        return state._replace(generator=ts.generator, mv_generator=mv_generator, rows_split=ts.rows_split), metrics
 
 
 def densify_in_place(ts: TrainState, scene_extent: torch.Tensor, cfg: TrainConfig,
@@ -208,13 +136,7 @@ def scrub_in_place(ts: TrainState) -> torch.Tensor:
     return n_killed
 
 
-@dataclasses.dataclass
-class _RoundGraph:
-    graph: Any  # utils.graphs.Graph: the graph, its static outputs and launches
-    inputs: Any  # static (scene extent, draws) of the densify graph; () for the scrub
-
-
-class CompiledDensify:
+class CompiledDensify(GraphSet):
     """The densify round and the scrub compiled: the counterparts of the
     JAX package's `jax.jit(densify_step, static_argnames=("cfg",),
     donate_argnums=(0,))` (hidegs_tpu/train/loop.py:447) and jitted
@@ -238,65 +160,28 @@ class CompiledDensify:
         static outputs, valid until the next replay of either graph.
 
     There is no fallback: a state off the card raises ValueError, a failed
-    capture RuntimeError. `captures` and `replays` are the record of
-    utils.graphs.GraphSet."""
+    capture RuntimeError. `captures` and `replays` are GraphSet's."""
 
     def __init__(self):
-        self._set = GraphSet("the densify round")
-        self._graphs: Dict[tuple, _RoundGraph] = {}
-        self._states: Dict[Any, TrainState] = {}  # static state buffers, by the state's spec
+        super().__init__("the densify round")
 
-    @property
-    def captures(self):
-        return self._set.captures
-
-    @property
-    def replays(self) -> int:
-        return self._set.replays
-
-    def _state(self, ts: TrainState) -> TrainState:
-        spec = _spec(ts)
-        state = self._states.get(spec)
-        if state is None:
-            state = self._states[spec] = _map(torch.clone, ts)
-        return state
-
-    def _replay(self, ts: TrainState, state: TrainState, g: _RoundGraph) -> TrainState:
-        copy_into(state, ts)
-        self._set.replay(g.graph)
+    def _returned(self, ts: TrainState, state: TrainState) -> TrainState:
         return state._replace(generator=ts.generator, mv_generator=ts.mv_generator, rows_split=ts.rows_split)
 
     def densify_step(self, ts: TrainState, scene_extent, cfg: TrainConfig):
         dev = ts.gaussians.alive.device
         require_cuda(dev, "the compiled densify round", "densify_step")
         draws = split_draws(ts.generator, ts.gaussians.capacity, dev)
-        state = self._state(ts)
-        key = ("densify", cfg.densify, _spec(ts))
-        g = self._graphs.get(key)
-        if g is None:
-            extent = torch.zeros((), dtype=torch.float64, device=dev)
-            inputs = (extent, _map(torch.clone, draws))
-            extent.fill_(scene_extent)
-
-            def run(s):
-                return densify_in_place(s, extent, cfg, inputs[1])
-
-            graph = self._set.capture(dev, lambda: run(_map(torch.clone, ts)), lambda: run(state),
-                                      dict(kind="densify", capacity=ts.gaussians.capacity))
-            g = self._graphs[key] = _RoundGraph(graph=graph, inputs=inputs)
-        g.inputs[0].fill_(scene_extent)
-        copy_into(g.inputs[1], draws)
-        return self._replay(ts, state, g), g.graph.outputs
+        extent = self.scalar("scene_extent", dev, torch.float64)
+        extent.fill_(scene_extent)
+        info, state = self.run(("densify", cfg.densify, _spec(ts)), dev,
+                               lambda s, d: densify_in_place(s, extent, cfg, d), (draws,), state=ts,
+                               info=dict(kind="densify", capacity=ts.gaussians.capacity))
+        return self._returned(ts, state), info
 
     def scrub_step(self, ts: TrainState):
         dev = ts.gaussians.alive.device
         require_cuda(dev, "the compiled scrub", "scrub_step")
-        state = self._state(ts)
-        key = ("scrub", _spec(ts))
-        g = self._graphs.get(key)
-        if g is None:
-            graph = self._set.capture(dev, lambda: scrub_in_place(_map(torch.clone, ts)),
-                                      lambda: scrub_in_place(state),
-                                      dict(kind="scrub", capacity=ts.gaussians.capacity))
-            g = self._graphs[key] = _RoundGraph(graph=graph, inputs=())
-        return self._replay(ts, state, g), g.graph.outputs
+        n_killed, state = self.run(("scrub", _spec(ts)), dev, scrub_in_place, state=ts,
+                                   info=dict(kind="scrub", capacity=ts.gaussians.capacity))
+        return self._returned(ts, state), n_killed

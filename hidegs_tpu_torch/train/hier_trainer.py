@@ -24,11 +24,10 @@ packed once per state (`HierTrainState.packed`) and every cut is an
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import random
-from typing import Any, Dict, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,18 +44,7 @@ from hidegs_tpu_torch.raster.api import RasterConfig, render
 from hidegs_tpu_torch.train.budgets import COUNTERS, OVERFLOW_CHECK_EVERY, BudgetRefit
 from hidegs_tpu_torch.train.loop import apply_exposure, step_backward
 from hidegs_tpu_torch.train.losses import abs_, clip, dssim_l1
-from hidegs_tpu_torch.utils.graphs import (
-    Graph,
-    GraphSet,
-    _map,
-    _same_memory,
-    _spec,
-    _tensors,
-    copy_into,
-    on_card,
-    require_cuda,
-    same_tensors,
-)
+from hidegs_tpu_torch.utils.graphs import GraphSet, _same_memory, _spec, _tensors, copy_into, on_card, require_cuda
 from hidegs_tpu_torch.utils.profiling import span
 
 
@@ -337,34 +325,20 @@ def hier_step_in_place(ts: HierTrainState, cut: HierCut, cam, gt_image: torch.Te
     return metrics
 
 
-@dataclasses.dataclass
-class _StepGraph:
-    graph: Graph  # outputs: the metrics
-    inputs: tuple  # static (cut, cam, gt_image, lr_cfg_tree, frozen)
-    image_idx: torch.Tensor  # static () int64
-
-
-@dataclasses.dataclass
-class _CutGraph:
-    graph: Graph  # outputs: the HierCut
-    packed: PackedHier  # held by reference
-    target: Any  # static target tensor, or the float of the key
-    viewpoint: torch.Tensor  # static (3,)
-
-
-class CompiledHierTrainStep:
+class CompiledHierTrainStep(GraphSet):
     """`hier_train_step` compiled, the counterpart of the JAX package's
     `jax.jit(hier_train_step, static_argnames=(raster_cfg, lambda_dssim,
     skybox_count, use_exposure, optimize_exposure), donate_argnums=(0,))`
     (hidegs_tpu/train/hier_trainer.py:136-147), with `select` for the cut
     (JAX's own `expand_packed` executable). Called as `hier_train_step` is,
     on a state on a CUDA device; returns (state, {"loss", "n_visible"}).
+    Both are utils/graphs.py's `GraphSet.run`:
 
       * the static key (`hier_static_key`) is what JAX retraces on; a new
-        key warms the step up on a side stream on a scratch copy of the
-        state, then captures `hier_step_in_place` (utils/graphs.py). The
-        image index is an input (an int is written into it, a tensor
-        copied), so every view replays one graph;
+        key warms the step up on a scratch copy of the state, then
+        captures `hier_step_in_place`. The image index is an input (an int
+        is written into it, a tensor copied), so every view replays one
+        graph;
       * donation: the captured step ends by writing the new state into the
         static state buffers, and the returned state is those buffers (with
         the caller's topology, `nodes`, `boxes` and `packed`, which the step
@@ -385,51 +359,23 @@ class CompiledHierTrainStep:
         of either graph.
 
     There is no fallback: a state off the card raises ValueError, a failed
-    capture RuntimeError. `captures` and `replays` are the record of
-    utils.graphs.GraphSet."""
+    capture RuntimeError. `captures` and `replays` are GraphSet's."""
 
     def __init__(self):
-        self._set = GraphSet("the post-opt step")
-        self._steps: Dict[tuple, _StepGraph] = {}
-        self._cuts: Dict[tuple, _CutGraph] = {}
-        self._states: Dict[Any, tuple] = {}  # static state buffers, by their spec
-
-    @property
-    def captures(self):
-        return self._set.captures
-
-    @property
-    def replays(self) -> int:
-        return self._set.replays
+        super().__init__("the post-opt step")
 
     def select(self, ts: HierTrainState, cam, target_size, budget: int) -> HierCut:
         """`select_cut(ts, cam, target_size, budget)` as a graph replay."""
         dev = ts.params.xyz.device
         require_cuda(dev, "the compiled post-opt step", "select_cut and hier_train_step")
-        vp = cam.camera_center
-        key = select_static_key(ts, target_size, budget)
-        g = self._cuts.get(key)
-        if g is None:
-            g = self._cuts[key] = self._capture_cut(ts, target_size, vp, budget)
-        elif not same_tensors(g.packed, ts.packed):
-            raise ValueError("the compiled post-opt step holds the packed hierarchy by reference: "
-                             "use one CompiledHierTrainStep per state")
-        if isinstance(target_size, torch.Tensor):
-            copy_into(g.target, target_size)
-        g.viewpoint.copy_(vp)
-        self._set.replay(g.graph)
-        return g.graph.outputs
+        target = target_size if isinstance(target_size, torch.Tensor) else float(target_size)
 
-    def _capture_cut(self, ts, target_size, vp, budget) -> _CutGraph:
-        num_points = int(ts.params.xyz.shape[0])
-        target = target_size.clone() if isinstance(target_size, torch.Tensor) else float(target_size)
-        viewpoint = vp.clone()
+        def body(_, target, viewpoint):
+            return expand_packed(ts.packed, target, viewpoint, budget=budget, num_points=int(ts.params.xyz.shape[0]))
 
-        def body():
-            return expand_packed(ts.packed, target, viewpoint, budget=budget, num_points=num_points)
-
-        graph = self._set.capture(vp.device, body, body, dict(kind="cut", budget=int(budget)))
-        return _CutGraph(graph=graph, packed=ts.packed, target=target, viewpoint=viewpoint)
+        cut, _ = self.run(select_static_key(ts, target_size, budget), dev, body, (target, cam.camera_center),
+                          held=ts.packed, info=dict(kind="cut", budget=int(budget)))
+        return cut
 
     def __call__(self, ts: HierTrainState, cut: HierCut, cam, gt_image: torch.Tensor, lr_cfg_tree: GaussianParams,
                  raster_cfg: RasterConfig, lambda_dssim: float = 0.2, skybox_count: int = 0,
@@ -439,44 +385,22 @@ class CompiledHierTrainStep:
         require_cuda(dev, "the compiled post-opt step", "hier_train_step")
         key = hier_static_key(ts, cut, cam, gt_image, lr_cfg_tree, raster_cfg, lambda_dssim, skybox_count, frozen,
                               use_exposure, optimize_exposure)
-        written = _written(ts)
-        spec = _spec(written)
-        state = self._states.get(spec)
-        if state is None:
-            state = self._states[spec] = _map(torch.clone, written)
-        inputs = (cut, cam, gt_image, lr_cfg_tree, frozen)
-        g = self._steps.get(key)
-        if g is None:
-            g = self._steps[key] = self._capture_step(ts, state, inputs, raster_cfg, lambda_dssim, skybox_count,
-                                                      use_exposure, optimize_exposure)
-        copy_into(state, written)
-        copy_into(g.inputs, inputs)
+        idx = self.scalar("image_idx", dev, torch.int64)
         if isinstance(image_idx, torch.Tensor):
-            copy_into(g.image_idx, image_idx.reshape(()))
+            copy_into(idx, image_idx.reshape(()))
         else:
-            g.image_idx.fill_(int(image_idx))
-        self._set.replay(g.graph)
-        return ts._replace(**dict(zip(_STEP_FIELDS, state))), g.graph.outputs
+            idx.fill_(int(image_idx))
 
-    def _capture_step(self, ts, state, inputs, raster_cfg, lambda_dssim, skybox_count, use_exposure,
-                      optimize_exposure) -> _StepGraph:
-        static = _map(torch.clone, inputs)
-        image_idx = torch.zeros((), dtype=torch.int64, device=ts.params.xyz.device)
-        statics = dict(raster_cfg=raster_cfg, lambda_dssim=lambda_dssim, skybox_count=skybox_count,
-                       use_exposure=use_exposure, optimize_exposure=optimize_exposure)
-
-        def run(written):
-            cut, cam, gt_image, lrs, frozen = static
+        def body(written, cut, cam, gt_image, lrs, frozen):
             return hier_step_in_place(ts._replace(**dict(zip(_STEP_FIELDS, written))), cut, cam, gt_image, lrs,
-                                      frozen=frozen, image_idx=image_idx, **statics)
+                                      raster_cfg, lambda_dssim, skybox_count, frozen, idx, use_exposure,
+                                      optimize_exposure)
 
-        cut, _, gt_image = inputs[:3]
         info = dict(kind="step", budget=int(cut.valid.shape[0]), image=tuple(gt_image.shape[-2:]),
                     max_instances=raster_cfg.max_instances)
-        # the warm-up steps a scratch copy of the state
-        graph = self._set.capture(ts.params.xyz.device, lambda: run(_map(torch.clone, state)), lambda: run(state),
-                                  info)
-        return _StepGraph(graph=graph, inputs=static, image_idx=image_idx)
+        metrics, state = self.run(key, dev, body, (cut, cam, gt_image, lr_cfg_tree, frozen), state=_written(ts),
+                                  info=info)
+        return ts._replace(**dict(zip(_STEP_FIELDS, state))), metrics
 
 
 def post_optimize(

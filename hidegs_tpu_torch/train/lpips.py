@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from hidegs_tpu_torch.device import DeviceLike, resolve_device
-from hidegs_tpu_torch.utils.graphs import GraphSet, _spec, copy_into, on_card, require_cuda, same_tensors
+from hidegs_tpu_torch.utils.graphs import GraphSet, _spec, on_card, require_cuda
 
 # VGG16 conv layout: (out_channels, num_convs) per block
 VGG16_BLOCKS = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
@@ -93,13 +93,14 @@ def params_to_device(arrays: Dict[str, np.ndarray], device: DeviceLike = "cuda")
     return {k: torch.as_tensor(np.asarray(v, np.float32), device=dev) for k, v in arrays.items()}
 
 
-def _held(params: Params) -> tuple:
-    return tuple(sorted(params)), [params[k] for k in sorted(params)]
+def _held(params: Params) -> List[torch.Tensor]:
+    return [params[k] for k in sorted(params)]
 
 
-class CompiledLpips:
+class CompiledLpips(GraphSet):
     """`lpips(img1, img2)` of the parameter dict `params` captured once per
-    image shape as a CUDA graph and replayed, on a card:
+    image shape as a CUDA graph and replayed, on a card (utils/graphs.py's
+    `GraphSet.run`):
 
       * the key is the `_spec` of the two images (JAX retraces on their
         shapes and dtypes); the images are copied into the graph's static
@@ -107,51 +108,31 @@ class CompiledLpips:
       * the parameters are held by reference, as the JAX package's jitted
         closure holds its constants: the graphs read the tensors the dict
         held when it was given, and a call after the dict changed (another
-        dict, or another tensor under a key) raises ValueError;
+        dict, or another tensor under a key) raises ValueError, whatever
+        device the images are on;
       * the distance is the graph's static 0-d output, valid until the
         next call (evaluate.py reads it at once with `float()`);
       * TF32 stays off (hidegs_tpu_torch/__init__.py); cuDNN picks its
         algorithms in the warm-up.
 
     There is no fallback: images off the card raise ValueError, a failed
-    capture RuntimeError. `captures` and `replays` are the record of
-    utils.graphs.GraphSet."""
+    capture RuntimeError. `captures` and `replays` are GraphSet's."""
 
     def __init__(self, params: Params):
+        super().__init__("LPIPS")
         self.params = params
-        self._held = _held(params)
-        self._set = GraphSet("LPIPS")
-        self._graphs = {}
-
-    @property
-    def captures(self):
-        return self._set.captures
-
-    @property
-    def replays(self) -> int:
-        return self._set.replays
+        self._held = _held(params)  # pinned when given
 
     def __call__(self, img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-        names, tensors = _held(self.params)
-        if names != self._held[0] or not same_tensors(self._held[1], tensors):
-            raise ValueError("compiled LPIPS holds its parameters by reference and they changed: "
-                             "make a new CompiledLpips for other parameters")
+        self._check_held(_held(self.params))
         require_cuda(img1.device, "compiled LPIPS", "lpips_distance")
         images = (img1, img2)
-        key = _spec(images)
-        g = self._graphs.get(key)
-        if g is None:
-            static = tuple(x.clone() for x in images)
 
-            def run():
-                with torch.no_grad():
-                    return lpips_distance(self.params, *static)
+        def body(_, a, b):
+            with torch.no_grad():
+                return lpips_distance(self.params, a, b)
 
-            g = self._graphs[key] = (self._set.capture(img1.device, run, run, dict(image=tuple(img1.shape))),
-                                     static)
-        copy_into(g[1], images)
-        self._set.replay(g[0])
-        return g[0].outputs
+        return self.run(_spec(images), img1.device, body, images, info=dict(image=tuple(img1.shape)))[0]
 
 
 def _fn(params: Params) -> Callable:

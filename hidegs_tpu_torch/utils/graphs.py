@@ -1,12 +1,14 @@
-"""The capture machinery of the port's compiled callables: a callable run
-once per static key as a warm-up and captured as a `torch.cuda.CUDAGraph`,
-then replayed.
+"""The port's compiled callables: a callable captured once per static key
+as a `torch.cuda.CUDAGraph` and replayed on every call.
 
 The JAX package compiles its hot boundaries with `jax.jit`: one XLA
 executable per static key that the host issues with one call. The port's
-counterparts (`train.compiled.CompiledTrainStep`,
-`train.hier_trainer.CompiledHierTrainStep`, `hier.interp.CompiledLodFrame`,
-`raster.compiled.CompiledRender` and the rest) share what is here:
+counterparts subclass `GraphSet`, whose `run` is the one capture-and-replay
+protocol: `train.compiled.CompiledTrainStep` and `CompiledDensify`,
+`parallel.compiled.CompiledDPStep`, `raster.compiled.CompiledRender`,
+`hier.interp.CompiledLodFrame`, `train.hier_trainer.CompiledHierTrainStep`
+and `train.lpips.CompiledLpips`. Each keeps its key function, its body,
+its refusals and what only it does. Here:
 
   * `_map`, `_tensors` and `_spec` walk the NamedTuples, tuples, lists and
     dataclasses of a call's arguments; `_spec` is the static part (each
@@ -14,6 +16,8 @@ counterparts (`train.compiled.CompiledTrainStep`,
     which each callable builds the key `jax.jit` would retrace on;
   * `copy_into` copies the caller's tensors into a graph's static inputs,
     skipping those that already are them (the buffers a replay returned);
+  * `GraphSet.run` checks the tensors held by reference, looks the key up,
+    captures on a miss and replays (its docstring says how);
   * `GraphSet.capture` warms the body up on a side stream (lazy library
     state, the kernels' builds), then captures it; the graphs of one
     `GraphSet` share one memory pool, since they never run at once, and
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List
 
 import torch
@@ -137,17 +142,93 @@ class Graph:
     graph: Any  # torch.cuda.CUDAGraph
     outputs: Any  # what the body returned: static tensors
     launches: Dict[str, int]  # kernel launches recorded into the graph
+    inputs: Any = None  # static copies of the call's inputs (`GraphSet.run`)
+    state: Any = None  # the donated state buffers the graph writes (`GraphSet.run`)
+    info: Any = None  # the summary of the key given to the capture (`GraphSet.run`)
 
 
 class GraphSet:
-    """The graphs of one compiled callable: one memory pool, the record of
-    each capture (`captures`) and the count of replays (`replays`)."""
+    """The graphs of one compiled callable: one graph per static key
+    (`run`), one memory pool, the record of each capture (`captures`) and
+    the count of replays (`replays`). Each compiled callable subclasses it;
+    `capture_error_mode` is `torch.cuda.graph`'s for its captures."""
+
+    capture_error_mode = "global"
 
     def __init__(self, what: str):
         self.what = what
         self._pool = None
         self.captures: List[Dict[str, Any]] = []
         self.replays = 0
+        self._graphs: Dict[Any, Graph] = OrderedDict()  # by static key, oldest first (the render's LRU order)
+        self._states: Dict[Any, Any] = {}  # donated state buffers, by the state's spec
+        self._held = None  # the tensors every graph reads by reference, pinned at the first capture
+        self._scalars: Dict[tuple, torch.Tensor] = {}
+
+    def run(self, key, dev: torch.device, body: Callable[..., Any], inputs: tuple = (), state=None, held=None, *,
+            info: Dict[str, Any]):
+        """Replay the graph of `key`, captured first if the key is new;
+        returns (the graph's outputs, the state buffers or None). The
+        graph runs `body(state, *inputs)`:
+
+          * `held`: tensors the body reads by reference (a model's arrays),
+            never copied. They are pinned at the first capture that holds
+            some and checked on every call, before the key is looked up:
+            other tensors raise ValueError;
+          * on a new key: `_new_key(key, dev)`; the donated state buffers
+            of the state's layout (`_spec(state)`), cloned from `state` at
+            the layout's first key, which every graph of that layout
+            shares; static clones of `inputs`; a warm-up of the body on a
+            scratch clone of `state` and the static inputs; the capture
+            of the body on the buffers and the static inputs, with `info`
+            (`capture`);
+          * on every call: `state` and `inputs` copied into the buffers and
+            the static inputs, except tensors that already are them (the
+            buffers a replay returned), then the replay.
+
+        The returned buffers are donated: the next call's replay writes
+        them again. A body that writes its new state writes it into the
+        buffers it is given."""
+        if held is not None:
+            self._check_held(held)
+        g = self._graphs.get(key)
+        if g is None:
+            self._new_key(key, dev)
+            buffers = None
+            if state is not None:
+                spec = _spec(state)
+                buffers = self._states.get(spec)
+                if buffers is None:
+                    buffers = self._states[spec] = _map(torch.clone, state)
+            static = _map(torch.clone, inputs)
+            g = self.capture(dev, lambda: body(_map(torch.clone, state), *static), lambda: body(buffers, *static),
+                             info, self.capture_error_mode)
+            g = self._graphs[key] = dataclasses.replace(g, inputs=static, state=buffers, info=info)
+            if held is not None and self._held is None:
+                self._held = held
+        if state is not None:
+            copy_into(g.state, state)
+        copy_into(g.inputs, inputs)
+        self.replay(g)
+        return g.outputs, g.state
+
+    def _check_held(self, held) -> None:
+        if self._held is not None and not same_tensors(self._held, held):
+            name = type(self).__name__
+            raise ValueError(f"{name} ({self.what}) reads the tensors it was first given by reference, and this "
+                             f"call gives others: use one {name} for each")
+
+    def _new_key(self, key, dev: torch.device) -> None:
+        """Called for a new key before its capture."""
+
+    def scalar(self, name: str, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+        """The 0-d tensor `name` on `dev` that this set's graphs read by
+        reference: a traced scalar that the caller writes before each
+        call."""
+        t = self._scalars.get((name, dev))
+        if t is None:
+            t = self._scalars[(name, dev)] = torch.zeros((), dtype=dtype, device=dev)
+        return t
 
     def capture(self, dev: torch.device, warmup: Callable[[], Any], body: Callable[[], Any],
                 info: Dict[str, Any], capture_error_mode: str = "global") -> Graph:

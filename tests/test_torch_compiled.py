@@ -40,6 +40,7 @@ from hidegs_tpu_torch.raster.api import RasterConfig
 from hidegs_tpu_torch.train import compiled
 from hidegs_tpu_torch.train import geometric as tgeo
 from hidegs_tpu_torch.train import loop as tl
+from hidegs_tpu_torch.utils import graphs
 
 torch.set_num_threads(1)
 
@@ -223,21 +224,21 @@ def test_captured_body_matches_eager_and_jax(problems, variant):
     jcfg, tcfg = _configs(overrides)
     jts = jl.init_train_state(jax.tree.map(jnp.copy, problem["jstate"]), N_VIEWS)
     eager = _tstate(problem)
-    static = compiled._map(torch.clone, eager)
-    ptrs = [x.data_ptr() for x in compiled._tensors(static)]
+    static = graphs._map(torch.clone, eager)
+    ptrs = [x.data_ptr() for x in graphs._tensors(static)]
     runs = []
     for i, src in views:
         uv = _step_uv(jts, tcfg.multi_view_sample_num) if src is not None else None
         eager, em = tl.train_step(eager, _tbatch(problem, i, src), tcfg, use_exposure, row_budget, uv=uv)
         sm = compiled.step_in_place(static, _tbatch(problem, i, src), tcfg, use_exposure, row_budget, uv=uv)
-        for n, (a, b) in enumerate(zip(compiled._tensors(static), compiled._tensors(eager), strict=True)):
+        for n, (a, b) in enumerate(zip(graphs._tensors(static), graphs._tensors(eager), strict=True)):
             assert torch.equal(a, b), f"{variant}: tensor {n} of the state"
         assert em.keys() == sm.keys() and all(torch.equal(em[k], sm[k]) for k in em), variant
         jts, jm = jl.train_step(jts, _jbatch(problem, i, src), jcfg, use_exposure=use_exposure,
                                 row_budget=row_budget)
         runs.append((jax.tree.map(np.asarray, jts), {k: np.asarray(v) for k, v in jm.items()},
-                     compiled._map(torch.clone, static), sm))
-    assert [x.data_ptr() for x in compiled._tensors(static)] == ptrs, "the step wrote outside the buffers"
+                     graphs._map(torch.clone, static), sm))
+    assert [x.data_ptr() for x in graphs._tensors(static)] == ptrs, "the step wrote outside the buffers"
     assert int(static.step) == K
 
     runs = runs[:held]
@@ -278,10 +279,10 @@ def test_in_place_write_back_is_the_concatenation(problem):
     full = _tstate(problem)
     new, _ = tl.train_step(tl._slice_rows(full, ROW_BUDGET), _tbatch(problem, 1), _configs({})[1])
     want = tl._unslice_rows(full, new)
-    buffers = compiled._map(torch.clone, full)
-    ptrs = {id(x): x.data_ptr() for x in compiled._tensors(buffers)}
+    buffers = graphs._map(torch.clone, full)
+    ptrs = {id(x): x.data_ptr() for x in graphs._tensors(buffers)}
     got = tl._unslice_rows_(buffers, new)
-    for n, (a, b) in enumerate(zip(compiled._tensors(got), compiled._tensors(want), strict=True)):
+    for n, (a, b) in enumerate(zip(graphs._tensors(got), graphs._tensors(want), strict=True)):
         assert torch.equal(a, b), f"tensor {n}"
     row_tensors = (list(got.gaussians.params) + [getattr(got.gaussians, f) for f in tl._ROW_FIELDS]
                    + list(got.opt.m) + list(got.opt.v) + [got.opt.step])
@@ -294,8 +295,6 @@ def test_compiled_step_refuses_a_cpu_state(problem):
     ts, batch, cfg = _tstate(problem), _tbatch(problem, 0), _configs({})[1]
     with pytest.raises(ValueError, match="train_step"):
         compiled.CompiledTrainStep()(ts, batch, cfg)
-    with pytest.raises(ValueError, match="train_step"):
-        compiled.compile_train_step(cfg)(ts, batch)
 
 
 def test_static_key_changes_with_what_jax_retraces_on(problem):
@@ -326,7 +325,7 @@ def test_static_key_changes_with_what_jax_retraces_on(problem):
     assert len(set(changed.values())) == len(changed)
     same = {
         "another view": compiled.static_key(ts, _tbatch(problem, 3), cfg),
-        "other state values": compiled.static_key(compiled._map(lambda x: x + 1 if x.is_floating_point() else x, ts),
+        "other state values": compiled.static_key(graphs._map(lambda x: x + 1 if x.is_floating_point() else x, ts),
                                                   batch, cfg),
         "another generator state": compiled.static_key(ts._replace(mv_generator=torch.Generator().manual_seed(9)),
                                                        batch, cfg),
@@ -342,13 +341,13 @@ def test_copy_in_skips_the_buffers_a_replay_returned(problem):
     """The steady loop passes back the state the last replay returned: no
     tensor is copied. A new tensor (an SH warm-up's degree) is copied in."""
     ts = _tstate(problem)
-    static = compiled._map(torch.clone, ts)
-    assert compiled.copy_into(static, static) == 0
-    n_tensors = len(compiled._tensors(ts))
-    assert compiled.copy_into(static, ts) == n_tensors
+    static = graphs._map(torch.clone, ts)
+    assert graphs.copy_into(static, static) == 0
+    n_tensors = len(graphs._tensors(ts))
+    assert graphs.copy_into(static, ts) == n_tensors
     upped = static._replace(gaussians=static.gaussians._replace(
         active_sh_degree=static.gaussians.active_sh_degree + 1))
     ptr = static.gaussians.active_sh_degree.data_ptr()
-    assert compiled.copy_into(static, upped) == 1
+    assert graphs.copy_into(static, upped) == 1
     assert int(static.gaussians.active_sh_degree) == int(ts.gaussians.active_sh_degree) + 1
     assert static.gaussians.active_sh_degree.data_ptr() == ptr

@@ -2,7 +2,9 @@
 CompiledHierTrainStep, hier/interp.py's CompiledLodFrame) on the CPU: the
 bodies a CUDA graph captures, called without capture on static CPU
 buffers, against the eager functions and the JAX package's jitted ones;
-the static keys; the refusal of a CPU state. The card tests in
+the static keys; the refusal of a CPU state; the arrays the LOD frame and
+the cut hold by reference, on the CPU stand-in for a capture
+(tests/torch_graph_standin.py). The card tests in
 tests/test_torch_cuda.py capture and replay them.
 
 Problems: tests/test_torch_hier_trainer.py's post-opt scene (a 40-leaf
@@ -25,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_graph_standin
 from test_torch_hier import hier_arrays, scene48  # noqa: F401  (scene48: a fixture)
 from test_torch_hier_trainer import TCFG, _cut_target, assert_runs_match, host_state, problem  # noqa: F401
 
@@ -289,6 +292,51 @@ def test_compiled_callables_refuse_a_cpu_state(problem, scene48):  # noqa: F811
     with torch.no_grad():
         out = r.render(tcam, 3.0)
     assert int(out["overflow"]) == 0 and int(out["num_selected"]) > 0
+
+
+@pytest.mark.parametrize("boundary", ["lod frame", "cut"])
+def test_held_arrays_are_refused_on_any_key(problem, scene48, monkeypatch, boundary):  # noqa: F811
+    """The LOD frame's hierarchy arrays and the cut's packed hierarchy are
+    held by reference: replays equal the eager function; other tensors
+    for them raise, on the captured key and on a new key, and capture
+    nothing; the held tensors then capture the new key."""
+    torch_graph_standin.install(monkeypatch, tinterp, tht)
+    if boundary == "lod frame":
+        h, _, tcam = scene48
+        (tn, tb, *tarr), _ = hier_arrays(h)
+        packed, attrs = tlod.pack_hierarchy(tn, tb), tinterp.pack_attributes(*tarr)
+        comp, budget = tinterp.CompiledLodFrame(), 256
+        kw = dict(num_points=h.num_points, config=RasterConfig(max_instances=1 << 13))
+
+        def call(budget, attrs=attrs):
+            return comp(packed, torch.tensor(0.02), tcam, *tarr, budget=budget, attrs=attrs, **kw)
+
+        def eager(budget):
+            return tinterp.CompiledLodFrame.body(packed, torch.tensor(0.02), tcam, *tarr, budget=budget, attrs=attrs,
+                                                 **kw)
+
+        other = dict(attrs=attrs.clone())
+    else:
+        args = _post_opt_call(problem)
+        ts, cam, target = args["ts"], args["cam"], _cut_target(problem[1][0])
+        comp, budget = tht.CompiledHierTrainStep(), BUDGET
+
+        def call(budget, ts=ts):
+            return comp.select(ts, cam, target, budget)
+
+        def eager(budget):
+            return tht.select_cut(ts, cam, target, budget)
+
+        other = dict(ts=ts._replace(packed=graphs._map(torch.clone, ts.packed)))
+    for b in (budget, budget, 2 * budget):
+        if b == 2 * budget:
+            for new_key in (False, True):
+                with pytest.raises(ValueError, match="by reference"):
+                    call(2 * budget if new_key else budget, **other)
+            assert len(comp.captures) == 1 and comp.replays == 2
+        got, want = graphs._tensors(call(b)), graphs._tensors(eager(b))
+        assert len(got) == len(want) and all(torch.equal(x, y) for x, y in zip(got, want)), (boundary, b)
+    assert [c["budget"] for c in comp.captures] == [budget, 2 * budget] and comp.replays == 3
 
 
 def test_same_tensors_is_memory_identity():

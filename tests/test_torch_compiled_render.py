@@ -184,7 +184,8 @@ def test_camera_and_background_are_copied_in(scene, monkeypatch):
 def test_model_arrays_are_held_by_reference(scene, monkeypatch):
     """The graphs read the first call's arrays: an in-place change to them
     shows in the next replay (the eager render of the changed arrays,
-    bitwise); clones of them, or other colors_precomp, raise."""
+    bitwise); clones of them, or other colors_precomp, raise, on the
+    captured key and on a new one."""
     torch_graph_standin.install(monkeypatch, compiled)
     arrays = tuple(a.clone() for a in scene)
     comp = compiled.CompiledRender()
@@ -198,6 +199,8 @@ def test_model_arrays_are_held_by_reference(scene, monkeypatch):
         comp(*(a.clone() for a in arrays), cam, config=CONFIGS[16])
     with pytest.raises(ValueError, match="by reference"):
         comp(*arrays, cam, colors_precomp=torch.zeros((arrays[0].shape[0], 3)), config=CONFIGS[16])
+    with pytest.raises(ValueError, match="by reference"):  # a new key: nothing is captured
+        comp(*(a.clone() for a in arrays), cam, config=CONFIGS[32])
     assert len(comp.captures) == 1 and comp.replays == 2
 
 

@@ -569,6 +569,7 @@ def test_compiled_step_is_bitwise_the_eager_step(cuda, variant):
     kernel, one masked Adam) to REPLAY_LAUNCHES and none to the launchers' counters."""
     from hidegs_tpu_torch.train import compiled
     from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.utils import graphs
 
     ts, cfg, use_exposure, row_budget, batches = _compiled_variant(cuda, variant)
     step = compiled.CompiledTrainStep()
@@ -577,23 +578,23 @@ def test_compiled_step_is_bitwise_the_eager_step(cuda, variant):
     ptrs = None
     for k, batch in enumerate(batches):
         eager, em = tl.train_step(eager, batch, cfg, use_exposure, row_budget)
-        replays = dict(compiled.REPLAY_LAUNCHES)
+        replays = dict(graphs.REPLAY_LAUNCHES)
         counts = _counts()
         comp, cm = step(comp, batch, cfg, use_exposure, row_budget)
         torch.cuda.synchronize()
         if k > 0:
             assert _counts() == counts, "a replay went through the launchers"
-        assert {n: compiled.REPLAY_LAUNCHES[n] - replays[n] for n in replays} == dict(
-            dict.fromkeys(compiled.KERNELS, per_step), masked_adam=1)
-        for n, (a, b) in enumerate(zip(compiled._tensors(comp), compiled._tensors(eager), strict=True)):
+        assert {n: graphs.REPLAY_LAUNCHES[n] - replays[n] for n in replays} == dict(
+            dict.fromkeys(graphs.KERNELS, per_step), masked_adam=1)
+        for n, (a, b) in enumerate(zip(graphs._tensors(comp), graphs._tensors(eager), strict=True)):
             assert torch.equal(a, b), f"{variant} step {k}: tensor {n} of the state"
         assert em.keys() == cm.keys() and all(torch.equal(em[m], cm[m]) for m in em), variant
         assert torch.equal(comp.mv_generator.get_state(), eager.mv_generator.get_state())
-        now = [x.data_ptr() for x in compiled._tensors(comp)]
+        now = [x.data_ptr() for x in graphs._tensors(comp)]
         assert ptrs is None or now == ptrs, "the replay returned other buffers"
         ptrs = now
     assert float(cm["step_ok"]) == 1.0 and len(step.captures) == 1 and step.replays == 3
-    assert step.captures[0]["launches"] == dict(dict.fromkeys(compiled.KERNELS, per_step), masked_adam=1)
+    assert step.captures[0]["launches"] == dict(dict.fromkeys(graphs.KERNELS, per_step), masked_adam=1)
     if variant == "compaction":
         assert int(cm["num_visible"]) > 0 and int(cm["visible_overflow"]) >= 0
     if variant == "multi-view":
@@ -628,6 +629,7 @@ def test_a_key_change_recaptures_and_keeps_the_old_graph(cuda):
 
     from hidegs_tpu_torch.train import compiled
     from hidegs_tpu_torch.train import loop as tl
+    from hidegs_tpu_torch.utils import graphs
 
     ts, batches, cfg = _train_problem(cuda)
     wide = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster, max_instances=2 * cfg.raster.max_instances))
@@ -638,7 +640,7 @@ def test_a_key_change_recaptures_and_keeps_the_old_graph(cuda):
     for c, batch in ((cfg, batches[2]), (wide, batches[3])):
         e, em = tl.train_step(ts, batch, c)
         k, km = step(ts, batch, c)  # a state of the caller's: copied in
-        for n, (a, b) in enumerate(zip(compiled._tensors(k), compiled._tensors(e), strict=True)):
+        for n, (a, b) in enumerate(zip(graphs._tensors(k), graphs._tensors(e), strict=True)):
             assert torch.equal(a, b), f"max_instances {c.raster.max_instances}: tensor {n}"
         assert all(torch.equal(em[m], km[m]) for m in em)
     assert len(step.captures) == 2 and step.replays == 4
@@ -931,7 +933,7 @@ def test_a_new_lod_budget_captures_a_new_key_and_keeps_the_old_graph(cuda):
 def test_compiled_lod_frame_replay_makes_no_host_sync(cuda):
     """After the capture, replays of the frame (other cameras, a tensor
     target) under set_sync_debug_mode("error"); a frame of another
-    hierarchy's arrays is refused."""
+    hierarchy's arrays is refused, on the captured key and on a new one."""
     from hidegs_tpu_torch.hier.interp import CompiledLodFrame
 
     h, cam = _lod_problem(cuda)
@@ -950,8 +952,11 @@ def test_compiled_lod_frame_replay_makes_no_host_sync(cuda):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert int(out["num_selected"]) > 0 and len(frame.captures) == 1 and frame.replays == 4
-        with pytest.raises(ValueError, match="by reference"):
-            frame(r._packed, r.target_size(cam, 2.0), cam, *r.arrays, **dict(args, attrs=r._attrs.clone()))
+        for budget in (1 << 12, 1 << 13):  # the captured key and a new one
+            with pytest.raises(ValueError, match="by reference"):
+                frame(r._packed, r.target_size(cam, 2.0), cam, *r.arrays,
+                      **dict(args, budget=budget, attrs=r._attrs.clone()))
+        assert len(frame.captures) == 1
 
 
 @pytest.mark.cuda
@@ -1426,18 +1431,18 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
 
     from hidegs_tpu_torch import pipeline
     from hidegs_tpu_torch.hier import io as hio
-    from hidegs_tpu_torch.train import compiled
+    from hidegs_tpu_torch.utils import graphs
     from torch_scenes import write_two_cluster_scene
 
     src = write_two_cluster_scene(tmp_path / "scene")
     out = str(tmp_path / "out")
-    before, replays = _counts(), tuple(compiled.REPLAY_LAUNCHES[k] for k in compiled.ALL_KERNELS)
+    before, replays = _counts(), tuple(graphs.REPLAY_LAUNCHES[k] for k in graphs.ALL_KERNELS)
     pipeline.run_pipeline(src, out, chunk_size=14.0, min_n_cams=3, iterations=3, post_opt_iterations=3,
                           capacity=256, max_instances=1 << 12, add_far_cams=False, log_every=1000,
                           eval_taus=(0.0, 3.0), device="cuda")
     torch.cuda.synchronize()
     fwd, bwd, fold = (x - y for x, y in zip(_counts(), before))
-    replayed = tuple(compiled.REPLAY_LAUNCHES[k] - r for k, r in zip(compiled.ALL_KERNELS, replays))
+    replayed = tuple(graphs.REPLAY_LAUNCHES[k] - r for k, r in zip(graphs.ALL_KERNELS, replays))
     meta = json.load(open(os.path.join(out, "pipeline.json")))
     assert len(meta["chunks"]) == 2 and len(meta["lod_eval"]) == 2
     n_eval = 2 * 8  # two taus, eight of the ten views

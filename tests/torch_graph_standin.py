@@ -8,8 +8,8 @@ imported it by name) and turns each capture into a `Graph` whose
 `replay()` runs the body again and copies its result into the outputs of
 the capture's own run; the launch counts move as a real capture's and
 replay's do. A real capture records the body without running
-it; the stand-in runs it once, which writes the static buffers, and every
-compiled callable copies the caller's state into those buffers after a
+it; the stand-in runs it once, which writes the static buffers, and
+`GraphSet.run` copies the caller's state into those buffers after a
 capture, so that run leaves no trace in the results.
 """
 import torch
