@@ -108,7 +108,9 @@ Phases (run in the order of `main`):
      cut sizes do not rise with tau; num_selected equals the count pass;
      the eager tau=6 frame's forward kernel against the plain blend on the
      frame's own rows and binning at phase 4's gates; two eager and two
-     compiled tau=6 frames bitwise equal; no overflow. Prints the cut,
+     compiled tau=6 frames bitwise equal; the interpolation forward kernel
+     on the eager tau=6 frame's cut (through interpolate_cut) bitwise
+     interpolate_plain; no overflow. Prints the cut,
      budget and instances per view and tau, ms per LOD frame of both modes
      (CUDA events, median of 10 after 2 warm-ups), the host ms per compiled
      frame, the four stages (count, select, interpolate, render) timed
@@ -130,7 +132,13 @@ Phases (run in the order of `main`):
      PSNR (mean of the views) above the perturbed start's; the last step's
      blend node held against the plain versions on its own rows, binning
      and cotangents (forward planes and observe at phase 4's gates,
-     backward + fold with `hold_backward`); two eager steps from one state
+     backward + fold with `hold_backward`); the last step's interpolation
+     node (`hold_interp`: its cut, B = 2^21 slots over the 2,020,479 rows,
+     and the render's gradients of its five outputs): both kernels bitwise
+     interpolate_plain and interp_plain_bwd, one launch a call, the node's
+     gradient of the rows bitwise the plain rows' sorted sums, both kernels
+     timed in turns with their plain versions beside their bytes bounds
+     (`interp_bytes`: each distinct row read once); two eager steps from one state
      bitwise equal; an eager step and three compiled iterations under
      set_sync_debug_mode("error"); hierarchy_from_state written as .hier
      and read back equal. Prints ms per step of both modes (CUDA events,
@@ -275,9 +283,10 @@ Phases (run in the order of `main`):
      workers' launches are theirs). Checks: 9 chunks, finite chunk, merged
      and post-optimized hierarchies, the workers run the port on the
      card with the coarse scaffold and the chunk-box cull, one replayed
-     launch of each kernel per coarse and post-opt step (both compiled) and
-     the warm-up's per capture, one forward per (τ, view) of the eval and
-     nothing else in the parent,
+     launch of each kernel per coarse and post-opt step (both compiled; the
+     interpolation's in the post-opt step only) and the warm-up's per
+     capture, one forward blend and one interpolation forward per (τ, view)
+     of the eval and nothing else in the parent,
      `hier.cli merge` bitwise merged.hier, `hier.cli create --cameras` on
      chunk 0, ChunkStreamer over the chunks, the mean cut not rising with
      τ. Prints the seconds per stage, the merged size, PSNR and cut per τ,
@@ -317,17 +326,21 @@ Phases (run in the order of `main`):
      `python -m hidegs_tpu_torch.parallel --nproc 1 --backend nccl` and
      `--nproc 4 --backend gloo --device cuda` pass their asserts.
 
-Every launch gate counts the six kernels (chip_smoke.KERNEL_NAMES): a
-render launches a preprocess forward beside its forward blend, a
-differentiated render a preprocess backward beside its backward blend,
-and every train, post-opt and view-parallel step one masked Adam
-(`per_kernel`); a render or a LOD frame launches none.
+Every launch gate counts the eight kernels (chip_smoke.KERNEL_NAMES,
+utils/graphs.py:ALL_KERNELS): a render launches a preprocess forward
+beside its forward blend, a differentiated render a preprocess backward
+beside its backward blend, every train, post-opt and view-parallel step
+one masked Adam, every LOD frame, pipeline LOD eval view and post-opt step
+one interpolation forward and every post-opt step one interpolation
+backward (`per_kernel`); a render launches no masked Adam, a train step no
+interpolation.
 Prints a `{"kernels": [...]}` line and, last, the `{"ok": true, ...}` line.
 In the kernels line, `ms`, `plain_ms`, `bound_ms` and `library_ms` come from
 the render cell (phase 5: blend_fwd; 5p: preprocess_fwd), the train path
 (phase 11: blend_bwd, fold_rows; 10p: preprocess_bwd) and phase 1a
 (masked_adam: the post-opt cell's rows, with `in_place_ms` and the train
-row budget's `train_ms` and `train_plain_ms` beside them); `launches` is the train path's count (phase 8), as
+row budget's `train_ms` and `train_plain_ms` beside them) and phase 6b
+(interp_fwd, interp_bwd: the last post-opt step's cut); `launches` is the train path's count (phase 8), as
 in earlier slices; `launches_by_path` holds the count of every path (render,
 render_compiled (phase 6r: replays and warm-ups), serve (replays and
 warm-ups), train, train_compiled (phase 11a: replays and warm-ups), trainer,
@@ -345,7 +358,8 @@ nodes of a multi-view step), 6b (all three, the post-opt step) and 15
 (all three, the four nodes of a view-parallel step) for the blends, and
 5p (preprocess_fwd, with `radius_flips`: flipped rows and rows held) and
 10p (preprocess_bwd, with `grad_err_of_max`) for the preprocess kernels;
-masked_adam's is 0 (phases 1a and 15 hold it bitwise).
+masked_adam's is 0 (phases 1a and 15 hold it bitwise), and so are
+interp_fwd's and interp_bwd's (phases 6a and 6b).
 Each blend entry has a `bf16` object from
 phase 10a: the bf16 mode's `ms` (median of its two turns), the float32
 kernel's time in the same turns (`f32_ms_in_turns`), `plain_ms`,
@@ -376,7 +390,7 @@ import torch
 
 BLEND_TOL = dict(atol=3e-4, rtol=1e-3)  # the JAX suite's Pallas-vs-plain tolerance
 KERNEL_NAMES = ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd",
-                "masked_adam")  # utils/graphs.py:ALL_KERNELS
+                "masked_adam", "interp_fwd", "interp_bwd")  # utils/graphs.py:ALL_KERNELS
 PLANE_KEYS = ["render", "invdepth", "alpha", "T_final", "normal", "distance"]
 RENDER_KEYS = ["render", "invdepth", "alpha", "T_final", "rendered_normal", "rendered_distance"]
 
@@ -503,6 +517,7 @@ def time_per_launch_ms(fn, launches=20, warmup=WARMUP, iters=ITERS):
 
 
 def reset_counts():
+    from hidegs_tpu_torch.hier import interp_autograd
     from hidegs_tpu_torch.model import adam
     from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
     from hidegs_tpu_torch.utils import graphs
@@ -510,17 +525,20 @@ def reset_counts():
     cuda_blend.LAUNCHES = cuda_blend.BWD_LAUNCHES = cuda_blend.FOLD_LAUNCHES = 0
     preprocess_autograd.FWD_LAUNCHES = preprocess_autograd.BWD_LAUNCHES = 0
     adam.LAUNCHES = 0
+    interp_autograd.FWD_LAUNCHES = interp_autograd.BWD_LAUNCHES = 0
     graphs.REPLAY_LAUNCHES.update(dict.fromkeys(graphs.REPLAY_LAUNCHES, 0))
 
 
 def direct_counts():
     """The launchers' own counts (kernel by kernel, KERNEL_NAMES' order),
     which a graph replay does not reach."""
+    from hidegs_tpu_torch.hier import interp_autograd
     from hidegs_tpu_torch.model import adam
     from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
 
     return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES,
-            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES, adam.LAUNCHES)
+            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES, adam.LAUNCHES,
+            interp_autograd.FWD_LAUNCHES, interp_autograd.BWD_LAUNCHES)
 
 
 def replay_counts():
@@ -528,7 +546,7 @@ def replay_counts():
     step and LOD frame: utils/graphs.py's one count)."""
     from hidegs_tpu_torch.utils import graphs
 
-    return tuple(graphs.REPLAY_LAUNCHES[k] for k in graphs.ALL_KERNELS)
+    return tuple(graphs.REPLAY_LAUNCHES[k] for k in KERNEL_NAMES)
 
 
 def read_counts():
@@ -537,13 +555,16 @@ def read_counts():
     return dict(zip(KERNEL_NAMES, (a + b for a, b in zip(direct_counts(), replay_counts()))))
 
 
-def per_kernel(fwd, bwd, steps=0):
-    """The six kernels' launches on a path where every render blends with
+def per_kernel(fwd, bwd, steps=0, cuts=0, cut_grads=0):
+    """The eight kernels' launches on a path where every render blends with
     the kernels: `fwd` renders (a forward blend and a preprocess forward
     each), `bwd` of them differentiated (a backward blend, a fold and a
-    preprocess backward each), and `steps` optimizer steps (one masked
-    Adam each, whatever the views a step renders)."""
-    return (fwd, bwd, bwd, fwd, bwd, steps)
+    preprocess backward each), `steps` optimizer steps (one masked Adam
+    each, whatever the views a step renders), and `cuts` interpolated LOD
+    cuts (one interpolation forward each: a LOD frame, a post-opt step),
+    `cut_grads` of them differentiated (one interpolation backward each: a
+    post-opt step)."""
+    return (fwd, bwd, bwd, fwd, bwd, steps, cuts, cut_grads)
 
 
 def kernel_dict(counts):
@@ -588,7 +609,9 @@ def profile_device(fn, label):
 def phase_environment():
     from hidegs_tpu_torch import kernel_sources
     from hidegs_tpu_torch.raster import cuda_blend
+    from hidegs_tpu_torch.utils import graphs
 
+    check(KERNEL_NAMES == graphs.ALL_KERNELS, f"chip_smoke counts {KERNEL_NAMES}, the package {graphs.ALL_KERNELS}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -3372,13 +3395,15 @@ def frame_calls(calls):
 
 def check_frame_launches(calls, launches, replays, n_frames, mode, what):
     """The gate on a LOD path's launches: exactly one call per frame in
-    `mode`, one forward blend per frame (a launch through the launcher per
-    eager frame; a replayed launch per compiled frame, and the warm-up's
-    launch per capture), nothing else."""
+    `mode`, one forward blend and one interpolation forward per frame (a
+    launch through the launcher per eager frame; a replayed launch per
+    compiled frame, and the warm-up's launch per capture), nothing else."""
     captures = sum(n for _, n in calls)
     direct = {k: launches[k] - replays[k] for k in launches}
-    want_direct = kernel_dict(per_kernel(n_frames if mode == "eager" else captures, 0))
-    want_replays = kernel_dict(per_kernel(0 if mode == "eager" else n_frames, 0))
+    n_direct = n_frames if mode == "eager" else captures
+    n_replayed = 0 if mode == "eager" else n_frames
+    want_direct = kernel_dict(per_kernel(n_direct, 0, 0, n_direct))
+    want_replays = kernel_dict(per_kernel(n_replayed, 0, 0, n_replayed))
     check(len(calls) == n_frames and all(m == mode for m, _ in calls) and direct == want_direct
           and replays == want_replays,
           f"{what}: {len(calls)} {sorted(set(m for m, _ in calls))} cut-and-render calls, launches {direct} through "
@@ -3405,6 +3430,81 @@ def lod_stages(r, cam, tau):
         "interpolate": lambda: interpolate_cut(cut, *r.arrays, attrs=r._attrs),
         "render": lambda: render(*ig, cam, config=cfg),
     }
+
+
+def int_bits(x):
+    """The float32 tensor `x` as its int32 bit patterns (tells -0 from +0)."""
+    return x.contiguous().view(torch.int32)
+
+
+def interp_bytes(ri, pi, W):
+    """(forward, backward) bytes the interpolation kernels need on the
+    slots (ri, pi) of a (P, W) attribute matrix: every distinct row of ri
+    and pi read once (the forward all W floats, the backward the
+    quaternion and opacity columns, 5 floats); per slot ri, pi, t, kids and
+    valid read; per slot the forward's W output floats written, the
+    backward's W output-gradient floats read and its two W-float gradient
+    rows written."""
+    B = ri.shape[0]
+    rows = int(torch.unique(torch.cat([ri, pi])).numel())
+    slot = 8 + 8 + 4 + 4 + 1
+    return rows * 4 * W + B * (slot + 4 * W), rows * 4 * 5 + B * (slot + 3 * 4 * W)
+
+
+def hold_interp(slots, grads, what, rows_grad=None):
+    """The interpolation kernels (hier/csrc/interp.cu) on one cut's slots
+    (attrs, ri, pi, ts, kids, valid, sh_shape) and its outputs' gradients
+    `grads`: launch_interp_fwd bitwise interpolate_plain and
+    launch_interp_bwd bitwise interp_plain_bwd, one launch a call;
+    `rows_grad` (the InterpolateRows node's gradient of attrs), where
+    given, bitwise the two accumulate_rows of interp_plain_bwd's rows,
+    summed. Then both kernels in turns with their plain versions (CUDA
+    events, two turns, the order reversed on the second), beside their
+    bytes bounds (`interp_bytes`)."""
+    from hidegs_tpu_torch.hier import interp_autograd as ia
+
+    attrs, ri, pi = slots[:3]
+    B, W = ri.shape[0], attrs.shape[1]
+    want = ia.interpolate_plain(*slots)
+    out = [torch.empty_like(x) for x in want]
+    grad_c, grad_p = (torch.empty(B, W, device=attrs.device) for _ in range(2))
+    n0 = (ia.FWD_LAUNCHES, ia.BWD_LAUNCHES)
+    ia.launch_interp_fwd(*slots[:6], out)
+    ia.launch_interp_bwd(*slots[:6], grads, grad_c, grad_p)
+    check((ia.FWD_LAUNCHES - n0[0], ia.BWD_LAUNCHES - n0[1]) == (1, 1),
+          f"{what}: {ia.FWD_LAUNCHES - n0[0]} forward and {ia.BWD_LAUNCHES - n0[1]} backward interpolation launches "
+          f"for one call of each")
+    want_c, want_p = ia.interp_plain_bwd(*slots[:6], *grads)
+    names = ("means", "scales", "quats", "opacity", "sh", "grad_c", "grad_p")
+    pairs = list(zip(names, (*out, grad_c, grad_p), (*want, want_c, want_p), strict=True))
+    err = max(max_abs_err(x, y) for _, x, y in pairs)
+    bad = [n for n, x, y in pairs if not torch.equal(int_bits(x), int_bits(y))]
+    check(not bad, f"{what}: the interpolation kernels differ from the plain versions in {bad} (max abs err {err:.3e})")
+    if rows_grad is not None:
+        rows = ia.accumulate_rows(attrs, ri, want_c).add_(ia.accumulate_rows(attrs, pi, want_p))
+        check(torch.equal(int_bits(rows_grad), int_bits(rows)),
+              f"{what}: the InterpolateRows node's gradient of attrs is not bitwise the plain rows' sums")
+        del rows
+    del want, want_c, want_p
+    fwd_bytes, bwd_bytes = interp_bytes(ri, pi, W)
+    fns = {"fwd": lambda: ia.launch_interp_fwd(*slots[:6], out), "fwd_plain": lambda: ia.interpolate_plain(*slots),
+           "bwd": lambda: ia.launch_interp_bwd(*slots[:6], grads, grad_c, grad_p),
+           "bwd_plain": lambda: ia.interp_plain_bwd(*slots[:6], *grads)}
+    turns = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            turns[k].append(time_ms(fns[k]))
+            torch.cuda.empty_cache()
+    t = {f"{k}_ms": statistics.median(v) for k, v in turns.items()}
+    t.update(fwd_bound_ms=fwd_bytes / HBM_BYTES_S * 1e3, bwd_bound_ms=bwd_bytes / HBM_BYTES_S * 1e3, err=err,
+             B=B, P=attrs.shape[0], valid=int(slots[5].sum()))
+    print(f"[interp] {what}: B = {B:,} slots ({t['valid']:,} valid), P = {t['P']:,} rows: both kernels bitwise the "
+          f"plain versions (outputs, both gradient rows" + (", the rows' sums" if rows_grad is not None else "")
+          + f"), one launch each; CUDA events, median of {ITERS} after {WARMUP}, two turns: forward "
+          f"{t['fwd_ms']:.4f} ms ({t['fwd_bound_ms'] / t['fwd_ms']:.1%} of its {t['fwd_bound_ms']:.4f} ms bytes "
+          f"bound), plain {t['fwd_plain_ms']:.3f} ms; backward {t['bwd_ms']:.4f} ms "
+          f"({t['bwd_bound_ms'] / t['bwd_ms']:.1%} of {t['bwd_bound_ms']:.4f} ms), plain {t['bwd_plain_ms']:.3f} ms")
+    return t
 
 
 def phase_hierarchy(scene, cams, h):
@@ -3513,6 +3613,25 @@ def phase_hierarchy(scene, cams, h):
           f"on {n_diff} of {n_rows} rows; two eager and two compiled frames bitwise equal")
     del kept, pre, tb, p, a, b, ca, cb
 
+    # the interpolation forward kernel on the same frame's cut, through
+    # interpolate_cut, against the plain expression
+    from hidegs_tpu_torch.hier import interp as hi
+    from hidegs_tpu_torch.hier import interp_autograd as ia
+
+    with torch.no_grad():
+        cut = lod.expand_packed(e._packed, e.target_size(cams[0], LOD_HOLD_TAU), cams[0].camera_center,
+                                budget=e._budget, num_points=e.num_points)
+        got = hi.interpolate_cut(cut, *e.arrays, attrs=e._attrs)
+        want = ia.interpolate_plain(e._attrs, *hi.slot_rows(cut, e.num_points), cut.ts, cut.kids, cut.valid,
+                                    e.arrays[4].shape[1:])
+    interp_err = max(max_abs_err(x, y) for x, y in zip(got, want, strict=True))
+    check(all(torch.equal(int_bits(x), int_bits(y)) for x, y in zip(got, want)),
+          f"hierarchy tau={LOD_HOLD_TAU:g}: interpolate_cut's kernel differs from interpolate_plain "
+          f"(max abs err {interp_err:.3e})")
+    print(f"[hier] tau={LOD_HOLD_TAU:g} cut, view 0 ({int(cut.valid.sum())} of {cut.valid.shape[0]} slots valid): "
+          f"interpolate_cut's forward kernel bitwise interpolate_plain")
+    del cut, got, want
+
     # ms per LOD frame of both renderers and the four stages, view 0; the
     # device busy share of both at tau 0 and 6
     times = {}
@@ -3546,7 +3665,7 @@ def phase_hierarchy(scene, cams, h):
     print(f"[hier] {len(r.compiled.captures)} captures, {r.compiled.replays} replays in the renderer's "
           f"CompiledLodFrame; the graph pool grew by {pool:.3f} GiB over its captures")
     result = dict(launches=launches["eager"], compiled_launches=launches["compiled"], err=err, times=times, cuts=cuts,
-                  captures=len(r.compiled.captures), pool_gib=pool)
+                  captures=len(r.compiled.captures), pool_gib=pool, interp_err=interp_err)
     del r, e
     torch.cuda.empty_cache()
     return result
@@ -3908,8 +4027,8 @@ def phase_post_opt(h, cams, targets):
             d = tuple(b - a for a, b in zip(d1, direct_counts()))
             r = tuple(b - a for a, b in zip(r1, replay_counts()))
             captured = [c["kind"] for c in self.captures[n_caps:]]
-            check(eager == per_kernel(1, 1, 1), f"post-opt step {k}: the eager step launched {eager}")
-            check(r == per_kernel(1, 1, 1) and d == per_kernel(*(1, 1, 1) if "step" in captured else (0, 0)),
+            check(eager == per_kernel(1, 1, 1, 1, 1), f"post-opt step {k}: the eager step launched {eager}")
+            check(r == per_kernel(1, 1, 1, 1, 1) and d == per_kernel(*(1,) * 5 if "step" in captured else (0, 0)),
                   f"post-opt step {k}: replayed launches {r}, the launchers' {d} (captured {captured})")
             path["eager"] = tuple(a + b for a, b in zip(path["eager"], eager))
             path["compiled"] = tuple(a + b + c for a, b, c in zip(path["compiled"], d, r))
@@ -3939,14 +4058,14 @@ def phase_post_opt(h, cams, targets):
     losses = torch.stack(losses).tolist()
     counters = torch.stack(counters).sum(0).tolist()
     n_step_captures = sum(c["kind"] == "step" for c in comp.captures)
-    want_compiled = per_kernel(*(POST_OPT_ITERS + n_step_captures,) * 3)
+    want_compiled = per_kernel(*(POST_OPT_ITERS + n_step_captures,) * 5)
     print(f"[post-opt] launches: {path['compiled']} on the compiled path ({POST_OPT_ITERS} steps: replays and "
           f"{n_step_captures} capture's warm-up), {path['eager']} of the eager steps held beside them; losses "
           f"{losses[0]:.4f} → {losses[-1]:.4f}; budget counters (overflow, block, visible; the graph's outputs) "
           f"summed {counters}; {1e3 * wall / POST_OPT_ITERS:.1f} ms per held iteration on the host clock (an eager "
           f"and a compiled step, the checks), peak device memory {peak_gb:.2f} GiB")
     check(diverged == [], f"post-opt: the compiled and eager steps part: {diverged}")
-    check(path["eager"] == per_kernel(POST_OPT_ITERS, POST_OPT_ITERS, POST_OPT_ITERS)
+    check(path["eager"] == per_kernel(*(POST_OPT_ITERS,) * 5)
           and path["compiled"] == want_compiled
           and tuple(launches.values()) == tuple(a + b for a, b in zip(path["eager"], want_compiled)),
           f"post-opt launches {path}, {launches} in all; expected one of each kernel per eager step and per replay, "
@@ -3971,9 +4090,23 @@ def phase_post_opt(h, cams, targets):
     node = find_node(loss.grad_fn, "BlendPackedBackward")
     got = {}
     handles = keep_backward_inputs(node, got)
+    inode, igot = find_node(loss.grad_fn, "InterpolateRowsBackward"), {}
+
+    def keep_interp(grad_outputs):
+        igot.update(slots=tuple(x.detach() for x in inode.saved_tensors),
+                    grads=[None if g is None else g.contiguous() for g in grad_outputs])
+
+    def keep_interp_result(grad_inputs, _grad_outputs):
+        igot.update(rows=grad_inputs[0])
+
+    handles += (inode.register_prehook(keep_interp), inode.register_hook(keep_interp_result))
     tl.step_backward(loss, inputs)
     for hd in handles:
         hd.remove()
+    check(all(g is not None for g in igot["grads"]), "post-opt: an interpolated array had no gradient")
+    interp_k = hold_interp((*igot["slots"], igot["grads"][4].shape[1:]), igot["grads"], "post-opt, last step's cut",
+                           rows_grad=igot["rows"])
+    del inode, igot
     ty, tx, tile, max_blocks, _ = got["args"]
     fwd_err = hold_node_forward(got, "post-opt, last step", tag="post-opt-hold")
     held = hold_backward(got["attrs"], got["tb"], got["count"], got["tile_out"], got["g_tiles"], ty, tx, tile,
@@ -4084,8 +4217,8 @@ def phase_post_opt(h, cams, targets):
     del comp, steady, state, ts, ts0
     torch.cuda.empty_cache()
     return dict(launches=dict(zip(launches, path["eager"])), compiled_launches=dict(zip(launches, path["compiled"])),
-                fwd_err=fwd_err, err=held["err"], fold_err=held["fold_err"], step_ms=step_ms, compiled_ms=compiled_ms,
-                host_ms=host_ms, split=split, psnr=(psnr_before, psnr_after), profiles=profiles, pool_gib=pool)
+                fwd_err=fwd_err, err=held["err"], fold_err=held["fold_err"], interp=interp_k, step_ms=step_ms,
+                compiled_ms=compiled_ms, host_ms=host_ms, split=split, psnr=(psnr_before, psnr_after), profiles=profiles, pool_gib=pool)
 
 
 PIPE_SCENE = dict(n_ground=60_000, n_structs=96, seed=7, extent_xy=24.0)  # benchmarks/largescene_run.py:21-40
@@ -4260,11 +4393,14 @@ def phase_pipeline(dev):
           f"pipeline: captures {[(c['what'], c['launches'], c['warmup_launches']) for c in captures]}")
     warm = {stage: tuple(sum(c["warmup_launches"][k] for c in captures if c["what"] == what)
                          for k in KERNEL_NAMES) for stage, what in kinds.items()}
-    for stage, steps in (("coarse", PIPE_COARSE), ("post-opt", PIPE_POST)):
-        check(replayed.get(stage) == per_kernel(steps, steps, steps),
-              f"pipeline: the {stage} stage replayed {replayed.get(stage)} launches, expected {steps} of each")
-    want = {"coarse": tuple(PIPE_COARSE + w for w in warm["coarse"]),
-            "post-opt": tuple(PIPE_POST + w for w in warm["post-opt"]), "eval": per_kernel(n_eval, 0)}
+    # (the post-opt step interpolates its cut, forward and backward; the
+    # coarse step renders no cut)
+    steps = {"coarse": per_kernel(*(PIPE_COARSE,) * 3), "post-opt": per_kernel(*(PIPE_POST,) * 5)}
+    for stage, want_replayed in steps.items():
+        check(replayed.get(stage) == want_replayed,
+              f"pipeline: the {stage} stage replayed {replayed.get(stage)} launches, expected {want_replayed}")
+    want = {stage: tuple(n + w for n, w in zip(steps[stage], warm[stage])) for stage in steps}
+    want["eval"] = per_kernel(n_eval, 0, 0, n_eval)  # a cut interpolated and rendered per (τ, view)
     for key, expect in want.items():
         check(launches.get(key) == expect, f"pipeline: {key} launched {launches.get(key)}, expected {expect}")
     by_stage = [sum(v[k] for v in launches.values()) for k in range(len(KERNEL_NAMES))]
@@ -4561,7 +4697,22 @@ def main() -> int:
         "bound_ms": adam_k["bound_ms"],
         "bound_by": adam_k["bound_by"],
         "library_ms": None,  # no PyTorch call computes a masked Adam with per-row steps
-    }]
+    }] + [{
+        "name": f"interp_{way}",
+        "route": "cuda",
+        "source": "hidegs_tpu_torch/hier/csrc/interp.cu",
+        # no Pallas kernel: XLA's fusion of the JAX interpolation's gathers and lerps (and their jax.vjp)
+        "replaces": "hidegs_tpu/hier/interp.py:32",
+        "launches": launches[f"interp_{way}"],
+        "launches_by_path": by_path[f"interp_{way}"],
+        # phase 6b's last post-opt step (both ways) and phase 6a's τ=6 frame (forward): bitwise, so 0
+        "max_abs_err": max([post_opt["interp"]["err"], *((lod["interp_err"],) if way == "fwd" else ())]),
+        "ms": post_opt["interp"][f"{way}_ms"],  # phase 6b's last cut: B = 2^21 slots, P = 2,020,479 rows
+        "plain_ms": post_opt["interp"][f"{way}_plain_ms"],
+        "bound_ms": post_opt["interp"][f"{way}_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes the interpolation
+    } for way in ("fwd", "bwd")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -6,9 +6,11 @@ of each selected gaussian are lerped with its parent's by the smooth LOD
 weight t (the rotation sign-aligned first), the skybox tail is appended with
 t=1, and the LOD alpha correction α ← t·α + (1−t)·(1−(1−α)^(1/kids))
 (forward.cu:547-556) is applied to the interpolated opacity. The result
-feeds the ordinary `render`; as in the JAX package, the reference's
-hand-written hierarchy backward (backward.cu:459-495) is autograd of these
-gathers and lerps.
+feeds the ordinary `render`. On the CPU, as in the JAX package, the
+reference's hand-written hierarchy backward (backward.cu:459-495) is
+autograd of these gathers and lerps (`interpolate_plain` in
+hier/interp_autograd.py); on a card one kernel each way computes the same
+(csrc/interp.cu, with PyTorch's sorted accumulation onto the rows).
 
 The gathers read one (P, 59) attribute matrix (`pack_attributes`: means,
 scales, quats, opacity and the 48 SH values of each gaussian). The JAX
@@ -25,6 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from hidegs_tpu_torch.hier.interp_autograd import InterpolateRows, interpolate_plain
 from hidegs_tpu_torch.hier.io import Hierarchy
 from hidegs_tpu_torch.hier.lod import (
     HierCut,
@@ -32,7 +35,6 @@ from hidegs_tpu_torch.hier.lod import (
     cut_size_packed,
     expand_packed,
     expand_to_size,
-    hierarchy_opacity_correction,
     pack_hierarchy,
 )
 from hidegs_tpu_torch.raster.api import RasterConfig, render, round_budget
@@ -65,6 +67,18 @@ def pack_attributes(means3d, scales, quats, opacities, shs) -> torch.Tensor:
     return torch.cat([means3d, scales, quats, opacities[:, None], shs.reshape(P, -1)], dim=-1)
 
 
+def slot_rows(cut: HierCut, num_points: int):
+    """(ri, pi), (B,) int64: the rows of the P = `num_points` rows that
+    each budget slot interpolates from and to. A valid slot reads its
+    gaussian and its parent's first gaussian (clamped to P - 1); an invalid
+    one row (slot mod P) for both."""
+    P = num_points
+    spread = torch.arange(cut.valid.shape[0], device=cut.valid.device) % P
+    ri = torch.where(cut.valid, torch.clamp(cut.render_indices, max=P - 1).long(), spread)
+    pi = torch.where(cut.valid, torch.clamp(cut.parent_indices, max=P - 1).long(), spread)
+    return ri, pi
+
+
 def interpolate_cut(
     cut: HierCut,
     means3d: torch.Tensor,  # (P, 3)
@@ -78,39 +92,24 @@ def interpolate_cut(
     """The (B [+ skybox],) rendering arrays of one LOD cut.
 
     Invalid budget slots get opacity 0 (render culls them) and gather row
-    (slot mod P), where the JAX package clamps them all to row P - 1: the
-    gathers' backward sums each run of equal indices in one thread, and a
-    million padding slots on one row cost ~0.8 s per gather on an H100.
+    (slot mod P) (`slot_rows`), where the JAX package clamps them all to row
+    P - 1: the gathers' backward sums each run of equal indices in one
+    thread, and a million padding slots on one row cost ~0.8 s per gather
+    on an H100.
     Skybox points are the LAST `skybox_count` gaussians (the reference keeps
     them at the tail, render_post:300-313). `attrs` is `pack_attributes` of
-    the five arrays, built here when not given.
+    the five arrays, built here when not given. The slots are
+    `interpolate_plain` on CPU tensors, else the kernels of
+    `InterpolateRows`, which take CUDA tensors only.
     """
     P = means3d.shape[0]
     if attrs is None:
         attrs = pack_attributes(means3d, scales, quats, opacities, shs)
-    spread = torch.arange(cut.valid.shape[0], device=cut.valid.device) % P
-    ri = torch.where(cut.valid, torch.clamp(cut.render_indices, max=P - 1).long(), spread)
-    pi = torch.where(cut.valid, torch.clamp(cut.parent_indices, max=P - 1).long(), spread)
-    t = cut.ts[:, None]
-    row_c = attrs[ri]
-    row_p = attrs[pi]
-    sh_shape = shs.shape[1:]
-    sh_dim = sh_shape[0] * sh_shape[1]
-
-    m = t * row_c[:, 0:3] + (1 - t) * row_p[:, 0:3]
-    s = t * row_c[:, 3:6] + (1 - t) * row_p[:, 3:6]
-    sh = (t[..., None] * row_c[:, 11:11 + sh_dim].reshape(-1, *sh_shape)
-          + (1 - t[..., None]) * row_p[:, 11:11 + sh_dim].reshape(-1, *sh_shape))
-
-    rot_c = row_c[:, 6:10]
-    rot_p = row_p[:, 6:10]
-    dot = torch.sum(rot_c * rot_p, dim=-1, keepdim=True)
-    sign = torch.where(dot < 0, -torch.ones_like(dot), torch.ones_like(dot))
-    q = t * rot_c + (1 - t) * rot_p * sign
-
-    op = cut.ts * row_c[:, 10] + (1 - cut.ts) * row_p[:, 10]
-    op = hierarchy_opacity_correction(op, cut.ts, cut.kids)
-    op = torch.where(cut.valid, op, torch.zeros_like(op))
+    slots = (attrs, *slot_rows(cut, P), cut.ts, cut.kids, cut.valid, shs.shape[1:])
+    if attrs.device.type == "cpu":
+        m, s, q, op, sh = interpolate_plain(*slots)
+    else:
+        m, s, q, op, sh = InterpolateRows.apply(*slots)
 
     if skybox_count > 0:
         sky = slice(P - skybox_count, P)

@@ -12,4 +12,5 @@ SOURCES = {
     "blend_bwd": PACKAGE / "raster" / "csrc" / "blend_bwd.cu",  # raster/cuda_blend.py
     "preprocess": PACKAGE / "raster" / "csrc" / "preprocess.cu",  # raster/preprocess_autograd.py
     "masked_adam": PACKAGE / "model" / "csrc" / "masked_adam.cu",  # model/adam.py
+    "interp": PACKAGE / "hier" / "csrc" / "interp.cu",  # hier/interp_autograd.py
 }

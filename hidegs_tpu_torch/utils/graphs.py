@@ -24,12 +24,13 @@ its refusals and what only it does. Here:
     `GraphSet.captures` records what each capture cost (warm-up and
     capture seconds, the pool's growth, the launches);
   * launch accounting: the counters of `cuda_blend`,
-    `preprocess_autograd` and `model.adam` count their launchers' calls,
-    which a replay does not make. A capture records how often the body
-    launched each kernel and leaves those counters as they were (it
-    launches nothing); every replay adds the graph's launches to
-    `REPLAY_LAUNCHES`, one process-wide count for every compiled callable.
-    The warm-up's launches are real and stay in the launchers' counters;
+    `preprocess_autograd`, `model.adam` and `hier.interp_autograd` count
+    their launchers' calls, which a replay does not make. A capture
+    records how often the body launched each kernel and leaves those
+    counters as they were (it launches nothing); every replay adds the
+    graph's launches to `REPLAY_LAUNCHES`, one process-wide count for
+    every compiled callable. The warm-up's launches are real and stay in
+    the launchers' counters;
   * spans (utils/profiling.py): every capture is a `graph.capture` span and
     every replay a `graph.replay` span, with the `GraphSet`'s name as
     `what`; nothing inside a captured body records one.
@@ -47,6 +48,7 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
+from hidegs_tpu_torch.hier import interp_autograd
 from hidegs_tpu_torch.model import adam
 from hidegs_tpu_torch.raster import cuda_blend, preprocess_autograd
 from hidegs_tpu_torch.utils.profiling import span
@@ -54,20 +56,23 @@ from hidegs_tpu_torch.utils.profiling import span
 # the render's kernels, in the order of their counters (gsbench/trace.py
 # pairs this tuple with the five render counters)
 KERNELS = ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd")
-# every counted kernel: the render's and the masked Adam
-ALL_KERNELS = KERNELS + ("masked_adam",)
+# every counted kernel: the render's, the masked Adam and the LOD cut's
+# interpolation
+ALL_KERNELS = KERNELS + ("masked_adam", "interp_fwd", "interp_bwd")
 # launches of each kernel made by graph replays in this process
 REPLAY_LAUNCHES = {k: 0 for k in ALL_KERNELS}
 
 
 def _kernel_counts() -> tuple:
     return (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES,
-            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES, adam.LAUNCHES)
+            preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES, adam.LAUNCHES,
+            interp_autograd.FWD_LAUNCHES, interp_autograd.BWD_LAUNCHES)
 
 
 def _set_kernel_counts(counts: tuple) -> None:
     (cuda_blend.LAUNCHES, cuda_blend.BWD_LAUNCHES, cuda_blend.FOLD_LAUNCHES,
-     preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES, adam.LAUNCHES) = counts
+     preprocess_autograd.FWD_LAUNCHES, preprocess_autograd.BWD_LAUNCHES, adam.LAUNCHES,
+     interp_autograd.FWD_LAUNCHES, interp_autograd.BWD_LAUNCHES) = counts
 
 
 def _map(fn, x):

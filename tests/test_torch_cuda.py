@@ -585,7 +585,7 @@ def test_compiled_step_is_bitwise_the_eager_step(cuda, variant):
         if k > 0:
             assert _counts() == counts, "a replay went through the launchers"
         assert {n: graphs.REPLAY_LAUNCHES[n] - replays[n] for n in replays} == dict(
-            dict.fromkeys(graphs.KERNELS, per_step), masked_adam=1)
+            dict.fromkeys(graphs.KERNELS, per_step), masked_adam=1, interp_fwd=0, interp_bwd=0)
         for n, (a, b) in enumerate(zip(graphs._tensors(comp), graphs._tensors(eager), strict=True)):
             assert torch.equal(a, b), f"{variant} step {k}: tensor {n} of the state"
         assert em.keys() == cm.keys() and all(torch.equal(em[m], cm[m]) for m in em), variant
@@ -594,7 +594,8 @@ def test_compiled_step_is_bitwise_the_eager_step(cuda, variant):
         assert ptrs is None or now == ptrs, "the replay returned other buffers"
         ptrs = now
     assert float(cm["step_ok"]) == 1.0 and len(step.captures) == 1 and step.replays == 3
-    assert step.captures[0]["launches"] == dict(dict.fromkeys(graphs.KERNELS, per_step), masked_adam=1)
+    assert step.captures[0]["launches"] == dict(dict.fromkeys(graphs.KERNELS, per_step), masked_adam=1,
+                                                interp_fwd=0, interp_bwd=0)
     if variant == "compaction":
         assert int(cm["num_visible"]) > 0 and int(cm["visible_overflow"]) >= 0
     if variant == "multi-view":
@@ -844,7 +845,7 @@ def test_lod_frame_kernel_holds_against_plain(cuda, mode):
             again = r.render(cam, 2.0)
             want = eager.render(cam, 2.0)
         torch.cuda.synchronize()
-        assert tuple(b - a for a, b in zip(replays, _replays())) == (2, 0, 0, 2, 0, 0)
+        assert tuple(b - a for a, b in zip(replays, _replays())) == (2, 0, 0, 2, 0, 0, 2, 0)
         assert cuda_blend.LAUNCHES == before[0] + 1 + 1  # the warm-up's and the eager frame's
         assert len(r.compiled.captures) == 1 and r.compiled.replays == 2 and int(out["overflow"]) == 0
         for key in out:
@@ -1104,7 +1105,7 @@ def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
         for k in range(2):
             got, gm = step(ts, step.select(ts, cams[0], target, budget), cams[0], gts[0], lrs, rcfg, **kw)
             torch.cuda.synchronize()
-            assert tuple(b - a for a, b in zip(replays, _replays())) == (k + 1,) * 6
+            assert tuple(b - a for a, b in zip(replays, _replays())) == (k + 1,) * 8
             assert tuple(b - a for a, b in zip(before, _counts())) == ((1, 1, 1) if k == 0 else (0, 0, 0))
             want, wm = ht.hier_train_step(ts, cut, cams[0], gts[0], lrs, rcfg, **kw)
             for x, y in zip(_post_opt_leaves(got), _post_opt_leaves(want)):
@@ -1113,7 +1114,8 @@ def test_post_opt_step_kernels_hold_against_plain(cuda, mode):
             before = _counts()
         assert [c["kind"] for c in step.captures] == ["cut", "step"]
         assert step.captures[1]["launches"] == step.captures[1]["warmup_launches"] == dict.fromkeys(
-            ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd", "masked_adam"), 1)
+            ("blend_fwd", "blend_bwd", "fold_rows", "preprocess_fwd", "preprocess_bwd", "masked_adam", "interp_fwd",
+             "interp_bwd"), 1)
         assert all(int(gm["counters"][COUNTERS.index(c)]) == 0 for c in ("overflow", "block_overflow",
                                                                            "visible_overflow"))
         return
@@ -1278,7 +1280,7 @@ def test_compiled_post_opt_step_is_bitwise_the_eager_step(cuda, variant):
         torch.cuda.synchronize()
         if k > 0:
             assert _counts() == counts, "a replay went through the launchers"
-        assert tuple(b - a for a, b in zip(replays, _replays())) == (1,) * 6
+        assert tuple(b - a for a, b in zip(replays, _replays())) == (1,) * 8
         for n, (a, b) in enumerate(zip(_post_opt_leaves(comp), _post_opt_leaves(eager))):
             assert torch.equal(a, b), f"{variant} step {k}: leaf {n}"
         assert all(torch.equal(em[m], cm[m]) for m in em), variant
@@ -1447,7 +1449,8 @@ def test_pipeline_runs_on_the_card(cuda, tmp_path):
     assert len(meta["chunks"]) == 2 and len(meta["lod_eval"]) == 2
     n_eval = 2 * 8  # two taus, eight of the ten views
     # one capture per chunk and one of the post-opt step: each warm-up is one launch of each
-    assert replayed == (3 * 2 + 3,) * 6, replayed
+    # the interpolation runs in the post-opt step alone
+    assert replayed == (3 * 2 + 3,) * 6 + (3, 3), replayed
     assert bwd == fold == 2 + 1 and fwd == bwd + n_eval, (fwd, bwd, fold)
     for name in ("merged.hier", "merged_opt.hier"):
         h = hio.read_hier(os.path.join(out, name))
@@ -1657,7 +1660,7 @@ def test_compiled_dp_step_is_bitwise_the_eager_step(cuda, variant, tmp_path):
             comp, cm = step(comp, batch)
             torch.cuda.synchronize()
             assert [a - b for a, b in zip(_counts(), counts)] == ([V] * 3 if k == 0 else [0] * 3)
-            assert [a - b for a, b in zip(_replays(), replays)] == [V] * 5 + [1]
+            assert [a - b for a, b in zip(_replays(), replays)] == [V] * 5 + [1, 0, 0]
             for n, (a, b) in enumerate(zip(graphs._tensors(comp), graphs._tensors(eager), strict=True)):
                 assert torch.equal(a, b), f"{variant} step {k}: tensor {n} of the state"
             assert em.keys() == cm.keys() and all(torch.equal(em[m], cm[m]) for m in em), variant
@@ -1666,7 +1669,8 @@ def test_compiled_dp_step_is_bitwise_the_eager_step(cuda, variant, tmp_path):
             assert ptrs is None or now == ptrs, "the replay returned other buffers"
             ptrs = now
         assert len(step.captures) == 1 and step.replays == 3
-        assert step.captures[0]["launches"] == dict(dict.fromkeys(graphs.KERNELS, V), masked_adam=1)
+        assert step.captures[0]["launches"] == dict(dict.fromkeys(graphs.KERNELS, V), masked_adam=1, interp_fwd=0,
+                                                    interp_bwd=0)
         del step  # its graph holds the group's collectives
     finally:
         torch.cuda.synchronize()
@@ -2306,7 +2310,7 @@ def test_masked_adam_kernel_captures_without_a_host_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     g = gs.capture(cuda, scratch, body, {})
-    assert g.launches == dict(dict.fromkeys(graphs.KERNELS, 0), masked_adam=1)
+    assert g.launches == dict(dict.fromkeys(graphs.KERNELS, 0), masked_adam=1, interp_fwd=0, interp_bwd=0)
     for k in range(3):
         old = [x.clone() for x in state]
         want = _adam_tensors(*adam.masked_adam_plain(type(params)(*old[:6]), grads, type(opt)(
